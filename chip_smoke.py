@@ -8,26 +8,38 @@ Phases, each printing one JSON line:
 1. device  — needs ``torch.cuda.is_available()`` and the port
    (``nfs_tpu_torch``) beside the script; prints the card's name and the
    ``nvidia-smi`` name and power limit.
-2. build   — compiles ``nfs_tpu_torch/csrc/advect.cu`` with nvcc for
-   sm_90a into ``build/nfs_tpu_torch/`` and loads it.
-3. kernels — K1-K3 against their plain PyTorch twins on the card at the
-   main path's 112x64x112 shape (random, clamped, integer-valued and zero
-   velocities; max_disp 2 and 1), and both timed (median of CUDA-event
-   timed runs).
-   reference — a small run of the slice on the GPU against the same run
-   on the CPU (plain twins; the CPU port is held against the JAX package
-   by the tests).
+2. build   — compiles ``nfs_tpu_torch/csrc/advect.cu`` and
+   ``binsplat.cu`` with nvcc for sm_90a into ``build/nfs_tpu_torch/``,
+   both at once, and loads them.
+3. kernels — every kernel against its plain PyTorch version on the card,
+   at the main paths' shapes: K1-K3 at 112x64x112 (random, clamped,
+   integer-valued and zero velocities; max_disp 2 and 1); K4-K5 on the
+   particle path's finest octave (200 000 particles of the particles_3d
+   bench binned at 96x64x96 with the styler's own capacity K: as binned,
+   drifted +-0.5 cell, crowded past K = 2, integer positions). Each
+   kernel, its plain version and the one PyTorch library call that
+   computes the same function, where there is one, are timed (median of
+   30 CUDA-event timed runs).
+   reference — small runs of the grid and particle slices on the GPU
+   against the same runs on the CPU (plain versions; the CPU port is held
+   against the JAX package by the tests).
 4. density — the grid styler's streaming sequence path at config #3
    widths with the window-transport loss (W=1): 3 frames of 112x64x112
    through ``FrameStore`` and ``GridStyler.stylize_sequence``.
 5. velocity — the velocity parameterization (config #4), one frame, W=1.
-6. profile (only with ``--profile``) — the density slice at config #3's
+6. particle — the LNST path at the particles_3d bench widths:
+   ``ParticleStyler.stylize_keyframes`` over 11 frames of 200 000
+   particles on a 96x64x96 grid (keyframes 0 and 10), 3 octaves x 20
+   iterations, 9 views at 256^2.
+7. profile (only with ``--profile``) — the density slice at config #3's
    20 iterations per octave: steady seconds per iteration and per frame,
    then two frames under ``torch.profiler`` for the device's kernel time
-   per iteration by category and its idle share in that traced run.
+   per iteration by category and its idle share in that traced run; then
+   keyframe 10 of the particle phase under ``torch.profiler`` the same
+   way.
 
-Then one JSON line with every kernel's route, error, launches on the main
-path and times, and as the last line
+Then one JSON line with every kernel's route, error, launches on its main
+path, times and least time on the card, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, so the exit code is non-zero and no result is printed.
 Weights (VGG), style image and data are random, made from fixed seeds.
@@ -56,6 +68,31 @@ KERNELS = (
     ("bwd_vel", "advect_bwd_vel (K3)", "nfs_tpu/ops/pallas_advect.py:203"),
 )
 TOL = {"fwd": 1e-5, "bwd_field": 1e-4, "bwd_vel": 1e-4}
+BIN_KERNELS = (
+    ("fwd", "binsplat_fwd (K4)", "nfs_tpu/ops/pallas_binsplat.py:125"),
+    ("bwd", "binsplat_bwd (K5)", "nfs_tpu/ops/pallas_binsplat.py:248"),
+)
+# values against sums of the same terms in another order; K5's position
+# gradients are sums of 27 products of O(1) weights and O(1) cotangents
+BIN_TOL = {"fwd": 1e-5, "bwd": 1e-4}
+
+# The particles_3d bench (bench/full_bench.py:194-230): 200 000 particles
+# uniform on [8, 88) x [8, 56) x [8, 88) of a 96x64x96 grid
+P_GRID = (96, 64, 96)
+P_COUNT = 200_000
+
+# least time on the card: the H100 SXM's 3.35 TB/s HBM and 67 TFLOP/s
+# float32 outside the tensor cores (NVIDIA's H100 SXM datasheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# float32 operations each kernel's function needs per element: K1 one
+# clamped backtrace (12) and 8 trilinear corner terms (13 each); K2 its
+# adjoint, the same per source cell; K3 27 taps of 3 derivative products
+# (10 each) plus the backtrace; K4 per OCCUPIED slot 3 fracs (2), 9
+# weights (4) and 27 taps (4), empty slots being skipped; K5 per slot the
+# same fracs and weights, 9 derivatives (4) and 27 taps of 4 sums (16)
+OPS_PER_ELEMENT = {"fwd": 116, "bwd_field": 116, "bwd_vel": 282,
+                   "binsplat_fwd": 150, "binsplat_bwd": 513}
 
 
 def emit(obj) -> None:
@@ -79,13 +116,27 @@ def phase_device():
 
 
 def phase_build():
+    """Both libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
 
     t0 = time.perf_counter()
-    so = ak.build_library()
+    with ThreadPoolExecutor(2) as pool:
+        sos = list(pool.map(lambda m: m.build_library(), (ak, bk)))
     ak.load_library()
+    bk.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(so)})
+          "libraries": [os.path.relpath(so) for so in sos]})
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms on the card, what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _kernel_inputs(case: str, max_disp: float, seed: int):
@@ -163,6 +214,8 @@ def phase_kernels(card: str):
     # times at the main path's shape: K1/K2 as the window loss runs them
     # (max_disp 2), K3 as the velocity parameter runs it (max_disp 1)
     records = []
+    n = math.prod(SHAPE)
+    io_floats = {"fwd": 5 * n, "bwd_field": 5 * n, "bwd_vel": 8 * n}
     for key, name, replaces in KERNELS:
         md = 1.0 if key == "bwd_vel" else 2.0
         f, g, v = (torch.from_numpy(a).to(dev)
@@ -170,13 +223,138 @@ def phase_kernels(card: str):
         kern, plain = pairs[key]
         ms = _median_ms(lambda: kern(f, g, v, md))
         plain_ms = _median_ms(lambda: plain(f, g, v, md))
+        library = _advect_library_call(key, f, g, v, md)
+        library_ms = _median_ms(library)
+        bound_ms, bound_by = _bound(4 * io_floats[key],
+                                    OPS_PER_ELEMENT[key] * n)
         records.append({"name": name, "route": "cuda",
                         "source": "nfs_tpu_torch/csrc/advect.cu",
                         "replaces": replaces, "launches": None,
                         "max_abs_err": errs[key], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms})
         emit({"phase": "kernel_time", "kernel": name, "max_disp": md,
               "shape": list(SHAPE), "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "card": card})
+    return records
+
+
+def _advect_library_call(key, f, g, v, md):
+    """The one PyTorch call computing K1's function (``F.grid_sample`` at
+    the clamped backtrace, zero padding, align_corners) or K2's and K3's
+    together (its backward, ``aten.grid_sampler_3d_backward``). A
+    yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    s = ak.backtrace(v, md)
+    # normalised (x, y, z) sample grid, align_corners=True
+    grid = torch.stack([2.0 * s[a] / (SHAPE[a] - 1) - 1.0
+                        for a in (2, 1, 0)], dim=-1)[None].contiguous()
+    inp = f[None, None]
+    if key == "fwd":
+        return lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True)
+    gout = g[None, None]
+    return lambda: torch.ops.aten.grid_sampler_3d_backward(
+        gout, inp, grid, 0, 0, True, [True, True])
+
+
+def _bin_inputs(case: str, K: int, seed: int):
+    """The finest octave's window operands for the particles_3d bench
+    particles: (a, p_z, p_y, p_x) as (K, Zp, Yp, Xp) CUDA tensors, the
+    cotangent g (Zp, Yp, Xp), and the occupied slots."""
+    import torch
+
+    from nfs_tpu_torch.ops import binsplat as B
+
+    rng = np.random.default_rng(seed)
+    x = _bench_particles(rng)
+    if case == "crowded":      # a tenth of them in one cell: parked
+        x[: P_COUNT // 10] = 40.0 + 0.05 * rng.random((P_COUNT // 10, 3))
+    elif case == "integer":    # integers and half-integers: _dw1d's ties
+        x = np.round(2.0 * x) / 2.0
+    dev = torch.device("cuda", 0)
+    xt = torch.from_numpy(x).to(dev)
+    bn = B.bin_particles(xt, P_GRID, K)
+    if case == "drifted":
+        xt = xt + torch.from_numpy(rng.uniform(
+            -0.5, 0.5, x.shape).astype(np.float32)).to(dev)
+    pshape = B.padded_shape(P_GRID)
+    n_slots = bn.valid.shape[0]
+    p_b = B.to_binned(bn, xt)
+    a_b = B.to_binned(bn, torch.from_numpy(
+        (0.5 + rng.random(P_COUNT)).astype(np.float32)).to(dev))
+    a4 = torch.where(bn.valid, a_b[:n_slots], 0.0).view((K,) + pshape)
+    p4 = [p_b[d, :n_slots].view((K,) + pshape) for d in range(3)]
+    g = torch.from_numpy(rng.standard_normal(pshape, dtype=np.float32)
+                         ).to(dev)
+    return a4, p4, g, int(bn.valid.sum()), int(bn.n_overflow)
+
+
+def _bench_particles(rng) -> np.ndarray:
+    return (rng.random((P_COUNT, 3)) * np.array([80, 48, 80])
+            + np.array([8, 8, 8])).astype(np.float32)
+
+
+def phase_bin_kernels(card: str, K: int):
+    """K4 and K5 against their plain versions on the particle path's
+    finest-octave operands; then timed on the 'binned' case."""
+    import torch
+
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for n, case in enumerate(("binned", "drifted", "crowded", "integer")):
+        k = 2 if case == "crowded" else K
+        a4, p4, g, occupied, parked = _bin_inputs(case, k, seed=n)
+        case_err = {
+            "fwd": float((bk.binsplat_fwd(a4, *p4)
+                          - bk.window_fwd_plain(a4, *p4)).abs().max()),
+            "bwd": max(float((x - y).abs().max()) for x, y in zip(
+                bk.binsplat_bwd(a4, *p4, g),
+                bk.window_bwd_plain(a4, *p4, g)))}
+        torch.cuda.synchronize()
+        for key, err in case_err.items():
+            if not err <= BIN_TOL[key]:   # also catches NaN
+                raise AssertionError(
+                    f"binsplat {key} disagrees with its plain version on "
+                    f"case {case}: {err} > {BIN_TOL[key]}")
+            errs[key] = max(errs[key], err)
+        emit({"phase": "kernels", "case": case, "K": k,
+              "occupied_slots": occupied, "parked": parked,
+              "max_abs_err": case_err, "tol": BIN_TOL})
+
+    a4, p4, g, occupied, _ = _bin_inputs("binned", K, seed=99)
+    slots, cells = a4.numel(), g.numel()
+    calls = {"fwd": (lambda: bk.binsplat_fwd(a4, *p4),
+                     lambda: bk.window_fwd_plain(a4, *p4)),
+             "bwd": (lambda: bk.binsplat_bwd(a4, *p4, g),
+                     lambda: bk.window_bwd_plain(a4, *p4, g))}
+    # least bytes: each input read once, each output written once
+    work = {"fwd": (4 * (4 * slots + cells),
+                    OPS_PER_ELEMENT["binsplat_fwd"] * occupied),
+            "bwd": (4 * (8 * slots + cells),
+                    OPS_PER_ELEMENT["binsplat_bwd"] * slots)}
+    records = []
+    for key, name, replaces in BIN_KERNELS:
+        kern, plain = calls[key]
+        ms = _median_ms(kern)
+        plain_ms = _median_ms(plain)
+        bound_ms, bound_by = _bound(*work[key])
+        records.append({"name": name, "route": "cuda",
+                        "source": "nfs_tpu_torch/csrc/binsplat.cu",
+                        "replaces": replaces, "launches": None,
+                        "max_abs_err": errs[key], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+        emit({"phase": "kernel_time", "kernel": name, "K": K,
+              "padded_grid": list(g.shape), "occupied_slots": occupied,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "card": card})
     return records
 
@@ -278,6 +456,61 @@ def phase_reference(card: str):
     emit({"phase": "reference", "shape": list(shape), "vs": "cpu port",
           "tol": {"loss_rel": 1e-4, "d_star_max_abs": 1e-3},
           "err": worst, "card": card})
+
+
+def phase_reference_particle(card: str):
+    """The particle slice at a small size on the GPU (K4/K5) against the
+    same run on the CPU (their plain versions; held against the JAX
+    package by tests/test_torch_particle.py): position + density, a
+    grid-space coarse octave and a window octave, 2 keyframes."""
+    import torch
+
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    grid = (16, 12, 16)
+    rng = np.random.default_rng(6)
+    x0 = (rng.random((1500, 3)) * (np.array(grid) - 4) + 2).astype(
+        np.float32)
+    frames = [ParticleSet(x=x0 + 0.1 * t, dens=np.ones(1500, np.float32))
+              for t in range(3)]
+    style = rng.random((32, 32, 3), dtype=np.float32)
+    cfg = _northstar_cfg(**{
+        "render.render_size": (32, 32), "render.min_render_size": 16,
+        "render.n_views": 2, "render.view_pool": 1, "render.transmit": 0.5,
+        "loss.style_layers": ("relu1_1", "relu2_1"),
+        "loss.style_layer_weights": (1.0, 1.0),
+        "loss.features_dtype": "float32", "optim.octave_n": 2,
+        "optim.octave_scale": 2.0, "optim.iters": 3, "optim.lr": 0.05,
+        "particle.optimize_density": True, "particle.keyframe_stride": 2})
+    runs = {}
+    before = dict(bk.LAUNCHES)
+    for dev in ("cpu", "cuda"):
+        styler = ParticleStyler(cfg, grid_shape=grid, style_image=style,
+                                device=dev)
+        outs = [(p.x.cpu().numpy(), p.dens.cpu().numpy())
+                for _, p in styler.stylize_keyframes(frames)]
+        losses = torch.cat([torch.cat(i["octave_losses"]).cpu() for _, i in
+                            sorted(styler.last_keyframe_infos.items())])
+        runs[dev] = (losses.numpy(), outs)
+    if bk.LAUNCHES["fwd"] == before["fwd"]:
+        raise AssertionError("the GPU particle run did not launch K4")
+    (lc, oc), (lg, og) = runs["cpu"], runs["cuda"]
+    loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    x_err = max(float(np.abs(g[0] - c[0]).max()) for g, c in zip(og, oc))
+    d_err = max(float(np.abs(g[1] - c[1]).max()) for g, c in zip(og, oc))
+    err = {"loss_rel": loss_rel, "x_max_abs": x_err, "dens_max_abs": d_err}
+    # f32 sums in other orders carried through 12 Adam steps; Adam's
+    # normalised step magnifies near-zero gradient components (the CPU
+    # port matches JAX to <= 1e-6 in loss and <= 2e-4 in x)
+    if not (loss_rel <= 1e-4 and x_err <= 1e-3 and d_err <= 1e-3):
+        raise AssertionError(f"particle GPU run departs from the CPU "
+                             f"reference: {err}")
+    emit({"phase": "reference", "slice": "particle", "grid": list(grid),
+          "vs": "cpu port", "tol": {"loss_rel": 1e-4, "x_max_abs": 1e-3,
+                                    "dens_max_abs": 1e-3},
+          "err": err, "card": card})
 
 
 def phase_density(card: str, frames_dir: str):
@@ -389,9 +622,141 @@ def phase_velocity(card: str):
           "launches": launches, "card": card})
 
 
+def _particle_frames(T: int):
+    """The lnst_vs_tnst_seq bench scene (bench/full_bench.py:263-279): the
+    particles_3d particles advected by a swirl about the grid's centre,
+    float32 as the bench computes it."""
+    x = _bench_particles(np.random.default_rng(0))
+    c = np.array([48.0, 32.0, 48.0], np.float32)
+    xs = [x]
+    for _ in range(T - 1):
+        r = xs[-1] - c
+        swirl = np.stack([-r[:, 2], np.full_like(r[:, 0], 0.3), r[:, 0]],
+                         axis=-1)
+        xs.append((xs[-1] + np.float32(0.02) * swirl).astype(np.float32))
+    return xs
+
+
+def _particle_cfg(**over):
+    """The particles_3d bench config (bench/full_bench.py:208-215) at 20
+    iterations per octave, keyframe stride 10."""
+    from nfs_tpu_torch.core.config import StyleConfig, replace
+
+    base = {"render.render_size": (256, 256), "render.n_views": 9,
+            "render.transmit": 0.05, "loss.features_dtype": "bfloat16",
+            "optim.octave_n": 3, "optim.iters": 20,
+            "particle.optimize_position": True,
+            "particle.optimize_density": True,
+            "particle.keyframe_stride": 10}
+    base.update(over)
+    return replace(StyleConfig(), **base)
+
+
+def _finest_k() -> int:
+    """The bin capacity the styler plans for the finest octave of the
+    particle phase's first keyframe (its own `_octave_ks`, margin 2)."""
+    import torch
+
+    from nfs_tpu_torch.ops.resize import octave_shapes
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    cfg = _particle_cfg()
+    styler = ParticleStyler(cfg, grid_shape=P_GRID, device="cuda")
+    x = torch.from_numpy(_particle_frames(1)[0]).cuda()
+    shapes = octave_shapes(P_GRID, cfg.optim.octave_n, cfg.optim.octave_scale)
+    return styler._octave_ks(x, None, shapes, margin=2)[-1]
+
+
+def phase_particle(card: str, profile: bool):
+    """LNST keyframes at full width: 11 frames of 200 000 particles,
+    keyframes 0 and 10. Returns the K4/K5 launches of the run."""
+    import torch
+
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    T = 11
+    cfg = _particle_cfg()
+    oc, pc = cfg.optim, cfg.particle
+    xs = _particle_frames(T)
+    dens = np.ones(P_COUNT, np.float32)
+    psets = [ParticleSet(x=x, dens=dens) for x in xs]
+    style = np.random.default_rng(1).random((256, 256, 3),
+                                            dtype=np.float32)
+    styler = ParticleStyler(cfg, grid_shape=P_GRID, style_image=style,
+                            device="cuda")
+
+    # host clock at every loss readback (log_every iterations in the
+    # grid-space octaves, once per rebin chunk in the finest)
+    marks = []
+    kf_s, kf_init = [], []
+    stylize_frame = styler.stylize_frame
+
+    def timed_frame(*args, **kw):
+        kf_init.append(kw.get("init_param"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stylize_frame(*args, **kw)   # ends in a host sync
+        kf_s.append(time.perf_counter() - t0)
+        return out
+
+    styler.stylize_frame = timed_frame
+    bk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for t, p in styler.stylize_keyframes(
+            psets, callback=lambda done, loss, octave: marks.append(
+                (octave, done, time.perf_counter()))):
+        outs.append((t, p.x.cpu().numpy(), p.dens.cpu().numpy()))
+    wall = time.perf_counter() - t0
+    launches = dict(bk.LAUNCHES)
+    del styler.stylize_frame
+
+    if [t for t, _, _ in outs] != list(range(T)):
+        raise AssertionError(f"frames out of order: {[o[0] for o in outs]}")
+    worst_dx = 0.0
+    for t, x, d in outs:
+        if not (np.isfinite(x).all() and np.isfinite(d).all()
+                and x.shape == (P_COUNT, 3) and d.shape == (P_COUNT,)):
+            raise AssertionError(f"frame {t}: bad output")
+        worst_dx = max(worst_dx, float(np.abs(x - xs[t]).max()))
+    if worst_dx > pc.max_offset:
+        raise AssertionError(f"|dx| {worst_dx} > max_offset")
+    infos = styler.last_keyframe_infos
+    finest = infos[0]["octave_losses"][-1].cpu().numpy()
+    if not finest[-1] < finest[0]:
+        raise AssertionError(f"finest octave loss did not drop: {finest}")
+    if launches["fwd"] <= 0 or launches["bwd"] <= 0:
+        raise AssertionError(f"K4/K5 not launched: {launches}")
+    # finest octave of keyframe 10: from the last readback of octave 1 to
+    # the readback that ends octave 2 (the whole 20-iteration chunk)
+    kf10 = marks[len(marks) // 2:]
+    t_in = max(m[2] for m in kf10 if m[0] == oc.octave_n - 2)
+    t_out = max(m[2] for m in kf10 if m[0] == oc.octave_n - 1)
+    emit({"phase": "particle", "frames": T, "keyframes": sorted(infos),
+          "particles": P_COUNT, "grid": list(P_GRID),
+          "k_plan": next(iter(styler._k_cache.values())),
+          "reduced": "nothing of the particles_3d bench widths: random VGG "
+                     "weights and style image (no downloads)",
+          "keyframe_s": kf_s,
+          "finest_s_per_iter_kf10": (t_out - t_in) / oc.iters,
+          "s_per_output_frame": wall / T, "wall_s": wall,
+          "finest_octave_losses_kf0": finest.tolist(),
+          "octave_overflow": {kf: i["octave_overflow"]
+                              for kf, i in infos.items()},
+          "max_abs_dx": worst_dx, "launches": launches,
+          "launches_predicted": {"fwd": 44, "bwd": 40}, "card": card})
+    if profile:
+        _profile_particle(card, styler, psets[10], kf_init[1])
+    return launches
+
+
 _CATEGORIES = (
     # (category, substrings of the kernel name), first match wins
     ("advect kernels K1-K3", ("advect_",)),
+    ("binsplat kernels K4-K5", ("binsplat_",)),
     ("VGG convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv",
                                   "Conv")),
     ("f32 GEMM (shear bmm, Gram)", ("gemm", "Gemm")),
@@ -443,6 +808,21 @@ def phase_profile(card: str):
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     n_iter = traced * iters_per_frame
+    emit(dict({"phase": "profile", "slice": "density",
+               "shape": list(SHAPE), "window": 1,
+               "iters_per_octave": iters, "frame_s": frame_s,
+               "steady_s_per_iter": steady,
+               "s_per_frame_steady": sum(frame_s[1:]) / (T - 1)},
+              **_trace_summary(prof, n_iter, traced_wall), card=card))
+
+
+def _trace_summary(prof, n_iter: int, traced_wall: float) -> dict:
+    """Device time of every kernel in a torch.profiler run, summed by
+    category per iteration, and the device's idle share in that run
+    (1 - kernel time / host wall time; the profiler slows the host, so
+    this bounds the untraced idle share from above)."""
+    import torch
+
     by_cat, kernels = {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -456,21 +836,39 @@ def phase_profile(card: str):
     if busy_s <= 0.0:
         raise AssertionError("the profiler saw no device time")
     kernels.sort(reverse=True)
-    emit({"phase": "profile", "shape": list(SHAPE), "window": 1,
-          "iters_per_octave": iters, "frame_s": frame_s,
-          "steady_s_per_iter": steady,
-          "s_per_frame_steady": sum(frame_s[1:]) / (T - 1),
-          "traced_iters": n_iter, "traced_wall_s": traced_wall,
-          "traced_s_per_iter": traced_wall / n_iter,
-          "kernel_ms_per_iter": busy_s * 1e3 / n_iter,
-          "idle_share_traced": 1.0 - busy_s / traced_wall,
-          "kernel_ms_per_iter_by_category": {
-              c: us / 1e3 / n_iter
-              for c, us in sorted(by_cat.items(), key=lambda x: -x[1])},
-          "top_kernels_ms_per_iter": [
-              [us / 1e3 / n_iter, count, name]
-              for us, count, name in kernels[:12]],
-          "card": card})
+    return {"traced_iters": n_iter, "traced_wall_s": traced_wall,
+            "traced_s_per_iter": traced_wall / n_iter,
+            "kernel_ms_per_iter": busy_s * 1e3 / n_iter,
+            "idle_share_traced": 1.0 - busy_s / traced_wall,
+            "kernel_ms_per_iter_by_category": {
+                c: us / 1e3 / n_iter
+                for c, us in sorted(by_cat.items(), key=lambda x: -x[1])},
+            "top_kernels_ms_per_iter": [
+                [us / 1e3 / n_iter, count, name]
+                for us, count, name in kernels[:12]]}
+
+
+def _profile_particle(card: str, styler, pset, init_param):
+    """Keyframe 10 of the particle phase once more, warm-started from
+    keyframe 0 as in the sequence, under torch.profiler: kernel time per
+    iteration (all three octaves) by category and the idle share of the
+    traced run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    oc = styler.cfg.optim
+    init = init_param
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        styler.stylize_frame(pset, init_param=init)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    n_iter = oc.octave_n * oc.iters
+    emit(dict({"phase": "profile", "slice": "particle", "keyframe": 10,
+               "grid": list(P_GRID), "particles": P_COUNT},
+              **_trace_summary(prof, n_iter, traced_wall), card=card))
 
 
 def main(argv=None) -> int:
@@ -478,7 +876,8 @@ def main(argv=None) -> int:
         description="Drive the PyTorch/CUDA port on one GPU")
     args.add_argument("--profile", action="store_true",
                       help="also profile the density slice at config #3's "
-                           "20 iterations per octave")
+                           "20 iterations per octave and keyframe 10 of "
+                           "the particle phase")
     args = args.parse_args(argv)
     import torch
 
@@ -493,25 +892,31 @@ def main(argv=None) -> int:
 
     phase_build()
     records = phase_kernels(card)
+    bin_records = phase_bin_kernels(card, _finest_k())
     phase_reference(card)
+    phase_reference_particle(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
         phase_density(card, tmp)
     phase_velocity(card)
-    # launches of the whole main path (density + velocity runs): the
+    # launches of the grid main path (density + velocity runs): the
     # counters were reset just before the density run
     from nfs_tpu_torch.ops import advect_kernels as ak
 
     launches = dict(ak.LAUNCHES)
+    # the particle path resets and reads its own counters
+    bin_launches = phase_particle(card, args.profile)
     if args.profile:
         phase_profile(card)
-    for rec, (key, _, _) in zip(records, KERNELS):
-        rec["launches"] = launches[key]
-        if rec["launches"] <= 0:
-            raise AssertionError(f"{rec['name']} never launched")
-        if not all(math.isfinite(rec[k])
-                   for k in ("max_abs_err", "ms", "plain_ms")):
-            raise AssertionError(f"bad numbers in {rec}")
-    emit({"kernels": records})
+    for recs, keys, counts in ((records, KERNELS, launches),
+                               (bin_records, BIN_KERNELS, bin_launches)):
+        for rec, (key, _, _) in zip(recs, keys):
+            rec["launches"] = counts[key]
+            if rec["launches"] <= 0:
+                raise AssertionError(f"{rec['name']} never launched")
+            if not all(math.isfinite(rec[k]) for k in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms")):
+                raise AssertionError(f"bad numbers in {rec}")
+    emit({"kernels": records + bin_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

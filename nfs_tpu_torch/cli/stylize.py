@@ -1,4 +1,4 @@
-"""Stylization CLI, grid mode (counterpart of ``nfs_tpu/cli/stylize.py``).
+"""Stylization CLI (counterpart of ``nfs_tpu/cli/stylize.py``).
 
 Usage:
   python -m nfs_tpu_torch.cli.stylize --tag smoke_fire \\
@@ -6,17 +6,24 @@ Usage:
       --style_target data/styles/fire.png --w_style 1.0 \\
       --octave_n 3 --iter 30 --n_views 9 --transmit 0.01
 
-The flags are the JAX CLI's grid-mode flags plus ``--device`` (default
-``cuda``; a missing GPU is an error); the particle, mesh and
+  python -m nfs_tpu_torch.cli.stylize --mode particle --tag liquid \\
+      --data_dir data/liquid3d --num_frames 40 --grid_shape 96 64 96 \\
+      --opt_density --keyframe_stride 10 --style_target style.npy
+
+The flags are the JAX CLI's grid- and particle-mode flags plus
+``--device`` (default ``cuda``; a missing GPU is an error); the mesh and
 transfer-function flags come with the ROADMAP slices that port them.
 Grid mode runs a single frame, or a sequence (``--num_frames`` > 1 or
-``--window`` > 0) on the streaming path. Outputs
-land in ``<log_dir>/<tag>/``: stylized ``d_%04d.npz`` frames, the final
-``param_%04d.npz`` of each sequence frame, preview images and a
-``metrics.jsonl`` log. Not ported yet, and refused with the ROADMAP item
-that holds them: ``--mode particle``, ``--parallel``, ``--fused`` > 1 and
-``--checkpoint_in_frame``. A rerun stylizes the whole sequence again:
-resuming from a manifest waits for ROADMAP queue 1, item 16.
+``--window`` > 0) on the streaming path. Particle mode (LNST) reads
+``p_%04d.npz`` frames, optimizes keyframes and interpolates between them
+(``ParticleStyler.stylize_keyframes``, 3D grids). Outputs land in
+``<log_dir>/<tag>/``: stylized ``d_%04d.npz`` or ``p_%04d.npz`` frames,
+the final ``param_%04d.npz`` of each grid sequence frame, preview images
+and a ``metrics.jsonl`` log. Not ported yet, and refused with the
+ROADMAP item that holds them: ``--opt_color``, ``--parallel``,
+``--fused`` > 1 and ``--checkpoint_in_frame``. A rerun stylizes the whole
+sequence again: resuming from a manifest waits for ROADMAP queue 1, item
+16.
 """
 
 from __future__ import annotations
@@ -29,18 +36,20 @@ import time
 import numpy as np
 
 from nfs_tpu_torch.core.config import (
-    DataConfig, LossConfig, OptimConfig, RenderConfig, StyleConfig)
+    DataConfig, LossConfig, OptimConfig, ParticleConfig, RenderConfig,
+    StyleConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Neural flow stylization on PyTorch (TNST grid mode)")
+        description="Neural flow stylization on PyTorch (TNST/LNST)")
     # run / data (reference --tag, --data_dir, ...)
     p.add_argument("--tag", default="run")
     p.add_argument("--data_dir", default="data/smoke")
     p.add_argument("--log_dir", default="log")
     p.add_argument("--d_path", default="d_%04d.npz")
     p.add_argument("--v_path", default="v_%04d.npz")
+    p.add_argument("--p_path", default="p_%04d.npz")
     p.add_argument("--num_frames", type=int, default=1)
     p.add_argument("--target_frame", type=int, default=0)
     p.add_argument("--frame_stride", type=int, default=1)
@@ -99,6 +108,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npz of VGG-19 params (see scripts/"
                         "convert_vgg_weights.py); random init if absent")
     p.add_argument("--pool", choices=["avg", "max"], default="avg")
+    # particle (LNST)
+    p.add_argument("--opt_position", action="store_true", default=True)
+    p.add_argument("--no_opt_position", dest="opt_position",
+                   action="store_false")
+    p.add_argument("--opt_density", action="store_true")
+    p.add_argument("--opt_color", action="store_true",
+                   help="not ported yet (colour compositing)")
+    p.add_argument("--keyframe_stride", type=int, default=10)
+    p.add_argument("--max_log_dens", type=float, default=None,
+                   help="bound the per-particle density factor to "
+                        "exp(+-x) (tanh-limited log scale)")
+    p.add_argument("--grid_shape", type=int, nargs="+", default=None,
+                   help="splat grid shape for particle mode")
     # sequence dispatch / parallel
     p.add_argument("--fused", type=int, default=0,
                    help="frames per dispatch for grid sequences (0 = "
@@ -127,7 +149,7 @@ def config_from_args(args) -> StyleConfig:
     return StyleConfig(
         data=DataConfig(
             data_dir=args.data_dir, log_dir=args.log_dir, tag=args.tag,
-            d_path=args.d_path, v_path=args.v_path,
+            d_path=args.d_path, v_path=args.v_path, p_path=args.p_path,
             num_frames=args.num_frames, target_frame=args.target_frame,
             frame_stride=args.frame_stride),
         render=RenderConfig(
@@ -148,13 +170,19 @@ def config_from_args(args) -> StyleConfig:
             warm_iters=args.warm_iter, warm_lr=args.warm_lr,
             parameterization=args.parameterization, window=args.window,
             window_sigma=args.window_sigma),
+        particle=ParticleConfig(
+            optimize_position=args.opt_position,
+            optimize_density=args.opt_density,
+            optimize_color=args.opt_color,
+            keyframe_stride=args.keyframe_stride,
+            max_log_dens=args.max_log_dens),
         seed=args.seed,
     )
 
 
 def _refuse_unported(args) -> None:
     refused = [
-        (args.mode == "particle", "--mode particle (LNST)", "item 19"),
+        (args.opt_color, "--opt_color (colour compositing)", "item 6"),
         (args.parallel, "--parallel", "item 21"),
         (args.fused and args.fused > 1, "--fused > 1", "item 13"),
         (args.checkpoint_in_frame, "--checkpoint_in_frame", "item 16"),
@@ -176,7 +204,6 @@ def main(argv=None):
     from nfs_tpu_torch.io.image import save_image
     from nfs_tpu_torch.io.npz import FrameStore
     from nfs_tpu_torch.render.raymarch import render_volume
-    from nfs_tpu_torch.styler.grid import GridStyler
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -185,8 +212,9 @@ def main(argv=None):
     out_dir = os.path.join(cfg.data.log_dir, cfg.data.tag)
     os.makedirs(out_dir, exist_ok=True)
     store = FrameStore(cfg.data.data_dir, cfg.data.d_path, cfg.data.v_path,
-                       manta_order=args.manta_order)
-    out_store = FrameStore(out_dir, cfg.data.d_path, cfg.data.v_path)
+                       cfg.data.p_path, manta_order=args.manta_order)
+    out_store = FrameStore(out_dir, cfg.data.d_path, cfg.data.v_path,
+                           cfg.data.p_path)
     metrics_path = os.path.join(out_dir, "metrics.jsonl")
 
     def log_metric(**kw):
@@ -204,6 +232,14 @@ def main(argv=None):
     frames = list(range(cfg.data.target_frame,
                         cfg.data.target_frame + cfg.data.num_frames,
                         cfg.data.frame_stride))
+    if args.mode == "particle":
+        _run_particles(cfg, args, store, out_store, frames, preview,
+                       log_metric, device)
+        print(f"done -> {out_dir}")
+        return
+
+    from nfs_tpu_torch.styler.grid import GridStyler
+
     styler = GridStyler(cfg, device=device)
     if cfg.optim.window > 0 or len(frames) > 1:
         densities = [store.load_density(t) for t in frames]
@@ -241,6 +277,36 @@ def main(argv=None):
         print(f"[frame {t}] {dt:.1f}s ({n_iters / dt:.2f} iters/s on "
               f"{device}) losses={losses}")
     print(f"done -> {out_dir}")
+
+
+def _run_particles(cfg, args, store, out_store, frames, preview, log_metric,
+                   device) -> None:
+    """LNST: keyframe optimization + attribute interpolation over the
+    particle frames, one ``p_%04d.npz`` and one preview per frame."""
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    psets = []
+    for t in frames:
+        raw = store.load_particles(t)
+        psets.append(ParticleSet(x=raw["x"], dens=raw.get("dens"),
+                                 color=raw.get("color")))
+    ndim = int(psets[0].x.shape[-1])
+    grid_shape = (tuple(args.grid_shape) if args.grid_shape
+                  else (128,) * ndim)
+    styler = ParticleStyler(cfg, grid_shape=grid_shape, device=device)
+    t0 = time.time()
+    for i, styled in styler.stylize_keyframes(psets):
+        t = frames[i]
+        out_store.save_particles(
+            t, x=styled.x.cpu().numpy(), dens=styled.dens.cpu().numpy(),
+            **({"color": np.asarray(styled.color)}
+               if styled.color is not None else {}))
+        preview(t, styler.rasterize(styled))
+        kf_info = styler.last_keyframe_infos.get(i, {})
+        log_metric(frame=t, wall_s=time.time() - t0,
+                   splat_overflow=kf_info.get("octave_overflow"))
+        t0 = time.time()
 
 
 if __name__ == "__main__":

@@ -213,9 +213,11 @@ class ParticleConfig:
     # hot Adam lr can blow densities up by orders of magnitude (observed
     # exp(9) at lr 0.12 x 160 iters); 2.0 bounds the factor to ~[0.14, 7.4]
     max_log_dens: Optional[float] = None
-    # splat implementation (particle path, not ported yet): 'auto' |
-    # 'binned' = dense (cells, K) shift-window | 'binned_pallas' = binned
-    # layout with the window kernels K4/K5 | 'flat' = one flat scatter
+    # splat implementation: 'auto' and 'binned_pallas' = binned layout
+    # with the window kernels K4/K5 for 3D bspline density (their plain
+    # versions on a CPU tensor), the plain binned window otherwise |
+    # 'binned' = the plain dense (cells, K) shift-window | 'flat' = one
+    # flat scatter
     splat_impl: str = "auto"
     # iterations between re-binnings (position drift between rebins
     # truncates O(drift^2) kernel mass at the bin-support edge; drift
@@ -239,10 +241,9 @@ class ParticleConfig:
     coarse_mode: str = "grid"
     # fall back to 'flat' when padded_cells * K exceeds this (memory cap)
     max_bin_slots: int = 64_000_000
-    # chunk-state layout for the binned path: 'auto' = the splat
-    # kernels' shifted (K, Zp, Yb, Xb) layout when they are eligible
-    # (3D + bspline + density-only attrs), flat slots otherwise |
-    # 'slots' forces the flat layout
+    # chunk-state layout for the binned path. The JAX package keeps its
+    # TPU kernels' shifted layout for 'auto'; the port has the slot layout
+    # only, so 'auto' and 'slots' both mean it (kept for config parity)
     binned_layout: str = "auto"
     # parked-fraction budget for bin capacity K: pick the smallest K
     # whose binning parks at most this fraction of particles (skipped

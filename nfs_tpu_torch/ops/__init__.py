@@ -1,1 +1,2 @@
-"""Differentiable field operators (counterpart of ``nfs_tpu.ops``)."""
+"""Differentiable field and particle operators (counterpart of
+``nfs_tpu.ops``)."""

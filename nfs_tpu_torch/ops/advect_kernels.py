@@ -29,7 +29,8 @@ kernel on the H100 and what the design does about it is noted in
 
 The library is built with ``nvcc`` for ``sm_90a`` from the repository's
 own source at first use into ``build/nfs_tpu_torch/`` next to the
-package, under a file name keyed on a hash of the source and flags, and
+package, under a file name keyed on a hash of the source and flags
+(``ops/_cuda_build.py``, shared with the binned-splat kernels), and
 loaded with ``ctypes``.
 """
 
@@ -37,28 +38,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 import torch
+
+from nfs_tpu_torch.ops import _cuda_build
 
 # Launch counts of the CUDA kernels; each wrapper adds one where it
 # launches, and nowhere else.
 LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_field": 0, "bwd_vel": 0}
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "advect.cu"
-BUILD_DIR = _PKG.parent / "build" / "nfs_tpu_torch"
-NVCC_FLAGS: List[str] = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+SOURCE = _cuda_build.CSRC / "advect.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
 
 
 def reset_launches() -> None:
@@ -70,49 +63,15 @@ def reset_launches() -> None:
 # build + load
 # --------------------------------------------------------------------- #
 
-def _find_nvcc() -> str:
-    cands = [os.environ.get("NVCC"), shutil.which("nvcc")]
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cands.append(os.path.join(cuda_home, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (looked at $NVCC, PATH and $CUDA_HOME/bin): the "
-        "CUDA advection kernels are built from nfs_tpu_torch/csrc/advect.cu "
-        "at first use and need the CUDA toolkit")
-
-
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libnfs_advect_{h.hexdigest()[:16]}.so"
+    return _cuda_build.library_path(SOURCE, "nfs_advect")
 
 
 def build_library() -> Path:
-    """Compile advect.cu unless a library for this source already exists.
-    The compile writes to a temporary file that is renamed into place, so
-    concurrent builders never load a half-written library."""
-    so = library_path()
-    if so.exists():
-        return so
-    nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+    """Compile advect.cu unless a library for this source already exists
+    (``ops/_cuda_build.py``)."""
+    return _cuda_build.build_library(SOURCE, "nfs_advect")
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,34 +232,13 @@ def advect_bwd_vel_plain(field: torch.Tensor, vel: torch.Tensor,
 # wrappers: plain twin on CPU tensors, CUDA kernel on CUDA tensors
 # --------------------------------------------------------------------- #
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+_check = _cuda_build.check_tensor
+_raise_on = _cuda_build.raise_on
+_stream = _cuda_build.current_stream
 
 
 def _route(ref: torch.Tensor) -> str:
-    if ref.device.type == "cpu":
-        return "plain"
-    if ref.device.type == "cuda":
-        return "cuda"
-    raise RuntimeError(f"advection kernels run on cpu or cuda, not "
-                       f"{ref.device}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return _cuda_build.route(ref, "advection kernels")
 
 
 def advect_fwd(field: torch.Tensor, vel: torch.Tensor,

@@ -1,0 +1,229 @@
+"""Binned-splat window kernels K4-K5 and their plain versions.
+
+Counterpart of ``nfs_tpu/ops/pallas_binsplat.py``. Two CUDA kernels in
+``nfs_tpu_torch/csrc/binsplat.cu`` replace its two Pallas kernels:
+
+======  ===================================  ==================
+launch  CUDA kernel (binsplat.cu)            replaces
+======  ===================================  ==================
+fwd     ``binsplat_fwd_kernel``  (K4)        ``_fwd_kernel``
+bwd     ``binsplat_bwd_kernel``  (K5)        ``_bwd_kernel``
+======  ===================================  ==================
+
+Both work on four ``(K, Zp, Yp, Xp)`` float32 bin arrays over the padded
+grid: the masked attribute ``a`` and the raw position components
+``p_z, p_y, p_x`` (unpadded grid coordinates). :func:`binsplat_fwd`
+returns the padded ``(Zp, Yp, Xp)`` splat, :func:`binsplat_bwd` the
+gradients wrt the four arrays given the cotangent ``g`` of that splat.
+On a CPU tensor a wrapper runs its plain PyTorch version (``window_*_plain``);
+on a CUDA tensor it launches the kernel and counts the launch in
+:data:`LAUNCHES`, or raises. There is no fallback from CUDA to the plain
+version.
+
+The TPU path keeps its chunk state in a shifted, tile-rounded
+``(K, Zp, Yb, Xb)`` layout (``prep_shifted``, ``window_shifted``,
+``_pick_tz``) to meet the (8, 128) tiling and the VMEM budget. Here the
+slot layout is rank-major, so ``attr_b[:n_slots]`` already views as
+``(K, Zp, Yp, Xp)`` without a copy and that layout has no counterpart:
+``binned_layout`` 'auto' and 'slots' both mean the slot layout.
+:func:`splat_binned_window` is the drop-in for ``splat_binned_pallas``.
+
+The library is built with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_cuda_build.py``) and loaded with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+from nfs_tpu_torch.ops import _cuda_build
+from nfs_tpu_torch.ops.binsplat import PAD, padded_shape
+
+# Launch counts of the CUDA kernels; each wrapper adds one where it
+# launches, and nowhere else.
+LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd": 0}
+
+SOURCE = _cuda_build.CSRC / "binsplat.cu"
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_library() -> Path:
+    """Compile binsplat.cu unless a library for this source exists."""
+    return _cuda_build.build_library(SOURCE, "nfs_binsplat")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; raises RuntimeError
+    when it cannot be built."""
+    lib = ctypes.CDLL(str(build_library()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.nfs_binsplat_bwd.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.nfs_binsplat_fwd.restype = ctypes.c_int
+    lib.nfs_binsplat_bwd.restype = ctypes.c_int
+    return lib
+
+
+# --------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------- #
+
+def _w1d(u: torch.Tensor) -> torch.Tensor:
+    """Quadratic B-spline (pallas_binsplat.py _w1d)."""
+    au = u.abs()
+    return torch.where(au < 0.5, 0.75 - au * au,
+                       torch.where(au < 1.5, 0.5 * (1.5 - au) ** 2, 0.0))
+
+
+def _dw1d(u: torch.Tensor) -> torch.Tensor:
+    """d w1d / du with JAX's conventions: the branch the forward `where`
+    takes at |u| = 0.5 and 1.5, and abs'(0) = +1 (pallas_binsplat.py
+    _dw1d)."""
+    sgn = torch.where(u >= 0.0, 1.0, -1.0)
+    au = u.abs()
+    return torch.where(au < 0.5, -2.0 * u,
+                       torch.where(au < 1.5, -(1.5 - au) * sgn, 0.0))
+
+
+def _fracs(pz, py, px):
+    """frac_d = p_d + PAD - bin_d for every slot, (K, Zp, Yp, Xp) each."""
+    _, Z, Y, X = pz.shape
+    dev = pz.device
+    f32 = torch.float32
+    return (pz + float(PAD) - torch.arange(Z, dtype=f32, device=dev
+                                           ).view(Z, 1, 1),
+            py + float(PAD) - torch.arange(Y, dtype=f32, device=dev
+                                           ).view(Y, 1),
+            px + float(PAD) - torch.arange(X, dtype=f32, device=dev))
+
+
+_OFFSETS = [(oz, oy, ox) for oz in range(3) for oy in range(3)
+            for ox in range(3)]
+
+
+def window_fwd_plain(a, pz, py, px) -> torch.Tensor:
+    """K4 on tensors: out[q] = sum_k sum_off W_off[k, q - off] *
+    a[k, q - off], as 27 shifted adds over the bin arrays."""
+    _, Z, Y, X = a.shape
+    W = [[_w1d(float(o) - f) for o in range(3)] for f in _fracs(pz, py, px)]
+    out = torch.zeros((Z, Y, X), dtype=torch.float32, device=a.device)
+    for oz, oy, ox in _OFFSETS:
+        contrib = (W[0][oz] * W[1][oy] * W[2][ox] * a).sum(dim=0)
+        out[oz:, oy:, ox:] += contrib[:Z - oz, :Y - oy, :X - ox]
+    return out
+
+
+def window_bwd_plain(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
+    """K5 on tensors: (da, dp_z, dp_y, dp_x), each (K, Zp, Yp, Xp), with
+    the cotangent read at g[b + off] (zero beyond the grid)."""
+    _, Z, Y, X = a.shape
+    fr = _fracs(pz, py, px)
+    W = [[_w1d(float(o) - f) for o in range(3)] for f in fr]
+    D = [[-_dw1d(float(o) - f) for o in range(3)] for f in fr]  # du/dp=-1
+    da = torch.zeros_like(a)
+    az, ay, ax = (torch.zeros_like(a) for _ in range(3))
+    for oz, oy, ox in _OFFSETS:
+        gs = torch.zeros((Z, Y, X), dtype=torch.float32, device=a.device)
+        gs[:Z - oz, :Y - oy, :X - ox] = g[oz:, oy:, ox:]
+        da = da + W[0][oz] * W[1][oy] * W[2][ox] * gs
+        az = az + D[0][oz] * W[1][oy] * W[2][ox] * gs
+        ay = ay + W[0][oz] * D[1][oy] * W[2][ox] * gs
+        ax = ax + W[0][oz] * W[1][oy] * D[2][ox] * gs
+    return da, az * a, ay * a, ax * a
+
+
+# --------------------------------------------------------------------- #
+# wrappers: plain version on CPU tensors, CUDA kernel on CUDA tensors
+# --------------------------------------------------------------------- #
+
+def _check_bins(a, pz, py, px):
+    if a.ndim != 4:
+        raise ValueError(f"a: expected (K, Zp, Yp, Xp), got {tuple(a.shape)}")
+    for name, t in (("a", a), ("p_z", pz), ("p_y", py), ("p_x", px)):
+        _cuda_build.check_tensor(name, t, a.shape, a.device)
+    return _cuda_build.route(a, "binned-splat kernels")
+
+
+def binsplat_fwd(a, pz, py, px) -> torch.Tensor:
+    """K4: the padded (Zp, Yp, Xp) splat of the bins."""
+    if _check_bins(a, pz, py, px) == "plain":
+        return window_fwd_plain(a, pz, py, px)
+    K, Z, Y, X = a.shape
+    lib = load_library()
+    out = torch.empty((Z, Y, X), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        rc = lib.nfs_binsplat_fwd(a.data_ptr(), pz.data_ptr(), py.data_ptr(),
+                                  px.data_ptr(), out.data_ptr(), K, Z, Y, X,
+                                  _cuda_build.current_stream(a.device))
+    _cuda_build.raise_on(rc, "binsplat_fwd")
+    LAUNCHES["fwd"] += 1
+    return out
+
+
+def binsplat_bwd(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
+    """K5: (da, dp_z, dp_y, dp_x) given the padded splat's cotangent g."""
+    route = _check_bins(a, pz, py, px)
+    _cuda_build.check_tensor("g", g, a.shape[1:], a.device)
+    if route == "plain":
+        return window_bwd_plain(a, pz, py, px, g)
+    K, Z, Y, X = a.shape
+    lib = load_library()
+    outs = [torch.empty_like(a) for _ in range(4)]
+    with torch.cuda.device(a.device):
+        rc = lib.nfs_binsplat_bwd(
+            a.data_ptr(), pz.data_ptr(), py.data_ptr(), px.data_ptr(),
+            g.data_ptr(), *(o.data_ptr() for o in outs), K, Z, Y, X,
+            _cuda_build.current_stream(a.device))
+    _cuda_build.raise_on(rc, "binsplat_bwd")
+    LAUNCHES["bwd"] += 1
+    return tuple(outs)
+
+
+class BinWindow(torch.autograd.Function):
+    """Differentiable binned window splat of four (K, Zp, Yp, Xp) bin
+    arrays to the padded (Zp, Yp, Xp) grid: ``BinWindow.apply(a, p_z,
+    p_y, p_x)``. Counterpart of ``_window_pallas``' custom VJP: K4 forward,
+    K5 backward (all four gradients in one launch, as on the TPU). Empty
+    slots must carry a == 0, so their value and position gradient are
+    exactly 0."""
+
+    @staticmethod
+    def forward(ctx, a, pz, py, px):
+        a, pz, py, px = (t.contiguous() for t in (a, pz, py, px))
+        ctx.save_for_backward(a, pz, py, px)
+        return binsplat_fwd(a, pz, py, px)
+
+    @staticmethod
+    def backward(ctx, g):
+        return binsplat_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def splat_binned_window(p_b: torch.Tensor, attr_b: torch.Tensor,
+                        valid: torch.Tensor, shape, K: int) -> torch.Tensor:
+    """Drop-in for ``ops.binsplat.splat_binned`` (3D, single-channel
+    attribute, bspline) through :class:`BinWindow`: masks the attribute by
+    ``valid``, runs the window on the dense slots viewed as (K, Zp, Yp, Xp)
+    and crops the PAD ring. Differentiable in ``p_b`` and ``attr_b``;
+    parked and empty slots get exactly zero gradient."""
+    if len(shape) != 3 or attr_b.ndim != 1:
+        raise ValueError("splat_binned_window takes 3D grids and a "
+                         "single-channel attribute; use splat_binned for "
+                         "2D grids or channels")
+    pshape = padded_shape(shape)
+    n_slots = math.prod(pshape) * K
+    a4 = torch.where(valid, attr_b[:n_slots], 0.0).view((K,) + pshape)
+    p4 = [p_b[d, :n_slots].view((K,) + pshape) for d in range(3)]
+    out = BinWindow.apply(a4, *p4)
+    Z, Y, X = shape
+    return out[PAD:PAD + Z, PAD:PAD + Y, PAD:PAD + X]

@@ -1,2 +1,2 @@
-"""Octave Adam driver and the grid styler (counterpart of
+"""Octave Adam driver and the grid and particle stylers (counterpart of
 ``nfs_tpu.styler``)."""

@@ -27,86 +27,31 @@ import numpy as np
 import torch
 
 from nfs_tpu_torch.core.config import StyleConfig
-from nfs_tpu_torch.features.losses import (
-    content_loss, gram_matrix, semantic_loss, style_gram_targets,
-    style_loss, tv_loss)
-from nfs_tpu_torch.features.vgg import (
-    get_vgg_params, params_to, vgg_features)
-from nfs_tpu_torch.io.image import load_image
+from nfs_tpu_torch.features.losses import gram_matrix, tv_loss
 from nfs_tpu_torch.ops.advect import advect, advect_maccormack
 from nfs_tpu_torch.ops.resize import octave_shapes, resize
-from nfs_tpu_torch.render.camera import (
-    poisson_view_pool, sample_views_stratified)
 from nfs_tpu_torch.render.raymarch import render_views
+from nfs_tpu_torch.styler.base import StylerBase, _not_ported
 from nfs_tpu_torch.styler.octave import Adam, run_octave
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to nfs_tpu_torch yet: ROADMAP queue 1, "
-        f"{item}")
-
-
-class GridStyler:
+class GridStyler(StylerBase):
     """Grid (smoke) stylizer on one torch device.
 
-    Building one sets ``torch.backends.cudnn.allow_tf32`` and
-    ``torch.backends.cuda.matmul.allow_tf32`` to False for the process,
-    so float32 renders, features and Gram matrices run in full float32 as
-    the JAX package computes them; the bfloat16 feature path casts
-    explicitly.
+    Building one turns TF32 off for the process (``styler/base.py``), so
+    float32 renders, features and Gram matrices run in full float32 as the
+    JAX package computes them; the bfloat16 feature path casts explicitly.
     """
 
     def __init__(self, cfg: StyleConfig, vgg_params=None,
                  style_image: Optional[np.ndarray] = None,
                  content_image: Optional[np.ndarray] = None,
                  device="cuda"):
-        rc, lc, oc = cfg.render, cfg.loss, cfg.optim
-        if rc.transfer_fn or rc.train_transfer:
-            raise _not_ported("render.transfer_fn / train_transfer",
-                              "item 15")
-        if lc.remat_views:
+        if cfg.loss.remat_views:
             raise _not_ported("loss.remat_views", "item 10")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        self.cfg = cfg
-        self.device = torch.device(device)
-        dev = self.device
-        params = (vgg_params if vgg_params is not None else
-                  get_vgg_params(lc.vgg_weights, seed=cfg.seed))
-        self.vgg_params = params_to(params, dev)
-
-        if style_image is None and lc.style_target:
-            style_image = load_image(lc.style_target, size=rc.render_size)
-        self.gram_targets = None
-        if style_image is not None:
-            with torch.no_grad():
-                self.gram_targets = style_gram_targets(
-                    self.vgg_params,
-                    torch.as_tensor(style_image, dtype=torch.float32,
-                                    device=dev),
-                    lc.style_layers, pool=lc.pool)
-
-        if content_image is None and lc.content_target:
-            content_image = load_image(lc.content_target,
-                                       size=rc.render_size)
-        self.content_feats = None
-        if content_image is not None and lc.content_layer:
-            with torch.no_grad():
-                self.content_feats = vgg_features(
-                    self.vgg_params,
-                    torch.as_tensor(content_image, dtype=torch.float32,
-                                    device=dev)[None],
-                    (lc.content_layer,), pool=lc.pool)
-
-        # Poisson-disk view pool (numpy, the JAX package's pool for the
-        # same seed), shipped to the device once
-        self.view_pool = None
-        if rc.sample_type == "poisson":
-            self.view_pool = torch.from_numpy(poisson_view_pool(
-                rc.view_pool, rc.n_views, (rc.theta0, rc.theta1),
-                (rc.phi0, rc.phi1), seed=cfg.seed)).to(dev)
-
+        super().__init__(cfg, vgg_params, style_image, content_image,
+                         device)
+        oc = cfg.optim
         self._loss_cache: Dict[Tuple, object] = {}
         self._optimizer = Adam(oc.lr, b1=oc.b1, b2=oc.b2)
         self._warm_optimizer = (Adam(oc.warm_lr, b1=oc.b1, b2=oc.b2)
@@ -116,18 +61,6 @@ class GridStyler:
     # ---------------------------------------------------------------- #
     # loss pipeline: pure functions of (opt_var, views, data)
     # ---------------------------------------------------------------- #
-
-    def _sample_views(self, generator: torch.Generator,
-                      pool: Optional[torch.Tensor]) -> torch.Tensor:
-        """One (V, 2) view set: a pool entry drawn with ``generator``, or
-        a stratified sample without a pool."""
-        rc = self.cfg.render
-        if pool is not None:
-            idx = int(torch.randint(pool.shape[0], (), generator=generator))
-            return pool[idx]
-        return sample_views_stratified(
-            generator, rc.n_views, (rc.theta0, rc.theta1),
-            (rc.phi0, rc.phi1), device=self.device)
 
     def _render(self, d_star: torch.Tensor, views: torch.Tensor,
                 render_size=None) -> torch.Tensor:
@@ -151,17 +84,6 @@ class GridStyler:
             return advect(d_base, opt_var, max_disp=oc.param_max_disp,
                           impl=oc.advect_impl)
         return d_base + opt_var
-
-    def _features(self, imgs, data):
-        lc = self.cfg.loss
-        layers = set()
-        if data["targets"] is not None:
-            layers |= set(lc.style_layers)
-        if lc.content_layer:
-            layers.add(lc.content_layer)
-        dtype = torch.bfloat16 if lc.features_dtype == "bfloat16" else None
-        return vgg_features(data["vgg"], imgs, tuple(sorted(layers)),
-                            pool=lc.pool, dtype=dtype)
 
     def _image_loss_weighted(self, imgs: torch.Tensor, pos_weights,
                              data) -> torch.Tensor:
@@ -193,23 +115,6 @@ class GridStyler:
                 mse = -torch.mean(ch, dim=tuple(range(1, ch.ndim)))
             per_pos = torch.mean(mse.reshape(P, V), dim=1)
             total = total + lc.w_content * torch.sum(pos_weights * per_pos)
-        return total
-
-    def _image_loss(self, imgs: torch.Tensor, data) -> torch.Tensor:
-        lc = self.cfg.loss
-        feats = self._features(imgs, data)
-        total = torch.zeros((), dtype=torch.float32, device=imgs.device)
-        if data["targets"] is not None and lc.w_style:
-            total = total + lc.w_style * style_loss(
-                feats, data["targets"], lc.style_layers,
-                lc.style_layer_weights)
-        if lc.content_layer and lc.w_content:
-            if data["content"] is not None:
-                total = total + lc.w_content * content_loss(
-                    feats, data["content"], lc.content_layer)
-            else:
-                total = total + lc.w_content * semantic_loss(
-                    feats, lc.content_layer, lc.content_channel)
         return total
 
     def _window_weights(self, window: int) -> torch.Tensor:
@@ -301,21 +206,6 @@ class GridStyler:
         is_vel = self.cfg.optim.parameterization == "velocity"
         return resize(param, shape, is_velocity=is_vel)
 
-    def _octave_views(self, generator, schedule, iters: int, positions: int):
-        """Per-iteration view arguments of one octave: ``positions`` view
-        sets per iteration, from ``schedule`` (pool indices, (iters,) or
-        (iters, positions)) or drawn from ``generator``."""
-        pool = self.view_pool
-        if schedule is None:
-            return [[self._sample_views(generator, pool)
-                     for _ in range(positions)] for _ in range(iters)]
-        if pool is None:
-            raise ValueError("view_schedule needs render.sample_type "
-                             "'poisson' (a view pool)")
-        sched = np.asarray(schedule, dtype=np.int64).reshape(iters, -1)
-        sched = np.broadcast_to(sched, (iters, positions))
-        return [[pool[int(j)] for j in row] for row in sched]
-
     def stylize_frame(self, d: np.ndarray,
                       vels: Optional[np.ndarray] = None,
                       init_param: Optional[torch.Tensor] = None,
@@ -396,13 +286,6 @@ class GridStyler:
         with torch.no_grad():
             d_star = torch.clamp(self._apply_param(param, d_full), min=0.0)
         return d_star, param, info
-
-    def _on_device(self, x) -> torch.Tensor:
-        """float32 tensor on the styler's device from an array, a list of
-        arrays or a tensor."""
-        if not isinstance(x, torch.Tensor):
-            x = np.asarray(x, dtype=np.float32)
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _frame_generator(self, t: int) -> torch.Generator:
         """Per-frame generator, seeded by the frame's index in the

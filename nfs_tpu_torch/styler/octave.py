@@ -1,6 +1,6 @@
 """Octave Adam driver (counterpart of ``nfs_tpu/styler/octave.py``).
 
-``run_octave`` optimizes one tensor under
+``run_octave`` optimizes one tensor, or a dict of tensors, under
 ``loss_fn(param, views, data) -> scalar``, where ``views`` is that
 iteration's camera argument and ``data`` the octave's constants
 (densities, VGG weights, Gram targets, view pool). Iterations run eagerly
@@ -8,7 +8,8 @@ on the param's device; losses stay there until the caller reads them.
 Iterations are grouped in chunks of ``log_every`` when a ``callback``
 wants the mean loss of each chunk.
 
-:class:`Adam` is ``optax.adam`` written out: moments
+:class:`Adam` is ``optax.adam`` written out, over one tensor or a dict of
+tensors: moments
 ``mu = (1-b1) g + b1 mu`` and ``nu = (1-b2) g^2 + b2 nu``, bias
 correction by ``1 - b^t``, ``eps`` added AFTER the square root
 (``eps_root = 0``), step ``-lr * mu_hat / (sqrt(nu_hat) + eps)``.
@@ -22,52 +23,68 @@ ROADMAP queue 1, item 16.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 
+Param = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
 @dataclass
 class AdamState:
     count: int
-    mu: torch.Tensor
-    nu: torch.Tensor
+    mu: Param
+    nu: Param
+
+
+def _leafwise(fn, *trees):
+    """fn over the leaves of tensors or of dicts of tensors (same keys)."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 class Adam:
-    """Functional Adam, numerically ``optax.adam(lr, b1, b2, eps)``."""
+    """Functional Adam, numerically ``optax.adam(lr, b1, b2, eps)``. The
+    parameter is a tensor or a dict of tensors; on a dict the update is
+    per leaf and the step count is shared, as optax does over a pytree."""
 
     def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
 
-    def init(self, param: torch.Tensor) -> AdamState:
-        return AdamState(0, torch.zeros_like(param),
-                         torch.zeros_like(param))
+    def init(self, param: Param) -> AdamState:
+        return AdamState(0, _leafwise(torch.zeros_like, param),
+                         _leafwise(torch.zeros_like, param))
 
-    def update(self, grad: torch.Tensor, state: AdamState
-               ) -> Tuple[torch.Tensor, AdamState]:
+    def update(self, grad: Param, state: AdamState
+               ) -> Tuple[Param, AdamState]:
         b1, b2 = self.b1, self.b2
-        mu = (1 - b1) * grad + b1 * state.mu
-        nu = (1 - b2) * grad ** 2 + b2 * state.nu
+        mu = _leafwise(lambda g, m: (1 - b1) * g + b1 * m, grad, state.mu)
+        nu = _leafwise(lambda g, v: (1 - b2) * g ** 2 + b2 * v, grad,
+                       state.nu)
         count = state.count + 1
         # optax computes decay**count in float32
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        step = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-        return -self.lr * step, AdamState(count, mu, nu)
+        updates = _leafwise(
+            lambda m, v: -self.lr * ((m / bc1) / (torch.sqrt(v / bc2)
+                                                  + self.eps)), mu, nu)
+        return updates, AdamState(count, mu, nu)
 
 
-def run_octave(param: torch.Tensor, loss_fn: Callable, data,
+def run_octave(param: Param, loss_fn: Callable, data,
                views: Sequence, iters: int, lr: float, b1: float = 0.9,
                b2: float = 0.999, log_every: int = 10,
                callback: Callable = None, optimizer: Adam = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, AdamState]:
+               ) -> Tuple[Param, torch.Tensor, AdamState]:
     """Optimize ``param`` with Adam for ``iters`` steps.
 
     Args:
-      param: the optimization variable (no grad attached).
+      param: the optimization variable, a tensor or a dict of tensors (no
+        grad attached).
       loss_fn: (param, views[i], data) -> scalar loss tensor.
       views: per-iteration camera arguments, ``len(views) == iters``.
       callback: optional fn(done, mean_chunk_loss) called after every
@@ -83,24 +100,39 @@ def run_octave(param: torch.Tensor, loss_fn: Callable, data,
         raise ValueError(f"{len(views)} view draws for {iters} iterations")
     opt = optimizer if optimizer is not None else Adam(lr, b1, b2)
     state = opt.init(param)
-    param = param.detach()
+    param = _leafwise(torch.Tensor.detach, param)
     chunk = log_every if callback is not None else iters
     losses = []
     for i in range(iters):
-        p = param.requires_grad_(True)
-        loss = loss_fn(p, views[i], data)
-        if loss.requires_grad:
-            (grad,) = torch.autograd.grad(loss, p)
-        else:  # the objective does not depend on the param
-            grad = torch.zeros_like(p)
+        loss, grad = value_and_grad(loss_fn, param, views[i], data)
         updates, state = opt.update(grad, state)
-        param = (p.detach() + updates).detach()
+        param = _leafwise(lambda p, u: (p + u).detach(), param, updates)
         losses.append(loss.detach().to(torch.float32).reshape(()))
         done = i + 1
         if callback is not None and (done % chunk == 0 or done == iters):
             start = (done - 1) // chunk * chunk
             callback(done, float(torch.stack(losses[start:]).mean()))
+    device = next(iter(param.values())).device if isinstance(
+        param, dict) else param.device
     losses_out = (torch.stack(losses) if losses else
-                  torch.zeros((0,), dtype=torch.float32,
-                              device=param.device))
+                  torch.zeros((0,), dtype=torch.float32, device=device))
     return param, losses_out, state
+
+
+def value_and_grad(loss_fn: Callable, param: Param, *args):
+    """(loss, gradient of loss wrt every leaf of ``param``) with the
+    leaves detached; a leaf the loss does not depend on gets zeros."""
+    leaves = (list(param.values()) if isinstance(param, dict)
+              else [param])
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    p = (dict(zip(param, leaves)) if isinstance(param, dict)
+         else leaves[0])
+    loss = loss_fn(p, *args)
+    if loss.requires_grad:
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    else:  # the objective does not depend on the param
+        grads = [None] * len(leaves)
+    grads = [torch.zeros_like(l) if g is None else g
+             for l, g in zip(leaves, grads)]
+    return loss, (dict(zip(param, grads)) if isinstance(param, dict)
+                  else grads[0])

@@ -1,0 +1,661 @@
+"""LNST particle stylization engine (counterpart of
+``nfs_tpu/styler/particle.py``; LNST arXiv:2005.00803).
+
+Optimization variables are per-particle attributes (LNST §4): position
+offsets ``dx`` and/or density multipliers ``ddens``. The forward pipeline
+is splat(x + dx, dens) -> grid -> multi-view raymarch -> VGG -> Gram /
+semantic losses, with gradients flowing back through the differentiable
+splat to the particle attributes. Sequences are stylized at keyframes and
+the attributes interpolated along particle identity between them (LNST
+§5, ``stylize_keyframes``).
+
+Octaves shrink the splat grid (positions rescale, per-particle variables
+persist). Per octave the splat takes one of three routes, as in the JAX
+package:
+
+- binned (``ops/binsplat.py``): particles are sorted into dense
+  (K, cells) bins once per chunk of ``particle.rebin_every`` iterations,
+  and every iteration splats the bins. For 3D B-spline density with
+  ``splat_impl`` 'auto' or 'binned_pallas' the splat is the window kernel
+  pair K4/K5 (``splat_binned_window``; the plain versions on a CPU
+  tensor); ``splat_impl='binned'`` selects the plain generic
+  ``splat_binned``. Bin capacities K come from one occupancy probe per
+  frame with one host sync (``_octave_ks``), reused across frames until a
+  frame parks too many particles.
+- grid-space coarse octaves (``particle.coarse_mode='grid'`` with the
+  density optimized): one splat of the octave's density, then a
+  log-density field is optimized on the grid and folded into ``ddens``
+  with one trilinear sample.
+- flat: one ``index_add`` of every particle's taps (``ops/splat.py``),
+  for other kernels or supports, or when the bins would not fit.
+
+The JAX package keeps the binned chunk state in the TPU kernels' shifted,
+tile-rounded layout when they run (``binned_layout='auto'``). That layout
+exists for the TPU's (8, 128) tiling and has no counterpart here:
+``binned_layout`` 'auto' and 'slots' both mean the slot layout, whose
+dense region the kernels read as a view.
+
+Random draws come from an explicit ``torch.Generator``; an optional
+``view_schedule`` of view-pool indices replays another run's draws.
+Ported: 3D grids with density and position attributes. 2D grids and
+``optimize_color`` wait for the 2D and colour renderers (ROADMAP queue 1,
+item 6) and raise.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nfs_tpu_torch.core.config import StyleConfig
+from nfs_tpu_torch.core.pytrees import ParticleSet
+from nfs_tpu_torch.ops.binsplat import (
+    bin_count_stats, bin_particles, bucket_k, from_binned, padded_shape,
+    splat_binned, to_binned)
+from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
+from nfs_tpu_torch.ops.interp import grid_sample
+from nfs_tpu_torch.ops.resize import octave_shapes
+from nfs_tpu_torch.ops.splat import splat
+from nfs_tpu_torch.render.raymarch import render_views
+from nfs_tpu_torch.styler.base import StylerBase, _not_ported
+from nfs_tpu_torch.styler.octave import (
+    Adam, AdamState, run_octave, value_and_grad)
+
+Param = Dict[str, torch.Tensor]
+
+
+def _offset(dx: torch.Tensor, max_offset: float) -> torch.Tensor:
+    """Position offset bounded to +-max_offset cells by a tanh limit."""
+    return max_offset * torch.tanh(dx / max_offset)
+
+
+def _dens_scale(ddens: torch.Tensor, max_log: Optional[float]
+                ) -> torch.Tensor:
+    """Multiplicative density factor exp(ddens), optionally bounded to
+    exp(+-max_log) by a tanh limit (particle.max_log_dens)."""
+    if max_log is None:
+        return torch.exp(ddens)
+    return torch.exp(max_log * torch.tanh(ddens / max_log))
+
+
+def _uses_window(pc, shape) -> bool:
+    """Whether the binned splat goes through the window kernels K4/K5:
+    3D B-spline with splat_impl 'auto' or 'binned_pallas' (where the JAX
+    package picks its Pallas kernels on a TPU)."""
+    return (pc.splat_impl in ("auto", "binned_pallas") and len(shape) == 3
+            and pc.kernel == "bspline")
+
+
+def _octave_max_counts(p, shps, base: float, kernel="bspline"):
+    """Per-octave bin stats on the device: row o = [max count,
+    parked(1..16)] for octave shape o (feeds the K-budget selection)."""
+    return torch.stack([bin_count_stats(p * (s[0] / base), s, kernel)
+                        for s in shps])
+
+
+def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
+                       data, loss_fn, optimizer: Adam, shape, K: int,
+                       scale: float, max_offset: float, has_dx: bool,
+                       kernel: str = "bspline", return_state: bool = True):
+    """One rebin + len(views) optimizer iterations.
+
+    Bins at the chunk-start positions, moves param AND Adam state into the
+    slot layout (Adam is elementwise, so permuting its moments with the
+    params is exact), runs the steps, and moves both back to canonical
+    particle order. ``opt_state=None`` starts Adam in the slot layout;
+    ``return_state=False`` skips moving the state back.
+    """
+    x, dens = data["x"], data["dens"]
+    n = x.shape[0]
+    with torch.no_grad():
+        p = (x + _offset(param["dx"], max_offset)) * scale if has_dx \
+            else x * scale
+    bn = bin_particles(p, shape, K, kernel=kernel)
+    n_slots = bn.valid.shape[0]
+
+    def to_b(tree):         # canonical (N, ...) leaves -> binned
+        return {k: to_binned(bn, v) if v.ndim in (1, 2) and v.shape[0] == n
+                else v for k, v in tree.items()}
+
+    def from_b(tree):       # binned (slot-minor) leaves -> canonical
+        return {k: from_binned(bn, v)
+                if v.ndim in (1, 2) and v.shape[-1] == n_slots + n else v
+                for k, v in tree.items()}
+
+    param_b = to_b(param)
+    state_b = (optimizer.init(param_b) if opt_state is None else
+               AdamState(opt_state.count, to_b(opt_state.mu),
+                         to_b(opt_state.nu)))
+    data_b = dict(data, xb=to_binned(bn, x), densb=to_binned(bn, dens),
+                  valid=bn.valid)
+    losses = []
+    for v in views:
+        loss, grads = value_and_grad(loss_fn, param_b, v, data_b)
+        updates, state_b = optimizer.update(grads, state_b)
+        param_b = {k: (param_b[k] + updates[k]).detach() for k in param_b}
+        losses.append(loss.detach().to(torch.float32).reshape(()))
+    state = (AdamState(state_b.count, from_b(state_b.mu),
+                       from_b(state_b.nu)) if return_state else None)
+    return from_b(param_b), state, torch.stack(losses), bn.n_overflow
+
+
+class ParticleStyler(StylerBase):
+    """Lagrangian (particle) stylizer for liquids and smoke (LNST), 3D.
+
+    Building one turns TF32 off for the process (``styler/base.py``).
+    """
+
+    def __init__(self, cfg: StyleConfig, grid_shape: Tuple[int, ...],
+                 vgg_params=None, style_image: Optional[np.ndarray] = None,
+                 content_image: Optional[np.ndarray] = None,
+                 device="cuda"):
+        self.grid_shape = tuple(grid_shape)
+        if len(self.grid_shape) != 3:
+            raise _not_ported("2D particle grids (render2d)", "item 6")
+        if cfg.particle.optimize_color:
+            raise _not_ported("particle.optimize_color (colour "
+                              "compositing in raymarch)", "item 6")
+        super().__init__(cfg, vgg_params, style_image, content_image,
+                         device)
+        oc = cfg.optim
+        self._loss_cache: Dict[Tuple, object] = {}
+        # bin-capacity plans reused across frames; dropped whenever a
+        # frame parks more particles than the warning threshold
+        self._k_cache: Dict[Tuple, object] = {}
+        self._optimizer = Adam(oc.lr, b1=oc.b1, b2=oc.b2)
+
+    # ---------------------------------------------------------------- #
+    # loss pipeline: pure functions of (param, views, data)
+    # ---------------------------------------------------------------- #
+
+    def init_param(self, pset: ParticleSet) -> Param:
+        pc = self.cfg.particle
+        n, dim = pset.x.shape
+        param = {}
+        if pc.optimize_position:
+            param["dx"] = torch.zeros((n, dim), dtype=torch.float32,
+                                      device=self.device)
+        if pc.optimize_density:
+            param["ddens"] = torch.zeros((n,), dtype=torch.float32,
+                                         device=self.device)
+        return param
+
+    def _splat_grids(self, param: Param, data, scale: float,
+                     shape: Tuple[int, ...]) -> torch.Tensor:
+        """param -> density grid at octave resolution (positions scaled by
+        `scale`), by the flat splat."""
+        pc = self.cfg.particle
+        x = data["x"]
+        if "dx" in param:
+            x = x + _offset(param["dx"], pc.max_offset)
+        dens = data["dens"]
+        if "ddens" in param:
+            dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
+        d_grid = splat(x * scale, dens, shape, kernel=pc.kernel,
+                       support=pc.support)
+        # resolution-independent brightness: a coarse cell collects
+        # (1/scale)^3 of the mass and the raymarch steps 1/scale longer
+        # per cell, net scale^2
+        return d_grid * (scale ** 2)
+
+    def _octave_render_size(self, scale: float):
+        """Per-octave render resolution (render.scale_with_octave); off
+        when content features fix the size."""
+        rc = self.cfg.render
+        if not rc.scale_with_octave or self.content_feats is not None:
+            return rc.render_size
+        return tuple(
+            max(rc.min_render_size, int(round(s * scale / 8)) * 8)
+            for s in rc.render_size)
+
+    def _render(self, d_grid: torch.Tensor, views: torch.Tensor,
+                render_size=None) -> torch.Tensor:
+        """(D, H, W) grid -> (V, H, W, 3) images for the CNN."""
+        rc = self.cfg.render
+        return render_views(d_grid, views[:, 0], views[:, 1],
+                            transmit=rc.transmit,
+                            out_size=render_size or rc.render_size,
+                            gamma=rc.gamma, method=rc.rotation)
+
+    def _get_loss_fn(self, shape: Tuple[int, ...], scale: float):
+        """Loss of the flat-splat route."""
+        rsize = self._octave_render_size(scale)
+        sig = (shape, round(scale, 6), rsize)
+        if sig in self._loss_cache:
+            return self._loss_cache[sig]
+
+        def loss_fn(param, views, data):
+            d_grid = self._splat_grids(param, data, scale, shape)
+            total = self._image_loss(self._render(d_grid, views, rsize),
+                                     data)
+            if "dx" in param:
+                # keep offsets small (LNST regularizes position changes)
+                total = total + 1e-3 * torch.mean(param["dx"] ** 2)
+            return total
+
+        self._loss_cache[sig] = loss_fn
+        return loss_fn
+
+    def _get_binned_loss_fn(self, shape: Tuple[int, ...], scale: float,
+                            K: int):
+        """Loss over the binned slot layout; equals `_get_loss_fn` for the
+        'bspline' and 'linear' kernels at support 1."""
+        rsize = self._octave_render_size(scale)
+        pc = self.cfg.particle
+        sig = ("binned", pc.splat_impl, pc.kernel, shape, round(scale, 6),
+               K, rsize)
+        if sig in self._loss_cache:
+            return self._loss_cache[sig]
+        window = _uses_window(pc, shape)
+
+        def loss_fn(param_b, views, data_b):
+            # binned leaves are slot-minor: xb/dx (3, S), densb (S,)
+            xb, densb, valid = data_b["xb"], data_b["densb"], data_b["valid"]
+            if "dx" in param_b:
+                pb = (xb + _offset(param_b["dx"], pc.max_offset)) * scale
+            else:
+                pb = xb * scale
+            dens_eff = densb
+            if "ddens" in param_b:
+                dens_eff = densb * _dens_scale(param_b["ddens"],
+                                               pc.max_log_dens)
+            if window:
+                d_grid = splat_binned_window(pb, dens_eff, valid, shape, K)
+            else:
+                d_grid = splat_binned(pb, dens_eff, valid, shape, K,
+                                      kernel=pc.kernel)
+            d_grid = d_grid * (scale ** 2)
+            total = self._image_loss(self._render(d_grid, views, rsize),
+                                     data_b)
+            if "dx" in param_b:
+                # parked + dense slots hold every particle once and empty
+                # slots are zero, so sum / N == the canonical mean
+                total = total + (1e-3 * torch.sum(param_b["dx"] ** 2)
+                                 / data_b["n_dx"])
+            return total
+
+        self._loss_cache[sig] = loss_fn
+        return loss_fn
+
+    def _get_grid_loss_fn(self, shape: Tuple[int, ...], scale: float):
+        """Loss of a grid-space coarse octave: a log-density field g over
+        the once-splatted octave density, d* = base_d * exp(g)."""
+        rsize = self._octave_render_size(scale)
+        sig = ("grid_coarse", shape, round(scale, 6), rsize)
+        if sig in self._loss_cache:
+            return self._loss_cache[sig]
+
+        def loss_fn(g, views, data):
+            d_grid = data["base_d"] * torch.exp(g)
+            return self._image_loss(self._render(d_grid, views, rsize),
+                                    data)
+
+        self._loss_cache[sig] = loss_fn
+        return loss_fn
+
+    @torch.no_grad()
+    def _prep_splat(self, param: Param, x, dens, shape, scale: float,
+                    K: Optional[int]) -> torch.Tensor:
+        """The one splat of a grid-space coarse octave: binned (through
+        K4 where the window kernels apply) when a capacity K fits, flat
+        otherwise."""
+        pc = self.cfg.particle
+        if K is None:
+            return self._splat_grids(param, {"x": x, "dens": dens}, scale,
+                                     shape)
+        if "dx" in param:
+            x = x + _offset(param["dx"], pc.max_offset)
+        if "ddens" in param:
+            dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
+        xs = x * scale
+        bn = bin_particles(xs, shape, K, kernel=pc.kernel)
+        pb = to_binned(bn, xs)
+        db = to_binned(bn, dens)
+        if _uses_window(pc, shape):
+            base_d = splat_binned_window(pb, db, bn.valid, shape, K)
+        else:
+            base_d = splat_binned(pb, db, bn.valid, shape, K,
+                                  kernel=pc.kernel)
+        return base_d * (scale ** 2)
+
+    def _grid_coarse_octave(self, param: Param, data, views, shape,
+                            scale: float, K=None, callback=None):
+        """One coarse octave in grid space, folded into per-particle ddens
+        (one splat and one trilinear sample per octave)."""
+        oc, pc = self.cfg.optim, self.cfg.particle
+        shape = tuple(shape)
+        base_d = self._prep_splat(param, data["x"], data["dens"], shape,
+                                  scale, K)
+        gdata = {"pool": data["pool"], "vgg": data["vgg"],
+                 "targets": data["targets"], "content": data.get("content"),
+                 "base_d": base_d}
+        g0 = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        g, losses, _ = run_octave(
+            g0, self._get_grid_loss_fn(shape, scale), gdata, views,
+            iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
+            log_every=oc.log_every, callback=callback,
+            optimizer=self._optimizer)
+        with torch.no_grad():
+            x = data["x"]
+            if "dx" in param:
+                x = x + _offset(param["dx"], pc.max_offset)
+            param = dict(param, ddens=param["ddens"]
+                         + grid_sample(g, x * scale))
+        return param, losses
+
+    def _octave_ks(self, x, dx, shapes, kmaxes=None,
+                   margin: int = 0) -> Optional[list]:
+        """Bin capacities K for every octave from ONE occupancy probe and
+        ONE host sync. None when the binned route does not apply at all;
+        an entry is None where the slot budget is blown."""
+        pc = self.cfg.particle
+        if (pc.splat_impl not in ("auto", "binned", "binned_pallas")
+                or pc.kernel not in ("bspline", "linear")
+                or pc.support != 1.0):
+            return None
+        if kmaxes is None:
+            p = x + dx if dx is not None else x
+            with torch.no_grad():
+                kmaxes = _octave_max_counts(
+                    p, tuple(tuple(s) for s in shapes),
+                    float(self.grid_shape[0]), kernel=pc.kernel)
+            kmaxes = kmaxes.cpu().numpy()
+        kmaxes = np.asarray(kmaxes)
+        if kmaxes.ndim == 1:   # per-octave scalar maxima
+            kmaxes = kmaxes[:, None]
+        budget_n = (int(pc.k_budget * x.shape[0]) if pc.k_budget else 0)
+        ks = []
+        for stats, shape in zip(kmaxes, shapes):
+            # +1 headroom for within-chunk drift; `margin` for cross-frame
+            # drift when the caller caches the plan
+            need = int(stats[0]) + 1 + margin
+            if budget_n >= 1 and len(stats) > 1:
+                # K-budget: the smallest K parking <= budget_n particles
+                ok = np.nonzero(np.asarray(stats[1:]) <= budget_n)[0]
+                if ok.size:
+                    need = min(need, int(ok[0]) + 1)
+            K = bucket_k(need)
+            if K < need:
+                # occupancy beyond the bucket cap would park particles for
+                # the whole octave: use the exact flat splat instead
+                ks.append(None)
+                continue
+            n_slots = int(np.prod(padded_shape(shape))) * K
+            ks.append(K if n_slots <= pc.max_bin_slots else None)
+        return ks
+
+    def _run_binned_octave(self, param: Param, data, views, shape,
+                           scale: float, K: int, callback=None):
+        """Binned octave: one rebin per chunk of `particle.rebin_every`
+        iterations; the callback gets each chunk's mean loss."""
+        oc, pc = self.cfg.optim, self.cfg.particle
+        loss_fn = self._get_binned_loss_fn(tuple(shape), scale, K)
+        has_dx = "dx" in param
+        dims = param["dx"].numel() if has_dx else 1
+        chunk_data = dict(data, n_dx=float(dims))
+        # Adam state is fresh per octave: the first chunk starts it in the
+        # slot layout, the last one does not move it back
+        opt_state = None
+        chunk = max(1, pc.rebin_every)
+        all_losses, overflows = [], []
+        done = 0
+        while done < oc.iters:
+            nst = min(chunk, oc.iters - done)
+            param, opt_state, losses, n_over = _binned_chunk_core(
+                param, opt_state, views[done:done + nst], chunk_data,
+                loss_fn, self._optimizer, tuple(shape), K, scale,
+                pc.max_offset, has_dx, kernel=pc.kernel,
+                return_state=done + nst < oc.iters)
+            done += nst
+            all_losses.append(losses)
+            overflows.append(n_over)  # stays on the device
+            if callback is not None:
+                callback(done, float(losses.mean()))
+        return (param, torch.cat(all_losses),
+                torch.stack(overflows).max())
+
+    # ---------------------------------------------------------------- #
+    # public API
+    # ---------------------------------------------------------------- #
+
+    def stylize_frame(self, pset: ParticleSet,
+                      init_param: Optional[Param] = None,
+                      generator: Optional[torch.Generator] = None,
+                      callback=None, view_schedule=None):
+        """Optimize per-particle attributes for one (key)frame.
+
+        Args:
+          pset: particles; arrays or tensors, moved to the device.
+          init_param: warm start (a param dict of (N, ...) tensors).
+          generator: CPU ``torch.Generator`` for the view draws; default
+            seeded with ``cfg.seed``.
+          callback: fn(done, mean_chunk_loss, octave=o).
+          view_schedule: optional (octave_n, iters) view-pool indices that
+            replace the generator's draws.
+
+        Returns (stylized ParticleSet, param dict, info) with
+        info = {'octave_losses': per-octave (iters,) tensors,
+        'octave_overflow': parked particles per octave}.
+        """
+        cfg = self.cfg
+        oc, pc = cfg.optim, cfg.particle
+        generator = (generator if generator is not None
+                     else torch.Generator().manual_seed(cfg.seed))
+        x = self._on_device(pset.x)
+        dens = (self._on_device(pset.dens) if pset.dens is not None
+                else torch.ones(x.shape[0], dtype=torch.float32,
+                                device=self.device))
+        param = ({k: self._on_device(v) for k, v in init_param.items()}
+                 if init_param is not None
+                 else self.init_param(ParticleSet(x=x, dens=dens)))
+        info = {"octave_losses": [], "octave_overflow": []}
+
+        shapes = octave_shapes(self.grid_shape, oc.octave_n,
+                               oc.octave_scale)
+        # grid-space coarse octaves: only the finest octave splats every
+        # iteration; the coarse octaves' one splat runs binned too when a
+        # capacity fits, so every octave is probed
+        grid_coarse = (pc.coarse_mode == "grid" and "ddens" in param
+                       and len(shapes) > 1)
+        ksig = (x.shape[0], tuple(tuple(s) for s in shapes), "dx" in param,
+                pc.kernel, pc.splat_impl, pc.support)
+        if ksig in self._k_cache:
+            ks = self._k_cache[ksig]
+        else:
+            dx_now = None
+            if "dx" in param:
+                dx_now = _offset(param["dx"], pc.max_offset)
+            # margin 2: the plan is reused across frames
+            ks = self._octave_ks(x, dx_now, shapes, margin=2)
+            self._k_cache[ksig] = ks
+        for o, shape in enumerate(shapes):
+            shape = tuple(shape)
+            scale = shape[0] / self.grid_shape[0]
+            data = {"x": x, "dens": dens, "pool": self.view_pool,
+                    "vgg": self.vgg_params, "targets": self.gram_targets,
+                    "content": self.content_feats}
+            views = [row[0] for row in self._octave_views(
+                generator, None if view_schedule is None
+                else view_schedule[o], oc.iters, 1)]
+            cb = None
+            if callback is not None:
+                def cb(done, loss, _o=o):
+                    callback(done, loss, octave=_o)
+            K = ks[o] if ks is not None else None
+            n_over = torch.zeros((), dtype=torch.long, device=self.device)
+            if grid_coarse and o < len(shapes) - 1:
+                param, losses = self._grid_coarse_octave(
+                    param, data, views, shape, scale, K=K, callback=cb)
+            elif K is not None:
+                param, losses, n_over = self._run_binned_octave(
+                    param, data, views, shape, scale, K, callback=cb)
+            else:  # flat splat (other kernels or supports, huge K)
+                param, losses, _ = run_octave(
+                    param, self._get_loss_fn(shape, scale), data, views,
+                    iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
+                    log_every=oc.log_every, callback=cb,
+                    optimizer=self._optimizer)
+            info["octave_losses"].append(losses)
+            info["octave_overflow"].append(n_over)
+
+        # one sync per frame: parked particles are left out of the splat
+        # until the next rebin, so a crowded frame must be visible. With a
+        # K-budget, parking up to the budget is the deal; the threshold is
+        # 4x the budget (drift headroom)
+        info["octave_overflow"] = [
+            int(v) for v in torch.stack(info["octave_overflow"]).cpu()]
+        over_thresh = 4 * (int(pc.k_budget * x.shape[0])
+                           if pc.k_budget else 0)
+        if max(info["octave_overflow"]) > over_thresh:
+            # the next frame re-probes occupancy
+            self._k_cache.pop(ksig, None)
+            warnings.warn(
+                f"binned splat parked {max(info['octave_overflow'])} "
+                f"overflow particles (per octave: "
+                f"{info['octave_overflow']}); they were excluded from the "
+                f"splat between rebins (the next frame re-probes bin "
+                f"capacity). Consider particle.rebin_every lower or "
+                f"splat_impl='flat'.", stacklevel=2)
+
+        return self.apply_param(pset, param), param, info
+
+    @torch.no_grad()
+    def apply_param(self, pset: ParticleSet, param: Param) -> ParticleSet:
+        """Apply an optimized attribute dict to a particle set."""
+        pc = self.cfg.particle
+        x = self._on_device(pset.x)
+        dens = (self._on_device(pset.dens) if pset.dens is not None
+                else torch.ones(x.shape[0], dtype=torch.float32,
+                                device=self.device))
+        if "dx" in param:
+            x = x + _offset(param["dx"], pc.max_offset)
+        if "ddens" in param:
+            dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
+        return ParticleSet(x=x, dens=dens, color=pset.color, vel=pset.vel)
+
+    @torch.no_grad()
+    def rasterize(self, pset: ParticleSet) -> torch.Tensor:
+        """Splat a (stylized) particle set to the full-res density grid."""
+        pc = self.cfg.particle
+        x = self._on_device(pset.x)
+        dens = (self._on_device(pset.dens) if pset.dens is not None
+                else torch.ones(x.shape[0], dtype=torch.float32,
+                                device=self.device))
+        return splat(x, dens, self.grid_shape, kernel=pc.kernel,
+                     support=pc.support)
+
+    def stylize_keyframes(self, psets, generator=None, callback=None,
+                          view_schedule=None):
+        """LNST §5 sequence flow: optimize at keyframes (stride
+        particle.keyframe_stride, plus the last frame), each warm-started
+        from the previous keyframe's attributes, and interpolate the
+        attributes in between.
+
+        Args:
+          psets: per-frame ParticleSets with STABLE particle identity.
+          generator: CPU ``torch.Generator`` for every keyframe's view
+            draws, in turn; default seeded with ``cfg.seed``.
+          view_schedule: optional (n_keyframes, octave_n, iters) pool
+            indices.
+
+        Yields (frame_index, stylized ParticleSet) for every frame.
+        """
+        T = len(psets)
+        generator = (generator if generator is not None
+                     else torch.Generator().manual_seed(self.cfg.seed))
+        keyframes = keyframe_indices(T, self.cfg.particle.keyframe_stride)
+        params = {}
+        prev = None
+        self.last_keyframe_infos = {}
+        for i, kf in enumerate(keyframes):
+            _, p, kf_info = self.stylize_frame(
+                psets[kf], init_param=prev, generator=generator,
+                callback=callback,
+                view_schedule=(None if view_schedule is None
+                               else view_schedule[i]))
+            params[kf] = p
+            self.last_keyframe_infos[kf] = kf_info
+            prev = {k: v.clone() for k, v in p.items()}
+        yield from interp_sequence(
+            psets, keyframes, params, float(self.cfg.particle.max_offset),
+            apply_fn=self.apply_param,
+            max_log_dens=self.cfg.particle.max_log_dens)
+
+
+def interpolate_attrs(param0: Param, param1: Param, alpha: float) -> Param:
+    """Linear keyframe interpolation of per-particle attribute dicts."""
+    return {k: (1 - alpha) * param0[k] + alpha * param1[k] for k in param0}
+
+
+def keyframe_indices(T: int, stride: int):
+    """Keyframe schedule: every `stride` frames plus the final frame."""
+    kfs = list(range(0, T, max(1, stride)))
+    if kfs[-1] != T - 1:
+        kfs.append(T - 1)
+    return kfs
+
+
+def interp_sequence(psets, keyframes, params, max_offset: float, apply_fn,
+                    max_log_dens=None):
+    """Keyframe interpolation segment by segment (LNST §5, attributes
+    interpolated along particle identity), on the device of the keyframe
+    params. Yields (t, stylized ParticleSet) for every frame index."""
+    if len(keyframes) == 1:
+        yield 0, apply_fn(psets[0], params[keyframes[0]])
+        return
+    device = next(iter(params[keyframes[0]].values())).device
+
+    def on_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    for k0, k1 in zip(keyframes[:-1], keyframes[1:]):
+        last = k1 == keyframes[-1]
+        ts = list(range(k0, k1 + 1 if last else k1))
+        alphas = torch.tensor([(t - k0) / (k1 - k0) for t in ts],
+                              dtype=torch.float32, device=device)
+        x = torch.stack([on_dev(psets[t].x) for t in ts])
+        n = x.shape[1]
+        dens = torch.stack([
+            on_dev(psets[t].dens) if psets[t].dens is not None
+            else torch.ones(n, dtype=torch.float32, device=device)
+            for t in ts])
+        xo, do, co = _interp_apply_segment(params[k0], params[k1], alphas,
+                                           x, dens, max_offset,
+                                           max_log_dens)
+        for i, t in enumerate(ts):
+            color = co[i] if co is not None else psets[t].color
+            yield t, ParticleSet(x=xo[i], dens=do[i], color=color,
+                                 vel=psets[t].vel)
+
+
+@torch.no_grad()
+def _interp_apply_segment(p0: Param, p1: Param, alphas: torch.Tensor,
+                          x: torch.Tensor, dens: torch.Tensor,
+                          max_offset: float, max_log_dens=None):
+    """Keyframe-segment interpolation + attribute application: lerps the
+    two keyframe params at every alpha and applies them to the segment's
+    stacked (m, n, 3) positions and (m, n) densities."""
+    def lerp(u, v):
+        a = alphas.reshape((-1,) + (1,) * u.ndim)
+        return (1.0 - a) * u[None] + a * v[None]
+
+    p = {k: lerp(p0[k], p1[k]) for k in p0}
+    if "dx" in p:
+        x = x + _offset(p["dx"], max_offset)
+    if "ddens" in p:
+        dens = dens * _dens_scale(p["ddens"], max_log_dens)
+    return x, dens, p.get("color")
+
+
+def param_to_numpy(param: Param) -> Dict[str, np.ndarray]:
+    """Param dict -> numpy dict of (N, ...) arrays, the JAX package's keys."""
+    return {k: v.detach().cpu().numpy() for k, v in param.items()}
+
+
+def param_from_numpy(param, device="cpu") -> Param:
+    """Numpy (or JAX-array) dict of (N, ...) arrays -> param dict."""
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in param.items()}

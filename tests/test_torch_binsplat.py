@@ -1,0 +1,350 @@
+"""nfs_tpu_torch splat ops against the JAX package on the CPU: binning,
+the flat and binned splats, the binned window (the plain versions of the
+CUDA kernels K4/K5 behind ``BinWindow``) and ``grid_sample``.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+JAX package's Pallas window runs as its own tests run it off a TPU
+(interpret mode, ``splat_binned_pallas``).
+
+Tolerances: binning is integer-valued and compared exactly. Values atol
+1e-5 and gradients atol 1e-4: float32 sums of the same terms in another
+order (measured <= 3.0e-7 in values and <= 7.2e-7 in gradients).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nfs_tpu.ops import binsplat as JB
+from nfs_tpu.ops.interp import grid_sample as jax_grid_sample
+from nfs_tpu.ops.pallas_binsplat import splat_binned_pallas
+from nfs_tpu_torch.ops import binsplat as TB
+from nfs_tpu_torch.ops import binsplat_kernels as BK
+from nfs_tpu_torch.ops.interp import grid_sample, identity_coords
+from nfs_tpu_torch.ops.splat import gather, splat, splat_normalized
+
+JS = importlib.import_module("nfs_tpu.ops.splat")
+
+torch.set_num_threads(2)
+
+VALUE_ATOL = 1e-5
+GRAD_ATOL = 1e-4
+
+
+def _crowded(n, shape, n_cluster, seed):
+    """n spread particles plus n_cluster in a 0.05-cell cube at 5.0 (one
+    base cell) and a margin outside the grid, so bins overflow and
+    boundary taps get cropped."""
+    rng = np.random.default_rng(seed)
+    spread = np.array(shape) + 4
+    x = np.concatenate([rng.random((n, len(shape))) * spread - 2.0,
+                        5.0 + 0.05 * rng.random((n_cluster, len(shape)))])
+    return x.astype(np.float32), rng
+
+
+def _vjp_torch(fn, *args):
+    """(output, grads of <output, h> wrt args) with a seeded cotangent."""
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    out = fn(*ts)
+    h = torch.from_numpy(np.random.default_rng(99).random(
+        tuple(out.shape), dtype=np.float32))
+    grads = torch.autograd.grad((out * h).sum(), ts)
+    return out.detach().numpy(), [g.numpy() for g in grads], h.numpy()
+
+
+def _vjp_jax(fn, h, *args):
+    # one jit around value and vjp: XLA compiles the unrolled 27-tap
+    # graphs several times faster that way than op by op
+    @jax.jit
+    def value_and_vjp(h, *a):
+        out, vjp = jax.vjp(fn, *a)
+        return out, vjp(h)
+
+    out, grads = value_and_vjp(jnp.asarray(h),
+                               *(jnp.asarray(a) for a in args))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _assert_matches(tfn, jfn, *args):
+    """Values within VALUE_ATOL, gradients within GRAD_ATOL relative to
+    the largest JAX gradient when that exceeds 1 (splat_normalized divides
+    by weight sums near 0, where gradients reach 1e5)."""
+    t_out, t_grads, h = _vjp_torch(tfn, *args)
+    j_out, j_grads = _vjp_jax(jfn, h, *args)
+    np.testing.assert_allclose(t_out, j_out, atol=VALUE_ATOL, rtol=0)
+    for tg, jg in zip(t_grads, j_grads):
+        scale = max(1.0, float(np.abs(jg).max()))
+        np.testing.assert_allclose(tg, jg, atol=GRAD_ATOL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["bspline", "linear"])
+@pytest.mark.parametrize("K", [2, 4])
+def test_binning_matches_jax(kernel, K):
+    """Stable ranks: the SAME particles park when a bin overflows."""
+    shape = (10, 8, 12)
+    x, _ = _crowded(800, shape, 300, seed=0)
+    jb = JB.bin_particles(jnp.asarray(x), shape, K, kernel=kernel)
+    tb = TB.bin_particles(torch.from_numpy(x), shape, K, kernel=kernel)
+    assert int(tb.n_overflow) == int(jb.n_overflow) > 0
+    np.testing.assert_array_equal(tb.slot.numpy(), np.asarray(jb.slot))
+    np.testing.assert_array_equal(tb.valid.numpy(), np.asarray(jb.valid))
+    np.testing.assert_array_equal(
+        TB.bin_count_stats(torch.from_numpy(x), shape, kernel).numpy(),
+        np.asarray(JB.bin_count_stats(jnp.asarray(x), shape, kernel)))
+    assert int(TB.max_bin_count(torch.from_numpy(x), shape, kernel)) == \
+        int(JB.max_bin_count(jnp.asarray(x), shape, kernel))
+    # slot-minor round trip, parked particles included
+    for arr in (x, x[:, 0].copy()):
+        tb_arr = TB.to_binned(tb, torch.from_numpy(arr))
+        np.testing.assert_array_equal(
+            tb_arr.numpy(), np.asarray(JB.to_binned(jb, jnp.asarray(arr))))
+        np.testing.assert_array_equal(TB.from_binned(tb, tb_arr).numpy(),
+                                      arr)
+
+
+def test_bucket_k_and_shapes():
+    for k in range(0, 40):
+        assert TB.bucket_k(k) == JB.bucket_k(k)
+    assert TB.bucket_k(9000) == JB.bucket_k(9000) == 4096
+    assert TB.padded_shape((5, 6, 7)) == JB.padded_shape((5, 6, 7))
+    assert TB.PAD == JB.PAD
+    with pytest.raises(ValueError):
+        TB.n_taps("cubic")
+
+
+def _flat_case(shape, grid, seed=1):
+    """Positions around and past the grid; 'integer' rounds them to
+    integers and half-integers, which puts the linear tent exactly at
+    abs(0) and at its max(., 0) tie (ROADMAP queue 3, F1 and F6)."""
+    x, rng = _crowded(300, shape, 0, seed=seed)
+    if grid == "integer":
+        x = np.round(x * 2) / 2
+    return x, rng
+
+
+@pytest.mark.parametrize("kernel", ["bspline", "linear"])
+@pytest.mark.parametrize("grid", ["integer", "random"])
+def test_flat_splat_matches_jax(kernel, grid):
+    """Values and gradients wrt positions and attributes."""
+    shape = (9, 7, 11)
+    x, rng = _flat_case(shape, grid)
+    attr = rng.random(len(x), dtype=np.float32)
+    _assert_matches(lambda p, a: splat(p, a, shape, kernel=kernel),
+                    lambda p, a: JS.splat(p, a, shape, kernel=kernel),
+                    x, attr)
+
+
+@pytest.mark.parametrize("kernel", ["bspline", "linear"])
+def test_gather_matches_jax(kernel):
+    shape = (9, 7, 11)
+    x, rng = _flat_case(shape, "integer", seed=2)
+    field = rng.random(shape + (2,), dtype=np.float32)
+    _assert_matches(lambda f, p: gather(f, p, kernel=kernel),
+                    lambda f, p: JS.gather(f, p, kernel=kernel), field, x)
+
+
+@pytest.mark.parametrize("kernel", ["bspline", "linear"])
+def test_flat_splat_2d_normalized_and_dilated_match_jax(kernel):
+    """A 2D grid: the weight-normalized splat of 3 channels, and support
+    1.2, the floor-based stencil with weights divided by the support."""
+    shape = (12, 10)
+    x, rng = _flat_case(shape, "integer", seed=3)
+    _assert_matches(
+        lambda p, a: splat_normalized(p, a, shape, kernel=kernel),
+        lambda p, a: JS.splat_normalized(p, a, shape, kernel=kernel),
+        x, rng.random((len(x), 3), dtype=np.float32))
+    _assert_matches(
+        lambda p, a: splat(p, a, shape, kernel=kernel, support=1.2),
+        lambda p, a: JS.splat(p, a, shape, kernel=kernel, support=1.2),
+        x, rng.random(len(x), dtype=np.float32))
+    _assert_matches(
+        lambda f, p: gather(f, p, kernel=kernel, support=1.2),
+        lambda f, p: JS.gather(f, p, kernel=kernel, support=1.2),
+        rng.random(shape, dtype=np.float32), x)
+
+
+@pytest.mark.parametrize("kernel,shape,channels", [
+    ("bspline", (10, 8, 12), 0),
+    ("bspline", (10, 8, 12), 5),
+    ("linear", (10, 8, 12), 0),
+    ("bspline", (14, 12), 5),
+])
+def test_splat_binned_matches_jax(kernel, shape, channels):
+    """The generic binned splat: 2D/3D, one or C = 5 channels, drifted
+    positions and parked overflow."""
+    x, rng = _crowded(900, shape, 200, seed=3)
+    K = 3
+    jb = JB.bin_particles(jnp.asarray(x), shape, K, kernel=kernel)
+    tb = TB.bin_particles(torch.from_numpy(x), shape, K, kernel=kernel)
+    assert int(tb.n_overflow) > 0
+    x = x + (0.3 * rng.standard_normal(x.shape)).astype(np.float32)
+    attr = (rng.random((len(x), channels), dtype=np.float32) if channels
+            else rng.random(len(x), dtype=np.float32))
+    p_b = np.asarray(JB.to_binned(jb, jnp.asarray(x)))
+    a_b = np.asarray(JB.to_binned(jb, jnp.asarray(attr)))
+    _assert_matches(
+        lambda p, a: TB.splat_binned(p, a, tb.valid, shape, K,
+                                     kernel=kernel),
+        lambda p, a: JB.splat_binned(p, a, jb.valid, shape, K,
+                                     kernel=kernel),
+        p_b, a_b)
+
+
+def _window_case(case):
+    """(positions at binning, positions after, attrs, K) of a window
+    test case."""
+    shape = (10, 8, 12)
+    rng = np.random.default_rng(5)
+    if case == "parked":
+        x, rng = _crowded(700, shape, 200, seed=6)
+        return shape, x, x, rng.random(len(x), dtype=np.float32), 2
+    if case == "ties":   # integer and half-integer: the _dw1d ties
+        x = (np.round(rng.random((600, 3)) * (np.array(shape) - 1) * 2)
+             / 2.0).astype(np.float32)
+        return shape, x, x, rng.random(600, dtype=np.float32), 8
+    x, rng = _crowded(900, shape, 0, seed=7)
+    attr = rng.random(len(x), dtype=np.float32)
+    if case == "drift":
+        moved = x + rng.uniform(-0.5, 0.5, x.shape).astype(np.float32)
+        return shape, x, moved, attr, 4
+    return shape, x, x, attr, 1          # "k1": most particles park
+
+
+@pytest.mark.parametrize("case", ["drift", "parked", "ties", "k1"])
+def test_window_matches_jax_pallas(case):
+    """splat_binned_window (BinWindow over K4/K5's plain versions) against
+    the JAX package's Pallas window: the value and the gradients wrt
+    attributes and positions."""
+    shape, x0, x, attr, K = _window_case(case)
+    jb = JB.bin_particles(jnp.asarray(x0), shape, K)
+    tb = TB.bin_particles(torch.from_numpy(x0), shape, K)
+    if case in ("parked", "k1"):
+        assert int(tb.n_overflow) > 0
+    p_b = np.asarray(JB.to_binned(jb, jnp.asarray(x)))
+    a_b = np.asarray(JB.to_binned(jb, jnp.asarray(attr)))
+    before = dict(BK.LAUNCHES)
+    _assert_matches(
+        lambda p, a: BK.splat_binned_window(p, a, tb.valid, shape, K),
+        lambda p, a: splat_binned_pallas(p, a, jb.valid, shape, K),
+        p_b, a_b)
+    assert BK.LAUNCHES == before  # CPU tensors: the plain versions ran
+
+
+def test_window_plain_versions_match_generic():
+    """window_fwd_plain / window_bwd_plain on raw bins against autograd
+    of the generic splat_binned window on the padded grid; empty slots
+    (a == 0) get exactly zero position gradient."""
+    shape, x0, x, attr, K = _window_case("drift")
+    tb = TB.bin_particles(torch.from_numpy(x0), shape, K)
+    pshape = TB.padded_shape(shape)
+    n_slots = tb.valid.shape[0]
+    p_b = TB.to_binned(tb, torch.from_numpy(x))
+    a4 = torch.where(tb.valid, TB.to_binned(tb, torch.from_numpy(attr)
+                                            )[:n_slots], 0.0
+                     ).view((K,) + pshape)
+    p4 = [p_b[d, :n_slots].view((K,) + pshape).contiguous()
+          for d in range(3)]
+    g = torch.from_numpy(np.random.default_rng(8).random(
+        pshape, dtype=np.float32))
+    out = BK.window_fwd_plain(a4, *p4)
+    da, dpz, dpy, dpx = BK.window_bwd_plain(a4, *p4, g)
+
+    ts = [t.clone().requires_grad_(True) for t in [a4] + p4]
+    # the generic splat over ALL padded cells: a grid PAD cells smaller
+    # per side, padded back by splat_binned's own PAD ring
+    ref = _generic_padded(ts, K, pshape)
+    refs = torch.autograd.grad((ref * g).sum(), ts)
+    torch.testing.assert_close(out, ref.detach(), atol=VALUE_ATOL, rtol=0)
+    for got, want in zip((da, dpz, dpy, dpx), refs):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    empty = (a4 == 0)
+    assert float(dpz[empty].abs().max()) == 0.0
+
+
+def _generic_padded(ts, K, pshape):
+    """out[q] over the padded grid by the generic formulation: sum over
+    k and offsets of W * a, shifted by the offset."""
+    a, pz, py, px = ts
+    Z, Y, X = pshape
+    fr = (pz + TB.PAD - torch.arange(Z, dtype=torch.float32).view(Z, 1, 1),
+          py + TB.PAD - torch.arange(Y, dtype=torch.float32).view(Y, 1),
+          px + TB.PAD - torch.arange(X, dtype=torch.float32))
+    W = [[BK._w1d(float(o) - f) for o in range(3)] for f in fr]
+    out = torch.zeros(pshape)
+    for oz in range(3):
+        for oy in range(3):
+            for ox in range(3):
+                c = (W[0][oz] * W[1][oy] * W[2][ox] * a).sum(0)
+                out = out + torch.nn.functional.pad(
+                    c, (ox, 0, oy, 0, oz, 0))[:Z, :Y, :X]
+    return out
+
+
+def test_window_wrappers_check_inputs():
+    a = torch.zeros((2, 6, 5, 7))
+    p = torch.zeros_like(a)
+    with pytest.raises(TypeError):
+        BK.binsplat_fwd(a.double(), p, p, p)
+    with pytest.raises(ValueError):
+        BK.binsplat_fwd(a, p[:, :5], p, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        BK.binsplat_fwd(a, p.transpose(2, 3).contiguous().transpose(2, 3),
+                        p, p)
+    with pytest.raises(ValueError):
+        BK.binsplat_bwd(a, p, p, p, torch.zeros((6, 5, 6)))
+    with pytest.raises(ValueError, match="3D grids"):
+        BK.splat_binned_window(torch.zeros((2, 10)), torch.zeros((2, 10)),
+                               torch.ones(10, dtype=torch.bool), (4, 5), 1)
+
+
+@pytest.mark.parametrize("mode", ["clamp", "zero"])
+@pytest.mark.parametrize("channels", [0, 2])
+def test_grid_sample_matches_jax(mode, channels):
+    """Values and both gradients of the custom VJP; coordinates reach past
+    the grid on every side and include integer ones."""
+    shape = (6, 5, 7)
+    rng = np.random.default_rng(11)
+    field = rng.random(shape + ((channels,) if channels else ()),
+                       dtype=np.float32)
+    coords = (rng.random((40, 3)) * (np.array(shape) + 2) - 1.0
+              ).astype(np.float32)
+    coords[:8] = np.round(coords[:8])
+    _assert_matches(lambda f, c: grid_sample(f, c, mode=mode),
+                    lambda f, c: jax_grid_sample(f, c, mode=mode),
+                    field, coords)
+
+
+def test_identity_coords_and_bad_mode():
+    from nfs_tpu.ops.interp import identity_coords as jax_identity
+
+    np.testing.assert_array_equal(identity_coords((3, 4, 2)).numpy(),
+                                  np.asarray(jax_identity((3, 4, 2))))
+    with pytest.raises(ValueError, match="boundary mode"):
+        grid_sample(torch.zeros((3, 3)), torch.zeros((2, 2)), mode="wrap")
+
+
+def test_binsplat_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """Both libraries come from one build helper, keyed on each source's
+    own hash; without nvcc the binned-splat library cannot build."""
+    import shutil
+
+    from nfs_tpu_torch.ops import _cuda_build
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    assert BK.SOURCE.name == "binsplat.cu"
+    paths = {_cuda_build.library_path(BK.SOURCE, "nfs_binsplat"),
+             ak.library_path()}
+    assert len(paths) == 2
+    assert all(p.parent == _cuda_build.BUILD_DIR for p in paths)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("NVCC", raising=False)
+    monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "build")
+    BK.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        BK.load_library()
+    BK.load_library.cache_clear()

@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K3 of nfs_tpu_torch against their plain twins, on the
-GPU. Every test here needs a CUDA device and skips without one.
+"""CUDA kernels K1-K5 of nfs_tpu_torch against their plain versions, on
+the GPU. Every test here needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where only the port and torch
 are installed; tests/conftest.py imports JAX, so there run it as
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from nfs_tpu_torch.ops import advect_kernels as ak
+from nfs_tpu_torch.ops import binsplat as B
+from nfs_tpu_torch.ops import binsplat_kernels as bk
 from nfs_tpu_torch.ops.advect import advect
 
 torch.set_num_threads(2)
@@ -89,3 +91,74 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
         ak.advect_bwd_field(v, g.transpose(0, 2), 2.0)
     with pytest.raises(TypeError):
         ak.advect_bwd_vel(f.half(), v, g, 2.0)
+
+
+def _bins(case, shape=(20, 14, 24), n=6000, seed=0):
+    """Binned particles as the styler's window sees them: (p_b, a_b,
+    Binning, K). 'drift' moves them +-0.5 cell after binning, 'parked'
+    crowds a cell past K = 2, 'integer' puts them on integer positions."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((n, 3)) * (np.array(shape) - 1)).astype(np.float32)
+    K = 4
+    if case == "parked":
+        x[: n // 10] = 5.0 + 0.05 * rng.random((n // 10, 3))
+        K = 2
+    elif case == "integer":
+        x = np.round(x)
+    bn = B.bin_particles(torch.from_numpy(x), shape, K)
+    if case == "drift":
+        x = x + rng.uniform(-0.5, 0.5, x.shape).astype(np.float32)
+    p_b = B.to_binned(bn, torch.from_numpy(x))
+    a_b = B.to_binned(bn, torch.from_numpy(
+        rng.random(n, dtype=np.float32)))
+    return p_b, a_b, bn, K, shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["binned", "drift", "parked", "integer"])
+def test_binsplat_kernels_match_plain(cuda_device, case):
+    p_b, a_b, bn, K, shape = _bins(case)
+    pshape = B.padded_shape(shape)
+    n_slots = bn.valid.shape[0]
+    a4 = torch.where(bn.valid, a_b[:n_slots], 0.0).view((K,) + pshape)
+    p4 = [p_b[d, :n_slots].view((K,) + pshape).contiguous()
+          for d in range(3)]
+    a4, p4 = a4.to(cuda_device), [p.to(cuda_device) for p in p4]
+    g = torch.rand(pshape, device=cuda_device)
+    before = dict(bk.LAUNCHES)
+    torch.testing.assert_close(bk.binsplat_fwd(a4, *p4),
+                               bk.window_fwd_plain(a4, *p4),
+                               atol=VALUE_ATOL, rtol=0)
+    for got, want in zip(bk.binsplat_bwd(a4, *p4, g),
+                         bk.window_bwd_plain(a4, *p4, g)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    assert bk.LAUNCHES == {k: before[k] + 1 for k in before}
+
+
+@pytest.mark.cuda
+def test_bin_window_on_gpu_matches_cpu(cuda_device):
+    """splat_binned_window's value and gradients (BinWindow: K4 forward,
+    K5 backward) on the GPU against the plain versions on the CPU."""
+    p_b, a_b, bn, K, shape = _bins("drift", seed=3)
+    h = torch.rand(shape)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        p = p_b.to(dev).clone().requires_grad_(True)
+        a = a_b.to(dev).clone().requires_grad_(True)
+        out = bk.splat_binned_window(p, a, bn.valid.to(dev), shape, K)
+        (out * h.to(dev)).sum().backward()
+        outs[str(dev)] = [t.detach().cpu() for t in (out, p.grad, a.grad)]
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
+    torch.testing.assert_close(gpu[1], cpu[1], atol=GRAD_ATOL, rtol=0)
+    torch.testing.assert_close(gpu[2], cpu[2], atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_binsplat_wrappers_refuse_bad_inputs(cuda_device):
+    a = torch.zeros((2, 6, 5, 7), device=cuda_device)
+    with pytest.raises(ValueError):  # positions on the CPU
+        bk.binsplat_fwd(a, a.cpu(), a, a)
+    with pytest.raises(TypeError):
+        bk.binsplat_bwd(a, a, a, a, torch.zeros((6, 5, 7),
+                                                device=cuda_device).half())

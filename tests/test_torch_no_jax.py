@@ -1,6 +1,7 @@
 """nfs_tpu_torch needs no JAX: a fresh interpreter in which any import of
-``jax`` fails imports every module of the port, then runs the grid CLI on
-the CPU (a single frame and a 2-frame window sequence) at a tiny size."""
+``jax`` fails imports every module of the port, then runs the CLI on the
+CPU at a tiny size: grid mode (a single frame and a 2-frame window
+sequence) and particle mode (3 frames, keyframes 0 and 2)."""
 
 import json
 import os
@@ -35,6 +36,9 @@ SCRIPT = textwrap.dedent("""
     main(common + ["--tag", "single"])
     main(common + ["--tag", "seq", "--num_frames", "2", "--window", "1",
                    "--parameterization", "velocity"])
+    main(common + ["--tag", "lnst", "--mode", "particle", "--num_frames",
+                   "3", "--keyframe_stride", "2", "--opt_density",
+                   "--grid_shape", "12", "10", "12"])
     bad = sorted(m for m in sys.modules
                  if m == "nfs_tpu" or m.startswith("nfs_tpu."))
     print("MODULES", len(names), "JAX_PACKAGE", bad)
@@ -52,6 +56,9 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
         store.save_density(t, rng.random(shape, dtype=np.float32))
         store.save_velocity(t, 0.5 * rng.standard_normal(
             shape + (3,)).astype(np.float32))
+    for t in range(3):
+        store.save_particles(t, x=(rng.random((300, 3)) * 8 + 2).astype(
+            np.float32))
     np.save(data / "style.npy", rng.random((32, 32, 3), dtype=np.float32))
 
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -74,3 +81,13 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
     metrics = [json.loads(l) for l in
                (tmp_path / "log" / "single" / "metrics.jsonl").open()]
     assert metrics[0]["device"] == "cpu"
+    lnst = tmp_path / "log" / "lnst"
+    for t in range(3):
+        p = FrameStore(str(lnst)).load_particles(t)
+        assert p["x"].shape == (300, 3) and np.isfinite(p["x"]).all()
+        assert p["dens"].shape == (300,) and (p["dens"] > 0).all()
+        assert (lnst / f"preview_{t:04d}.png").exists()
+    overflow = [json.loads(l)["splat_overflow"]
+                for l in (lnst / "metrics.jsonl").open()]
+    # keyframes 0 and 2 log their parked particles per octave
+    assert overflow[0] == overflow[2] == [0, 0] and overflow[1] is None
