@@ -12,14 +12,15 @@ Phases, each printing one JSON line:
    ``binsplat.cu`` with nvcc for sm_90a into ``build/nfs_tpu_torch/``,
    both at once, and loads them.
 3. kernels — every kernel against its plain PyTorch version on the card,
-   at the main paths' shapes: K1-K3 at 112x64x112 (random, clamped,
-   integer-valued and zero velocities; max_disp 2 and 1); K4-K5 on the
-   particle path's finest octave (200 000 particles of the particles_3d
-   bench binned at 96x64x96 with the styler's own capacity K: as binned,
-   drifted +-0.5 cell, crowded past K = 2, integer positions). Each
-   kernel, its plain version and the one PyTorch library call that
-   computes the same function, where there is one, are timed (median of
-   30 CUDA-event timed runs).
+   at the main paths' shapes: K1-K3b at 112x64x112 (random, clamped,
+   integer-valued and zero velocities; max_disp 2 and 1), K3b also
+   against K2 + K3 launched separately; K4-K5 on the particle path's
+   finest octave (200 000 particles of the particles_3d bench binned at
+   96x64x96 with the styler's own capacity K: as binned, drifted +-0.5
+   cell, crowded past K = 2, integer positions). Each kernel, its plain
+   version and the one PyTorch library call that computes the same
+   function, where there is one, are timed (median of 30 CUDA-event
+   timed runs).
    reference — small runs of the grid and particle slices on the GPU
    against the same runs on the CPU (plain versions; the CPU port is held
    against the JAX package by the tests).
@@ -27,16 +28,31 @@ Phases, each printing one JSON line:
    widths with the window-transport loss (W=1): 3 frames of 112x64x112
    through ``FrameStore`` and ``GridStyler.stylize_sequence``.
 5. velocity — the velocity parameterization (config #4), one frame, W=1.
-6. particle — the LNST path at the particles_3d bench widths:
+6. fused_bwd_ab — 50 chained descent steps of sum(advect(f, v)^2) with
+   gradients in f and v at 112x64x112 (bench/advect_bench.py's chain), ms
+   per step with ``FUSED_BWD`` off (K2 + K3) and on (K3b).
+7. velocity again with ``FUSED_BWD``: only K3b in the backward, losses
+   equal to phase 5's within rtol 1e-5.
+8. particle — the LNST path at the particles_3d bench widths:
    ``ParticleStyler.stylize_keyframes`` over 11 frames of 200 000
    particles on a 96x64x96 grid (keyframes 0 and 10), 3 octaves x 20
    iterations, 9 views at 256^2.
-7. profile (only with ``--profile``) — the density slice at config #3's
+9. profile (only with ``--profile``) — the density slice at config #3's
    20 iterations per octave: steady seconds per iteration and per frame,
    then two frames under ``torch.profiler`` for the device's kernel time
    per iteration by category and its idle share in that traced run; then
    keyframe 10 of the particle phase under ``torch.profiler`` the same
    way.
+10. scene — ``nfs_tpu_torch.cli.scene`` writes smoke3d at 112x64x112 (16
+    frames, exactly 7 K1 launches per solver step) and liquid3d at 64^3
+    (8 frames, 72 500 particles).
+11. northstar — the north-star data path of bench/northstar.py at 16
+    frames: ``smoke_sequence_cached`` into a chunk directory, then
+    ``iter_sequence_blocks`` into ``stylize_sequence_blocks(fused=4)`` at
+    config #3 widths (5 iterations per octave), frames 0-7 held against
+    the streaming path.
+12. cli — ``cli.stylize --fused 2`` over 4 of the scene's frames, then a
+    rerun that the complete manifest turns into a no-op.
 
 Then one JSON line with every kernel's route, error, launches on its main
 path, times and least time on the card, and as the last line
@@ -66,8 +82,10 @@ KERNELS = (
     ("bwd_field", "advect_bwd_field (K2)",
      "nfs_tpu/ops/pallas_advect.py:148"),
     ("bwd_vel", "advect_bwd_vel (K3)", "nfs_tpu/ops/pallas_advect.py:203"),
+    ("bwd_fused", "advect_bwd_fused (K3b)",
+     "nfs_tpu/ops/pallas_advect.py:301"),
 )
-TOL = {"fwd": 1e-5, "bwd_field": 1e-4, "bwd_vel": 1e-4}
+TOL = {"fwd": 1e-5, "bwd_field": 1e-4, "bwd_vel": 1e-4, "bwd_fused": 1e-4}
 BIN_KERNELS = (
     ("fwd", "binsplat_fwd (K4)", "nfs_tpu/ops/pallas_binsplat.py:125"),
     ("bwd", "binsplat_bwd (K5)", "nfs_tpu/ops/pallas_binsplat.py:248"),
@@ -81,6 +99,9 @@ BIN_TOL = {"fwd": 1e-5, "bwd": 1e-4}
 P_GRID = (96, 64, 96)
 P_COUNT = 200_000
 
+# cli.scene's liquid3d scene at 64^3 (8 frames)
+LIQUID_GRID = (64, 64, 64)
+
 # least time on the card: the H100 SXM's 3.35 TB/s HBM and 67 TFLOP/s
 # float32 outside the tensor cores (NVIDIA's H100 SXM datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -88,10 +109,12 @@ F32_FLOPS = 67e12
 # float32 operations each kernel's function needs per element: K1 one
 # clamped backtrace (12) and 8 trilinear corner terms (13 each); K2 its
 # adjoint, the same per source cell; K3 27 taps of 3 derivative products
-# (10 each) plus the backtrace; K4 per OCCUPIED slot 3 fracs (2), 9
-# weights (4) and 27 taps (4), empty slots being skipped; K5 per slot the
-# same fracs and weights, 9 derivatives (4) and 27 taps of 4 sums (16)
+# (10 each) plus the backtrace; K3b K2's and K3's together; K4 per
+# OCCUPIED slot 3 fracs (2), 9 weights (4) and 27 taps (4), empty slots
+# being skipped; K5 per slot the same fracs and weights, 9 derivatives
+# (4) and 27 taps of 4 sums (16)
 OPS_PER_ELEMENT = {"fwd": 116, "bwd_field": 116, "bwd_vel": 282,
+                   "bwd_fused": 116 + 282,
                    "binsplat_fwd": 150, "binsplat_bwd": 513}
 
 
@@ -172,9 +195,24 @@ def _median_ms(fn, runs: int = 30) -> float:
     return statistics.median(times)
 
 
+def _max_err(a, b) -> float:
+    """Largest |a - b| over a tensor or over the tensors of a tuple."""
+    if isinstance(a, tuple):
+        return max(_max_err(x, y) for x, y in zip(a, b))
+    return float((a - b).abs().max())
+
+
+def _all_finite(a) -> bool:
+    import torch
+
+    parts = a if isinstance(a, tuple) else (a,)
+    return all(bool(torch.isfinite(x).all()) for x in parts)
+
+
 def phase_kernels(card: str):
-    """K1-K3 against the plain twins on the card. Returns the per-kernel
-    records of the final JSON line (launches are filled in later)."""
+    """K1-K3b against the plain twins on the card, and K3b against K2 + K3
+    launched separately. Returns the per-kernel records of the final JSON
+    line (launches are filled in later)."""
     import torch
 
     from nfs_tpu_torch.ops import advect_kernels as ak
@@ -187,6 +225,9 @@ def phase_kernels(card: str):
                       lambda f, g, v, d: ak.advect_bwd_field_plain(v, g, d)),
         "bwd_vel": (lambda f, g, v, d: ak.advect_bwd_vel(f, v, g, d),
                     lambda f, g, v, d: ak.advect_bwd_vel_plain(f, v, g, d)),
+        "bwd_fused": (
+            lambda f, g, v, d: ak.advect_bwd_fused(f, v, g, d),
+            lambda f, g, v, d: ak.advect_bwd_fused_plain(f, v, g, d)),
     }
     errs = {k: 0.0 for k in pairs}
     cases = [("random", 2.0), ("random", 1.0), ("integer", 2.0),
@@ -199,23 +240,35 @@ def phase_kernels(card: str):
             out_k = kern(f, g, v, md)
             out_p = plain(f, g, v, md)
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(out_k).all()):
+            if not _all_finite(out_k):
                 raise AssertionError(f"{key}: non-finite output ({case})")
-            err = float((out_k - out_p).abs().max())
+            err = _max_err(out_k, out_p)
             case_err[key] = err
-            if err > TOL[key]:
+            if not err <= TOL[key]:
                 raise AssertionError(
                     f"{key} disagrees with its plain twin on case "
                     f"{case} max_disp={md}: {err} > {TOL[key]}")
             errs[key] = max(errs[key], err)
+        # K3b against K2 and K3 launched separately on the same inputs
+        split_err = _max_err(ak.advect_bwd_fused(f, v, g, md),
+                             (ak.advect_bwd_field(v, g, md),
+                              ak.advect_bwd_vel(f, v, g, md)))
+        if not split_err <= TOL["bwd_fused"]:
+            raise AssertionError(f"K3b disagrees with K2 + K3 on case "
+                                 f"{case} max_disp={md}: {split_err}")
         emit({"phase": "kernels", "case": case, "max_disp": md,
-              "max_abs_err": case_err, "tol": TOL})
+              "max_abs_err": case_err, "k3b_vs_k2_k3": split_err,
+              "tol": TOL})
 
     # times at the main path's shape: K1/K2 as the window loss runs them
-    # (max_disp 2), K3 as the velocity parameter runs it (max_disp 1)
+    # (max_disp 2), K3 as the velocity parameter runs it (max_disp 1), K3b
+    # as the fused-backward A/B runs it (max_disp 2). Least bytes: each
+    # input read once, each output written once (K3b: vel, g and f in,
+    # grad_f and grad_s out, 9 floats per cell)
     records = []
     n = math.prod(SHAPE)
-    io_floats = {"fwd": 5 * n, "bwd_field": 5 * n, "bwd_vel": 8 * n}
+    io_floats = {"fwd": 5 * n, "bwd_field": 5 * n, "bwd_vel": 8 * n,
+                 "bwd_fused": 9 * n}
     for key, name, replaces in KERNELS:
         md = 1.0 if key == "bwd_vel" else 2.0
         f, g, v = (torch.from_numpy(a).to(dev)
@@ -584,8 +637,11 @@ def phase_density(card: str, frames_dir: str):
     return launches
 
 
-def phase_velocity(card: str):
-    """Velocity parameterization (config #4), one frame, W=1."""
+def phase_velocity(card: str, fused_bwd: bool = False, split_losses=None):
+    """Velocity parameterization (config #4), one frame, W=1. Returns its
+    per-iteration losses. With ``fused_bwd`` the advection backward runs
+    K3b (``FUSED_BWD``) instead of K2 and K3: the launches are read from
+    this run alone and its losses are held against ``split_losses``."""
     import torch
 
     from nfs_tpu_torch.ops import advect_kernels as ak
@@ -600,13 +656,20 @@ def phase_velocity(card: str):
     rng = np.random.default_rng(3)
     ds = _plume_density(SHAPE, 0, rng)[None]
     vs = _swirl_velocity(SHAPE, 0)[None]
+    if fused_bwd:
+        ak.reset_launches()
     before = dict(ak.LAUNCHES)
-    t0 = time.perf_counter()
-    outs = [(d.cpu().numpy(), p.cpu().numpy())
-            for _, d, p in styler.stylize_sequence(ds, vs, fused=0)]
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
+    ak.FUSED_BWD = fused_bwd
+    try:
+        t0 = time.perf_counter()
+        outs = [(d.cpu().numpy(), p.cpu().numpy())
+                for _, d, p in styler.stylize_sequence(ds, vs, fused=0)]
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        ak.FUSED_BWD = False
     launches = {k: ak.LAUNCHES[k] - before[k] for k in before}
+    losses = styler.frame_losses[0].cpu().numpy()
     d_star, param = outs[0]
     if d_star.shape != SHAPE or param.shape != SHAPE + (3,):
         raise AssertionError(f"bad shapes {d_star.shape} {param.shape}")
@@ -614,12 +677,267 @@ def phase_velocity(card: str):
         raise AssertionError("non-finite velocity-slice output")
     if np.abs(param).max() == 0.0:
         raise AssertionError("velocity parameter never moved")
-    if launches["bwd_vel"] <= 0:
-        raise AssertionError(f"K3 not launched: {launches}")
-    emit({"phase": "velocity", "shape": list(SHAPE), "octave_n": 2,
-          "iters": 3, "seconds_incl_warmup": seconds,
-          "max_abs_param": float(np.abs(param).max()),
-          "launches": launches, "card": card})
+    record = {"phase": "velocity", "shape": list(SHAPE), "octave_n": 2,
+              "iters": 3, "fused_bwd": fused_bwd,
+              "seconds_incl_warmup": seconds,
+              "max_abs_param": float(np.abs(param).max()),
+              "launches": launches, "card": card}
+    if not fused_bwd:
+        if launches["bwd_vel"] <= 0:
+            raise AssertionError(f"K3 not launched: {launches}")
+        emit(record)
+        return losses
+    if not (launches["bwd_fused"] > 0 and launches["bwd_field"] == 0
+            and launches["bwd_vel"] == 0):
+        raise AssertionError(f"FUSED_BWD run launched {launches}")
+    # K3b's sums equal K2's and K3's term for term; what remains is the
+    # order in which the device sums the loss
+    loss_rel = float(np.max(np.abs(losses - split_losses)
+                            / np.abs(split_losses)))
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"FUSED_BWD losses depart from the split "
+                             f"run's: {loss_rel}")
+    emit(dict(record, loss_rel_vs_split=loss_rel, tol=1e-5))
+    return launches
+
+
+def phase_fused_bwd_ab(card: str):
+    """The full two-gradient chain of bench/advect_bench.py:71-82 at
+    112x64x112, max_disp 2: 50 chained descent steps on sum(advect(f,
+    v)^2), gradients in both f and v, with FUSED_BWD off (K2 + K3) and on
+    (K3b), in turns off, on, on, off; ms per step is the median of each
+    setting's two runs."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.ops.advect import advect
+
+    steps = 50
+    rng = np.random.default_rng(0)
+    f0 = torch.from_numpy(rng.random(SHAPE, dtype=np.float32)).cuda()
+    v0 = torch.from_numpy((0.8 * rng.standard_normal(SHAPE + (3,))).astype(
+        np.float32)).cuda()
+
+    def chain(n):
+        f, v = f0, v0
+        for _ in range(n):
+            f = f.detach().requires_grad_(True)
+            v = v.detach().requires_grad_(True)
+            gf, gv = torch.autograd.grad(
+                (advect(f, v, max_disp=2.0) ** 2).sum(), (f, v))
+            f, v = f - 1e-4 * gf, v - 1e-4 * gv
+        return f.detach(), v.detach()
+
+    ms = {False: [], True: []}
+    ends = {}
+    try:
+        for fused in (False, True, True, False):
+            ak.FUSED_BWD = fused
+            chain(3)   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ends[fused] = chain(steps)
+            torch.cuda.synchronize()
+            ms[fused].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        ak.FUSED_BWD = False
+    err = _max_err(ends[True], ends[False])
+    if not err <= 1e-4:
+        raise AssertionError(f"fused and split chains end apart: {err}")
+    emit({"phase": "fused_bwd_ab", "shape": list(SHAPE), "max_disp": 2.0,
+          "steps": steps, "ms_per_step_split": ms[False],
+          "ms_per_step_fused": ms[True],
+          "fused_over_split": statistics.median(ms[True])
+          / statistics.median(ms[False]),
+          "end_state_max_abs_diff": err, "card": card})
+
+
+def _all_frames_finite(store, frames: int, particles: bool) -> bool:
+    for t in range(frames):
+        arrays = ([store.load_particles(t)["x"]] if particles else
+                  [store.load_density(t), store.load_velocity(t)])
+        if not all(np.isfinite(a).all() for a in arrays):
+            return False
+    return True
+
+
+def _liquid_particles(res) -> int:
+    """Particles cli.scene's liquid3d seeds: 4 per cell of the block
+    [0.05, 0.5) x [0.3, 0.7)^2 (29 x 25 x 25 x 4 = 72 500 at 64^3)."""
+    return 4 * math.prod(int(h * n) - int(l * n) for l, h, n in
+                         zip((0.05, 0.3, 0.3), (0.5, 0.7, 0.7), res))
+
+
+def phase_scene(card: str, root: str):
+    """``cli.scene`` twice: smoke3d at 112x64x112 for 16 frames (K1
+    exactly 7 per solver step) and liquid3d at 64^3 for 8 frames."""
+    import torch
+
+    from nfs_tpu_torch.cli import scene
+    from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    out = {}
+    for name, res, frames in (("smoke3d", SHAPE, 16),
+                              ("liquid3d", LIQUID_GRID, 8)):
+        path = os.path.join(root, name)
+        ak.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene.main(["--scene", name, "--out", path, "--res",
+                    *map(str, res), "--frames", str(frames)])
+        wall = time.perf_counter() - t0
+        launches = dict(ak.LAUNCHES)
+        store = FrameStore(path)
+        if not _all_frames_finite(store, frames, name == "liquid3d"):
+            raise AssertionError(f"{name}: non-finite frames")
+        rec = {"res": list(res), "frames": frames, "wall_s": wall,
+               "s_per_frame_incl_writes": wall / frames}
+        if name == "smoke3d":
+            if launches["fwd"] != 7 * frames:
+                raise AssertionError(f"smoke3d: K1 launched "
+                                     f"{launches['fwd']}, not 7 per step")
+            rec["k1_launches"] = launches["fwd"]
+        else:
+            rec["particles"] = int(store.load_particles(0)["x"].shape[0])
+            if rec["particles"] != _liquid_particles(res):
+                raise AssertionError(f"liquid3d: {rec['particles']} "
+                                     f"particles")
+        out[name] = rec
+    emit({"phase": "scene", **out,
+          "note": "wall includes writing each frame with "
+                  "np.savez_compressed", "card": card})
+    return os.path.join(root, "smoke3d")
+
+
+def phase_northstar(card: str, root: str):
+    """bench/northstar.py:79-142 at 16 frames: smoke_sequence_cached into a
+    chunk directory (warm-up 10, chunk 8), then iter_sequence_blocks
+    (halo 1) into stylize_sequence_blocks(fused=4) at the density slice's
+    config #3 widths, frames 0-7 held against the streaming path on the
+    same frames. Returns the launches of the sim and of the blocks."""
+    import torch
+
+    from nfs_tpu_torch.io.stream import (iter_sequence_blocks,
+                                         load_sequence_cache)
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.sim.smoke import SmokeConfig, smoke_sequence_cached
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    frames, iters, fused = 16, 5, 4
+    cache = os.path.join(root, "northstar_16")
+    ak.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = smoke_sequence_cached(
+        SmokeConfig(shape=SHAPE, source_center=(0.5, 0.85, 0.5),
+                    jacobi_iters=20, max_disp=2.0),
+        frames, cache, warmup=10, chunk=8)
+    sim_s = time.perf_counter() - t0
+    sim_launches = dict(ak.LAUNCHES)
+    # warm-up 10 rounds up to 2 chunks of 8: 32 solver steps x 7 K1
+    if not done or sim_launches["fwd"] != 7 * 32:
+        raise AssertionError(f"sim: done={done} launches={sim_launches}")
+
+    cfg = _northstar_cfg(**{"optim.iters": iters})
+    style = np.random.default_rng(1).random((256, 256, 3),
+                                            dtype=np.float32)
+    styler = GridStyler(cfg, style_image=style, device="cuda")
+    ak.reset_launches()
+    torch.cuda.synchronize()
+    marks, blocks = [time.perf_counter()], {}
+    for t, d_star, _ in styler.stylize_sequence_blocks(
+            iter_sequence_blocks(cache, halo=cfg.optim.window),
+            fused=fused):
+        blocks[t] = d_star.cpu().numpy()   # synchronises
+        marks.append(time.perf_counter())
+    block_launches = dict(ak.LAUNCHES)
+    block_losses = {t: l.cpu().numpy() for t, l in
+                    styler.frame_losses.items()}
+    if sorted(blocks) != list(range(frames)):
+        raise AssertionError(f"blocks yielded frames {sorted(blocks)}")
+    for t, d in blocks.items():
+        if d.shape != SHAPE or not np.isfinite(d).all() or d.min() < 0:
+            raise AssertionError(f"block frame {t}: bad output")
+    if block_launches["fwd"] <= 0 or block_launches["bwd_field"] <= 0:
+        raise AssertionError(f"blocks launched {block_launches}")
+    frame_s = np.diff(marks)
+    chunk_s = frame_s.reshape(-1, fused).sum(axis=1)
+
+    # the same frames through the streaming path, timed alike
+    ds, vs = load_sequence_cache(cache)
+    held = 8
+    worst = {"loss_rel": 0.0, "d_star_max_abs": 0.0}
+    stream_marks = [time.perf_counter()]
+    for t, d_star, _ in styler.stylize_sequence(ds[:held], vs[:held],
+                                                fused=0):
+        d_star = d_star.cpu().numpy()   # synchronises
+        stream_marks.append(time.perf_counter())
+        ref = styler.frame_losses[t].cpu().numpy()
+        worst["loss_rel"] = max(worst["loss_rel"], float(np.max(
+            np.abs(block_losses[t] - ref) / np.abs(ref))))
+        worst["d_star_max_abs"] = max(worst["d_star_max_abs"], float(
+            np.abs(blocks[t] - d_star).max()))
+    if not (worst["loss_rel"] <= 1e-4 and worst["d_star_max_abs"] <= 1e-3):
+        raise AssertionError(f"blocks depart from streaming: {worst}")
+    emit({"phase": "northstar", "frames": frames, "shape": list(SHAPE),
+          "fused": fused, "window": cfg.optim.window,
+          "reduced": f"16 frames (north star: 200); optim.iters {iters} "
+                     f"per octave (config #3: 20); random VGG weights and "
+                     f"style",
+          "sim_s": sim_s, "sim_s_per_frame": sim_s / frames,
+          "sim_steps": 32, "sim_launches": sim_launches,
+          "block_chunk_s": chunk_s.tolist(),
+          "s_per_frame_steady": float(chunk_s[1:].sum())
+          / ((len(chunk_s) - 1) * fused),
+          "frames_1_7_s_per_frame": {
+              "blocks": float(frame_s[1:held].mean()),
+              "streaming": float(np.diff(stream_marks)[1:].mean())},
+          "block_launches": block_launches,
+          "vs_streaming_frames_0_7": worst,
+          "tol": {"loss_rel": 1e-4, "d_star_max_abs": 1e-3}, "card": card})
+
+
+def phase_cli(card: str, root: str, data_dir: str):
+    """``cli.stylize --fused 2`` over 4 scene frames (2 octaves x 2
+    iterations, W=1), then once more: the manifest is complete, so the
+    rerun stylizes nothing."""
+    import contextlib
+    import io
+
+    from nfs_tpu_torch.cli.stylize import main as stylize
+    from nfs_tpu_torch.io.npz import FrameStore
+
+    style = os.path.join(root, "style.npy")
+    np.save(style, np.random.default_rng(1).random((256, 256, 3),
+                                                   dtype=np.float32))
+    log = os.path.join(root, "log")
+    argv = ["--data_dir", data_dir, "--log_dir", log, "--tag", "cli",
+            "--style_target", style, "--num_frames", "4", "--window", "1",
+            "--fused", "2", "--octave_n", "2", "--iter", "2"]
+    runs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            stylize(argv)
+        runs.append((time.perf_counter() - t0, buf.getvalue()))
+    out_dir = os.path.join(log, "cli")
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    params = sorted(p for p in os.listdir(out_dir) if p.startswith("param"))
+    store = FrameStore(out_dir)
+    if not (sorted(manifest) == ["0", "1", "2", "3"]
+            and params == ["param_0001.npz", "param_0003.npz"]
+            and all(np.isfinite(store.load_density(t)).all()
+                    for t in range(4))):
+        raise AssertionError(f"cli: manifest {sorted(manifest)}, params "
+                             f"{params}")
+    if ("all frames already stylized" not in runs[1][1]
+            or "[frame" in runs[1][1]):
+        raise AssertionError(f"the rerun stylized again: {runs[1][1]}")
+    emit({"phase": "cli", "frames": 4, "fused": 2, "wall_s": runs[0][0],
+          "rerun_s": runs[1][0], "params_saved": params, "card": card})
 
 
 def _particle_frames(T: int):
@@ -897,16 +1215,24 @@ def main(argv=None) -> int:
     phase_reference_particle(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
         phase_density(card, tmp)
-    phase_velocity(card)
+    split_losses = phase_velocity(card)
     # launches of the grid main path (density + velocity runs): the
     # counters were reset just before the density run
     from nfs_tpu_torch.ops import advect_kernels as ak
 
     launches = dict(ak.LAUNCHES)
+    phase_fused_bwd_ab(card)
+    # K3b's path: the velocity run with FUSED_BWD resets and reads its own
+    launches["bwd_fused"] = phase_velocity(
+        card, fused_bwd=True, split_losses=split_losses)["bwd_fused"]
     # the particle path resets and reads its own counters
     bin_launches = phase_particle(card, args.profile)
     if args.profile:
         phase_profile(card)
+    with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
+        smoke_dir = phase_scene(card, tmp)
+        phase_northstar(card, tmp)
+        phase_cli(card, tmp, smoke_dir)
     for recs, keys, counts in ((records, KERNELS, launches),
                                (bin_records, BIN_KERNELS, bin_launches)):
         for rec, (key, _, _) in zip(recs, keys):

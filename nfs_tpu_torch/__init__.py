@@ -1,22 +1,26 @@
 """nfs_tpu_torch — the PyTorch/CUDA port of ``nfs_tpu``.
 
 The TNST grid path (3D smoke density, density and velocity
-parameterizations, window-transport loss, streaming sequences) and the
-LNST particle path (3D, position and density attributes, keyframes) on
-PyTorch, with the bounded-displacement advection kernels and the
-binned-splat window kernels written by hand in CUDA for Hopper
-(``csrc/advect.cu``, ``csrc/binsplat.cu``). The sub-packages mirror
+parameterizations, window-transport loss, streaming, fused and
+block-streamed sequences with mid-sequence resume), the LNST particle
+path (3D, position and density attributes, keyframes) and the smoke and
+FLIP data generators on PyTorch, with the bounded-displacement advection
+kernels and the binned-splat window kernels written by hand in CUDA for
+Hopper (``csrc/advect.cu``, ``csrc/binsplat.cu``). The sub-packages mirror
 ``nfs_tpu``'s so each module's counterpart is found under the same name:
 
 - :mod:`nfs_tpu_torch.core`     — configuration dataclasses, ParticleSet
-- :mod:`nfs_tpu_torch.io`       — ``.npz`` frame store, image export
-- :mod:`nfs_tpu_torch.ops`      — advection (kernels K1-K3), splatting and
+- :mod:`nfs_tpu_torch.io`       — ``.npz`` frame store, chunked sequence
+  cache, ``.uni`` files, sequence manifest, image export
+- :mod:`nfs_tpu_torch.ops`      — advection (kernels K1-K3b), splatting and
   binning (kernels K4-K5), grid sampling, resize, shear
 - :mod:`nfs_tpu_torch.render`   — Poisson-disk cameras, Beer-Lambert march
 - :mod:`nfs_tpu_torch.features` — VGG-19 features and the losses
 - :mod:`nfs_tpu_torch.styler`   — octave Adam driver, ``GridStyler``,
   ``ParticleStyler``
-- :mod:`nfs_tpu_torch.cli`      — stylization entry point (grid, particle)
+- :mod:`nfs_tpu_torch.sim`      — smoke and FLIP solvers
+- :mod:`nfs_tpu_torch.cli`      — stylization (grid, particle) and scene
+  generation entry points
 
 Public functions keep the JAX package's layouts: volumes ``(D, H, W)``,
 velocities ``(D, H, W, 3)`` and particles ``(N, 3)`` in array-axis order,

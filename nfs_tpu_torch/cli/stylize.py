@@ -14,16 +14,19 @@ The flags are the JAX CLI's grid- and particle-mode flags plus
 ``--device`` (default ``cuda``; a missing GPU is an error); the mesh and
 transfer-function flags come with the ROADMAP slices that port them.
 Grid mode runs a single frame, or a sequence (``--num_frames`` > 1 or
-``--window`` > 0) on the streaming path. Particle mode (LNST) reads
-``p_%04d.npz`` frames, optimizes keyframes and interpolates between them
+``--window`` > 0) on the streaming path or, with ``--fused F`` > 1, in
+chunks of F frames. Particle mode (LNST) reads ``p_%04d.npz`` frames,
+optimizes keyframes and interpolates between them
 (``ParticleStyler.stylize_keyframes``, 3D grids). Outputs land in
 ``<log_dir>/<tag>/``: stylized ``d_%04d.npz`` or ``p_%04d.npz`` frames,
-the final ``param_%04d.npz`` of each grid sequence frame, preview images
-and a ``metrics.jsonl`` log. Not ported yet, and refused with the
-ROADMAP item that holds them: ``--opt_color``, ``--parallel``,
-``--fused`` > 1 and ``--checkpoint_in_frame``. A rerun stylizes the whole
-sequence again: resuming from a manifest waits for ROADMAP queue 1, item
-16.
+the carry ``param_%04d.npz`` of grid sequence frames (every frame when
+streaming, each chunk's last frame when fused), preview images, a
+``metrics.jsonl`` log and, for grid sequences, a ``manifest.json`` of
+finished frames. A rerun of a grid sequence skips the frames the
+manifest holds and continues the warm-start chain from the last saved
+param (at most F-1 finished frames are stylized again when fused). Not
+ported yet, and refused with the ROADMAP item that holds them:
+``--opt_color``, ``--parallel`` and ``--checkpoint_in_frame``.
 """
 
 from __future__ import annotations
@@ -123,8 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="splat grid shape for particle mode")
     # sequence dispatch / parallel
     p.add_argument("--fused", type=int, default=0,
-                   help="frames per dispatch for grid sequences (0 = "
-                        "streaming; F>1 is not ported yet)")
+                   help="frames per chunk for grid sequences (0 = "
+                        "streaming; F>1 runs chunks of F frames and saves "
+                        "the carry param at each chunk's end)")
     p.add_argument("--checkpoint_in_frame", action="store_true",
                    help="checkpoint {param, Adam state} every log_every "
                         "iterations inside each frame; a restarted run "
@@ -184,7 +188,6 @@ def _refuse_unported(args) -> None:
     refused = [
         (args.opt_color, "--opt_color (colour compositing)", "item 6"),
         (args.parallel, "--parallel", "item 21"),
-        (args.fused and args.fused > 1, "--fused > 1", "item 13"),
         (args.checkpoint_in_frame, "--checkpoint_in_frame", "item 16"),
     ]
     for hit, what, item in refused:
@@ -242,24 +245,8 @@ def main(argv=None):
 
     styler = GridStyler(cfg, device=device)
     if cfg.optim.window > 0 or len(frames) > 1:
-        densities = [store.load_density(t) for t in frames]
-        vels = None
-        if os.path.exists(os.path.join(cfg.data.data_dir,
-                                       cfg.data.v_path % frames[0])):
-            vels = [store.load_velocity(t) for t in frames]
-        t0 = time.time()
-        for i, d_star, param in styler.stylize_sequence(
-                densities, vels, fused=args.fused):
-            t = frames[i]
-            out_store.save_density(t, d_star.cpu().numpy())
-            np.savez(os.path.join(out_dir, f"param_{t:04d}.npz"),
-                     param=param.cpu().numpy())
-            preview(t, d_star)
-            dt = time.time() - t0
-            log_metric(frame=t, wall_s=dt,
-                       iters=cfg.optim.iters * cfg.optim.octave_n)
-            print(f"[frame {t}] {dt:.1f}s")
-            t0 = time.time()
+        _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
+                      preview, log_metric)
     else:
         t = frames[0]
         d = store.load_density(t)
@@ -277,6 +264,62 @@ def main(argv=None):
         print(f"[frame {t}] {dt:.1f}s ({n_iters / dt:.2f} iters/s on "
               f"{device}) losses={losses}")
     print(f"done -> {out_dir}")
+
+
+def _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
+                  preview, log_metric) -> None:
+    """A grid sequence with frame-granular resume: frames the manifest
+    marks as done are skipped, and the recursive warm-start chain
+    continues from the last completed frame's saved param, transported by
+    that frame's velocity."""
+    from nfs_tpu_torch.io.checkpoint import SequenceManifest
+
+    manifest = SequenceManifest(os.path.join(out_dir, "manifest.json"))
+    start = 0
+    while start < len(frames) and manifest.done(frames[start]):
+        start += 1
+    # the fused path saves the carry param only at chunk ends: step back
+    # to the last frame whose param was saved, so the chain stays exact
+    if args.fused and args.fused > 1:
+        while start > 0 and not os.path.exists(os.path.join(
+                out_dir, f"param_{frames[start - 1]:04d}.npz")):
+            start -= 1
+    todo = frames[start:]
+    if not todo:
+        print("all frames already stylized (manifest)")
+        return
+    densities = [store.load_density(t) for t in todo]
+    vels = None
+    if os.path.exists(os.path.join(cfg.data.data_dir,
+                                   cfg.data.v_path % todo[0])):
+        vels = [store.load_velocity(t) for t in todo]
+    init_param = prev_velocity = None
+    if start > 0:
+        prev_t = frames[start - 1]
+        ppath = os.path.join(out_dir, f"param_{prev_t:04d}.npz")
+        if os.path.exists(ppath):
+            with np.load(ppath) as z:
+                init_param = z["param"]
+            vpath = os.path.join(cfg.data.data_dir, cfg.data.v_path % prev_t)
+            if os.path.exists(vpath):
+                prev_velocity = store.load_velocity(prev_t)
+    t0 = time.time()
+    for i, d_star, param in styler.stylize_sequence(
+            densities, vels, fused=args.fused, init_param=init_param,
+            prev_velocity=prev_velocity, frame_offset=start):
+        t = todo[i]
+        out_store.save_density(t, d_star.cpu().numpy())
+        if param is not None:
+            np.savez(os.path.join(out_dir, f"param_{t:04d}.npz"),
+                     param=param.cpu().numpy())
+        preview(t, d_star)
+        dt = time.time() - t0
+        manifest.mark(t, os.path.join(out_dir, cfg.data.d_path % t),
+                      wall_s=round(dt, 3))
+        log_metric(frame=t, wall_s=dt,
+                   iters=cfg.optim.iters * cfg.optim.octave_n)
+        print(f"[frame {t}] {dt:.1f}s")
+        t0 = time.time()
 
 
 def _run_particles(cfg, args, store, out_store, frames, preview, log_metric,

@@ -1,11 +1,11 @@
 // Bounded-displacement semi-Lagrangian advection of a 3D scalar field
 // (clamp boundary) and its two adjoints, for Hopper (sm_90a).
 //
-// Replaces the three split Pallas TPU kernels of
-// nfs_tpu/ops/pallas_advect.py:
-//   K1 advect_fwd_kernel       <- _fwd_kernel        (forward)
-//   K2 advect_bwd_field_kernel <- _bwd_field_kernel  (grad wrt the field)
-//   K3 advect_bwd_vel_kernel   <- _bwd_vel_kernel    (grad wrt backtrace s)
+// Replaces the Pallas TPU kernels of nfs_tpu/ops/pallas_advect.py:
+//   K1  advect_fwd_kernel       <- _fwd_kernel        (forward)
+//   K2  advect_bwd_field_kernel <- _bwd_field_kernel  (grad wrt the field)
+//   K3  advect_bwd_vel_kernel   <- _bwd_vel_kernel    (grad wrt backtrace s)
+//   K3b advect_bwd_fused_kernel <- _bwd_fused_kernel  (K2 and K3 in one pass)
 //
 // What they compute (all f32, C-contiguous, vel channel-last (D,H,W,3) in
 // array-axis order, displacement already scaled by dt):
@@ -15,7 +15,8 @@
 //   gs_a[i] = g[i] * sum_c d_a[prod tent](s_i - c) * f[c]     (K3)
 // with tent(u) = max(0, 1 - |u|), corners outside the grid reading 0, and
 // the derivative of tent taken with JAX's subgradient conventions
-// (abs'(0) = +1, 0.5 at |u| == 1), exactly as _dtent does.
+// (abs'(0) = +1, 0.5 at |u| == 1), exactly as _dtent does. K3b writes K2's
+// gf and K3's gs from one thread per cell.
 //
 // Design. The TPU kernels evaluate all (2K+1)^3 window taps from a VMEM
 // slab because the TPU has no fast gather. On Hopper a gather through L1
@@ -31,6 +32,10 @@
 // 8 / 27 mostly-L1 reads of f, one write). K2 re-reads (2R+1)^3 vel/g
 // neighbours per cell, mostly from L1/L2; its time grows with R^3, and
 // the early exit on a zero z-weight skips most of the y/x work.
+// K3b runs K2's and K3's device functions back to back in one thread: it
+// saves one launch and one read of vel and g (36 B per cell against 48 B
+// for the pair), and its result equals the pair's term for term. The TPU
+// kernel fused the two legs to halve slab DMAs; there is no slab here.
 
 #include <cuda_runtime.h>
 
@@ -89,18 +94,12 @@ __global__ void advect_fwd_kernel(const float* __restrict__ field,
   out[idx] = acc;
 }
 
-__global__ void advect_bwd_field_kernel(const float* __restrict__ vel,
-                                        const float* __restrict__ g,
-                                        float* __restrict__ grad_field,
-                                        int D, int H, int W, float max_disp,
-                                        int R) {
-  const long long n = static_cast<long long>(D) * H * W;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % W);
-  const int y = static_cast<int>((idx / W) % H);
-  const int z = static_cast<int>(idx / (static_cast<long long>(W) * H));
+// K2's pull at cell (z, y, x): the (2R+1)^3 source cells i in the grid,
+// each weighted by prod_a tent(s_a[i] - j_a). A source outside the grid is
+// skipped (the TPU kernel reads g = 0 in its zero pad there).
+__device__ __forceinline__ float pull_field_grad(
+    const float* __restrict__ vel, const float* __restrict__ g, int z, int y,
+    int x, int D, int H, int W, float max_disp, int R) {
   const float fz = static_cast<float>(z);
   const float fy = static_cast<float>(y);
   const float fx = static_cast<float>(x);
@@ -119,21 +118,19 @@ __global__ void advect_bwd_field_kernel(const float* __restrict__ vel,
       }
     }
   }
-  grad_field[idx] = acc;
+  return acc;
 }
 
-__global__ void advect_bwd_vel_kernel(const float* __restrict__ field,
-                                      const float* __restrict__ vel,
-                                      const float* __restrict__ g,
-                                      float* __restrict__ grad_s, int D,
-                                      int H, int W, float max_disp) {
-  const long long n = static_cast<long long>(D) * H * W;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % W);
-  const int y = static_cast<int>((idx / W) % H);
-  const int z = static_cast<int>(idx / (static_cast<long long>(W) * H));
+struct Grad3 {
+  float z, y, x;
+};
+
+// K3's 27 taps at cell idx = (z, y, x), before the factor g[idx]:
+// sum_c d_a[prod tent](s - c) * f[c] for a = z, y, x.
+__device__ __forceinline__ Grad3 push_vel_grad(
+    const float* __restrict__ field, const float* __restrict__ vel,
+    long long idx, int z, int y, int x, int D, int H, int W,
+    float max_disp) {
   const float s[3] = {backtrace(z, vel[3 * idx + 0], max_disp, D),
                       backtrace(y, vel[3 * idx + 1], max_disp, H),
                       backtrace(x, vel[3 * idx + 2], max_disp, W)};
@@ -170,10 +167,69 @@ __global__ void advect_bwd_vel_kernel(const float* __restrict__ field,
       }
     }
   }
-  const float gi = g[idx];
-  grad_s[3 * idx + 0] = az * gi;
-  grad_s[3 * idx + 1] = ay * gi;
-  grad_s[3 * idx + 2] = ax * gi;
+  return {az, ay, ax};
+}
+
+// Linear index of this thread's cell and its (z, y, x); false past the end.
+__device__ __forceinline__ bool cell_of_thread(int D, int H, int W,
+                                               long long* idx, int* z,
+                                               int* y, int* x) {
+  const long long n = static_cast<long long>(D) * H * W;
+  *idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (*idx >= n) return false;
+  *x = static_cast<int>(*idx % W);
+  *y = static_cast<int>((*idx / W) % H);
+  *z = static_cast<int>(*idx / (static_cast<long long>(W) * H));
+  return true;
+}
+
+__device__ __forceinline__ void store_grad_s(float* __restrict__ grad_s,
+                                             long long idx, Grad3 a,
+                                             float gi) {
+  grad_s[3 * idx + 0] = a.z * gi;
+  grad_s[3 * idx + 1] = a.y * gi;
+  grad_s[3 * idx + 2] = a.x * gi;
+}
+
+__global__ void advect_bwd_field_kernel(const float* __restrict__ vel,
+                                        const float* __restrict__ g,
+                                        float* __restrict__ grad_field,
+                                        int D, int H, int W, float max_disp,
+                                        int R) {
+  long long idx;
+  int z, y, x;
+  if (!cell_of_thread(D, H, W, &idx, &z, &y, &x)) return;
+  grad_field[idx] = pull_field_grad(vel, g, z, y, x, D, H, W, max_disp, R);
+}
+
+__global__ void advect_bwd_vel_kernel(const float* __restrict__ field,
+                                      const float* __restrict__ vel,
+                                      const float* __restrict__ g,
+                                      float* __restrict__ grad_s, int D,
+                                      int H, int W, float max_disp) {
+  long long idx;
+  int z, y, x;
+  if (!cell_of_thread(D, H, W, &idx, &z, &y, &x)) return;
+  store_grad_s(grad_s, idx,
+               push_vel_grad(field, vel, idx, z, y, x, D, H, W, max_disp),
+               g[idx]);
+}
+
+// K3b: one thread per cell j writes K2's grad_f[j] and K3's grad_s[j, :].
+__global__ void advect_bwd_fused_kernel(const float* __restrict__ field,
+                                        const float* __restrict__ vel,
+                                        const float* __restrict__ g,
+                                        float* __restrict__ grad_field,
+                                        float* __restrict__ grad_s, int D,
+                                        int H, int W, float max_disp,
+                                        int R) {
+  long long idx;
+  int z, y, x;
+  if (!cell_of_thread(D, H, W, &idx, &z, &y, &x)) return;
+  grad_field[idx] = pull_field_grad(vel, g, z, y, x, D, H, W, max_disp, R);
+  store_grad_s(grad_s, idx,
+               push_vel_grad(field, vel, idx, z, y, x, D, H, W, max_disp),
+               g[idx]);
 }
 
 constexpr int kThreads = 256;
@@ -216,6 +272,17 @@ int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
       static_cast<const float*>(field), static_cast<const float*>(vel),
       static_cast<const float*>(g), static_cast<float*>(grad_s), D, H, W,
       max_disp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
+                         void* grad_field, void* grad_s, int D, int H, int W,
+                         float max_disp, int R, void* stream) {
+  advect_bwd_fused_kernel<<<blocks_for(D, H, W), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(field), static_cast<const float*>(vel),
+      static_cast<const float*>(g), static_cast<float*>(grad_field),
+      static_cast<float*>(grad_s), D, H, W, max_disp, R);
   return static_cast<int>(cudaGetLastError());
 }
 

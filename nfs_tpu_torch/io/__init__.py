@@ -1,1 +1,2 @@
-"""Frame store and image export (counterpart of ``nfs_tpu.io``)."""
+"""Frame store, chunked sequence cache, ``.uni`` files, sequence manifest
+and image export (counterpart of ``nfs_tpu.io``)."""

@@ -8,7 +8,7 @@ formulation is ported: displacements are clamped to ``+-max_disp`` cells.
 Backends, as in the JAX package:
 
 - 3D clamp-mode fields go through :class:`AdvectWindow`, i.e. the CUDA
-  kernels K1-K3 on a CUDA tensor and their plain twins on a CPU tensor
+  kernels K1-K3b on a CUDA tensor and their plain twins on a CPU tensor
   (``nfs_tpu_torch/ops/advect_kernels.py``). A channelled 3D field, such
   as the velocity parameter, goes through K1 once per channel.
 - 2D fields, ``mode='zero'`` and ``impl='xla'`` take

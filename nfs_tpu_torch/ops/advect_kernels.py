@@ -1,7 +1,7 @@
-"""Bounded-displacement advection kernels K1-K3 and their plain twins.
+"""Bounded-displacement advection kernels K1-K3b and their plain twins.
 
-Counterpart of ``nfs_tpu/ops/pallas_advect.py``. Three CUDA kernels in
-``nfs_tpu_torch/csrc/advect.cu`` replace its three split Pallas kernels:
+Counterpart of ``nfs_tpu/ops/pallas_advect.py``. Four CUDA kernels in
+``nfs_tpu_torch/csrc/advect.cu`` replace its four Pallas kernels:
 
 =========  ==========================================  ===================
 launch     CUDA kernel (advect.cu)                     replaces
@@ -9,15 +9,22 @@ launch     CUDA kernel (advect.cu)                     replaces
 fwd        ``advect_fwd_kernel``        (K1)           ``_fwd_kernel``
 bwd_field  ``advect_bwd_field_kernel``  (K2)           ``_bwd_field_kernel``
 bwd_vel    ``advect_bwd_vel_kernel``    (K3)           ``_bwd_vel_kernel``
+bwd_fused  ``advect_bwd_fused_kernel``  (K3b)          ``_bwd_fused_kernel``
 =========  ==========================================  ===================
 
 Each wrapper (:func:`advect_fwd`, :func:`advect_bwd_field`,
-:func:`advect_bwd_vel`) takes f32 contiguous tensors: a ``(D, H, W)``
-field or cotangent and a ``(D, H, W, 3)`` displacement (velocity already
-multiplied by ``dt``) in array-axis channel order. On a CPU tensor it
+:func:`advect_bwd_vel`, :func:`advect_bwd_fused`) takes f32 contiguous
+tensors: a ``(D, H, W)`` field or cotangent and a ``(D, H, W, 3)``
+displacement (velocity already multiplied by ``dt``) in array-axis
+channel order. On a CPU tensor it
 runs its plain PyTorch twin (``*_plain``); on a CUDA tensor it launches
 the kernel and counts the launch in :data:`LAUNCHES`, or raises. There
 is no fallback from CUDA to the plain twin.
+
+:class:`AdvectWindow`'s backward runs K2 and K3 (split, the default) or,
+with the module flag :data:`FUSED_BWD` set, K3b once for both gradients,
+as the JAX package's ``FUSED_BWD`` does. The flag is read at backward
+time.
 
 The TPU kernels evaluate every tap of the (2K+1)^3 window from VMEM
 because a gather is slow on the TPU. On Hopper a gather through L1 is
@@ -48,7 +55,13 @@ from nfs_tpu_torch.ops import _cuda_build
 
 # Launch counts of the CUDA kernels; each wrapper adds one where it
 # launches, and nowhere else.
-LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_field": 0, "bwd_vel": 0}
+LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_field": 0, "bwd_vel": 0,
+                            "bwd_fused": 0}
+
+# Backward of AdvectWindow: False runs K2 and K3 (each only when its
+# gradient is asked for), True runs K3b once for both (pallas_advect.py
+# FUSED_BWD). Read at backward time, so an A/B flips it between steps.
+FUSED_BWD = False
 
 SOURCE = _cuda_build.CSRC / "advect.cu"
 BUILD_DIR = _cuda_build.BUILD_DIR
@@ -83,8 +96,9 @@ def load_library() -> ctypes.CDLL:
     lib.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, p]
     lib.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f, i, p]
     lib.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, f, p]
+    lib.nfs_advect_bwd_fused.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
     for fn in (lib.nfs_advect_fwd, lib.nfs_advect_bwd_field,
-               lib.nfs_advect_bwd_vel):
+               lib.nfs_advect_bwd_vel, lib.nfs_advect_bwd_fused):
         fn.restype = ctypes.c_int
     return lib
 
@@ -228,6 +242,13 @@ def advect_bwd_vel_plain(field: torch.Tensor, vel: torch.Tensor,
     return torch.stack([az * g, ay * g, ax * g], dim=-1)
 
 
+def advect_bwd_fused_plain(field: torch.Tensor, vel: torch.Tensor,
+                           g: torch.Tensor, max_disp: float):
+    """K3b on tensors: (K2's gradient wrt the field, K3's wrt s)."""
+    return (advect_bwd_field_plain(vel, g, max_disp),
+            advect_bwd_vel_plain(field, vel, g, max_disp))
+
+
 # --------------------------------------------------------------------- #
 # wrappers: plain twin on CPU tensors, CUDA kernel on CUDA tensors
 # --------------------------------------------------------------------- #
@@ -239,6 +260,12 @@ _stream = _cuda_build.current_stream
 
 def _route(ref: torch.Tensor) -> str:
     return _cuda_build.route(ref, "advection kernels")
+
+
+def _radius(max_disp: float) -> int:
+    """K2's source-cell radius: a source i with |i_a - j_a| >
+    ceil(max_disp) backtraces to |s_a - j_a| >= 1, where the tent is 0."""
+    return int(math.ceil(max_disp))
 
 
 def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
@@ -270,13 +297,10 @@ def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
         return advect_bwd_field_plain(vel, g, max_disp)
     lib = load_library()
     out = torch.empty_like(g)
-    # source-cell radius: a source i with |i_a - j_a| > ceil(max_disp)
-    # backtraces to |s_a - j_a| >= 1, where the tent weight is 0
-    radius = int(math.ceil(max_disp))
     with torch.cuda.device(g.device):
         rc = lib.nfs_advect_bwd_field(vel.data_ptr(), g.data_ptr(),
                                       out.data_ptr(), D, H, W,
-                                      float(max_disp), radius,
+                                      float(max_disp), _radius(max_disp),
                                       _stream(g.device))
     _raise_on(rc, "advect_bwd_field")
     LAUNCHES["bwd_field"] += 1
@@ -303,12 +327,36 @@ def advect_bwd_vel(field: torch.Tensor, vel: torch.Tensor,
     return out
 
 
+def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
+                     g: torch.Tensor, max_disp: float):
+    """K3b: (gradient wrt the field (D, H, W), gradient wrt s
+    (D, H, W, 3)) in one launch."""
+    D, H, W = field.shape
+    _check("field", field, (D, H, W), field.device)
+    _check("vel", vel, (D, H, W, 3), field.device)
+    _check("g", g, (D, H, W), field.device)
+    if _route(field) == "plain":
+        return advect_bwd_fused_plain(field, vel, g, max_disp)
+    lib = load_library()
+    grad_field = torch.empty_like(field)
+    grad_s = torch.empty_like(vel)
+    with torch.cuda.device(field.device):
+        rc = lib.nfs_advect_bwd_fused(
+            field.data_ptr(), vel.data_ptr(), g.data_ptr(),
+            grad_field.data_ptr(), grad_s.data_ptr(), D, H, W,
+            float(max_disp), _radius(max_disp), _stream(field.device))
+    _raise_on(rc, "advect_bwd_fused")
+    LAUNCHES["bwd_fused"] += 1
+    return grad_field, grad_s
+
+
 class AdvectWindow(torch.autograd.Function):
     """Differentiable bounded-displacement advection of a 3D scalar field
     with a clamp boundary: ``AdvectWindow.apply(field, vel_times_dt,
-    max_disp)``. Counterpart of ``advect_pallas``' custom VJP. The
+    max_disp)``. Counterpart of ``advect_pallas``' custom VJP. The split
     backward runs K2 only when the field needs a gradient and K3 only
-    when the displacement does."""
+    when the displacement does; with :data:`FUSED_BWD` it runs K3b once
+    whenever either does, and returns only the gradients asked for."""
 
     @staticmethod
     def forward(ctx, field, vel, max_disp):
@@ -322,10 +370,17 @@ class AdvectWindow(torch.autograd.Function):
     def backward(ctx, g):
         field, vel = ctx.saved_tensors
         g = g.contiguous()
-        grad_field = grad_vel = None
-        if ctx.needs_input_grad[0]:
-            grad_field = advect_bwd_field(vel, g, ctx.max_disp)
-        if ctx.needs_input_grad[1]:
-            grad_s = advect_bwd_vel(field, vel, g, ctx.max_disp)
+        need_field, need_vel = ctx.needs_input_grad[:2]
+        grad_field = grad_vel = grad_s = None
+        if FUSED_BWD and (need_field or need_vel):
+            gf, gs = advect_bwd_fused(field, vel, g, ctx.max_disp)
+            grad_field = gf if need_field else None
+            grad_s = gs if need_vel else None
+        else:
+            if need_field:
+                grad_field = advect_bwd_field(vel, g, ctx.max_disp)
+            if need_vel:
+                grad_s = advect_bwd_vel(field, vel, g, ctx.max_disp)
+        if grad_s is not None:
             grad_vel = vel_grad_chain(grad_s, vel, ctx.max_disp)
         return grad_field, grad_vel, None

@@ -5,18 +5,21 @@ Ported: 3D (D, H, W) smoke densities; the density (``d* = d + dd``) and
 velocity (``d* = advect(d, v_hat)``, TNST §4.2) parameterizations; Gram
 style, semantic and content losses with a TV regularizer; multi-view
 rendering from a Poisson-disk view pool; octave Adam; the
-Gaussian-weighted window-transport loss and the streaming recursive
-sequence path (TNST §6).
+Gaussian-weighted window-transport loss and the recursive sequence
+(TNST §6), whole or block-streamed from a chunk directory
+(``io/stream.py``), with the param yielded per frame or per chunk of
+frames, and resumed mid-sequence from a saved param.
 
 The optimization runs eagerly on ``device``. Advection inside the loss
-goes through the CUDA kernels K1-K3 (``ops/advect_kernels.py``) on a GPU.
+goes through the CUDA kernels K1-K3b (``ops/advect_kernels.py``) on a
+GPU.
 Random draws come from explicit ``torch.Generator`` objects; since torch
 cannot reproduce ``jax.random``, a per-iteration ``view_schedule`` of view
 pool indices can be injected to replay the JAX package's draws.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): 2D grids, fused multi-frame and block-streamed sequences,
-per-view rematerialization, transfer functions, in-frame checkpoints.
+item): 2D grids, per-view rematerialization, transfer functions,
+in-frame checkpoints.
 """
 
 from __future__ import annotations
@@ -206,6 +209,68 @@ class GridStyler(StylerBase):
         is_vel = self.cfg.optim.parameterization == "velocity"
         return resize(param, shape, is_velocity=is_vel)
 
+    @staticmethod
+    def _window_vels(vels: torch.Tensor, t: int, window: int,
+                     prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(2W, D, H, W, 3) window context of frame t: the velocities of
+        frames t-W..t-1, then t..t+W-1, clamped to the sequence. A frame
+        before the first is ``prev`` when given (the velocity of the frame
+        before a resumed run's first), else the first frame. The JAX
+        package always takes the first frame there, so its resume is
+        exact only where the two agree (ROADMAP queue 3, F8)."""
+        T = vels.shape[0]
+        return torch.stack([
+            prev if (i < 0 and prev is not None)
+            else vels[min(max(i, 0), T - 1)]
+            for i in range(t - window, t + window)])
+
+    def _octave_sweep(self, param, d_full, vels_win, generator, warm,
+                      schedule=None, callback=None):
+        """The complete coarse-to-fine optimization of one frame: (param,
+        d_star, per-octave (iters,) losses). ``vels_win`` is the (2W, D,
+        H, W, 3) window context or None; ``schedule`` optional pool
+        indices per octave; ``warm`` picks the optim.warm_iters / warm_lr
+        schedule. Every octave starts a fresh Adam."""
+        oc = self.cfg.optim
+        full_shape = tuple(d_full.shape)
+        window = oc.window if vels_win is not None else 0
+        iters = (oc.warm_iters if (warm and oc.warm_iters is not None)
+                 else oc.iters)
+        optimizer = self._warm_optimizer if warm else self._optimizer
+        losses_all = []
+        for o, shape in enumerate(octave_shapes(full_shape, oc.octave_n,
+                                                oc.octave_scale)):
+            loss_fn = self._get_loss_fn(
+                len(full_shape), window,
+                self._octave_render_size(shape, full_shape))
+            param = self._resize_param(param, shape)
+            data = {"d": (resize(d_full, shape) if shape != full_shape
+                          else d_full),
+                    "pool": self.view_pool, "vgg": self.vgg_params,
+                    "targets": self.gram_targets,
+                    "content": self.content_feats}
+            if window:
+                data["vels"] = (vels_win if shape == full_shape else
+                                torch.stack([resize(v, shape,
+                                                    is_velocity=True)
+                                             for v in vels_win]))
+            views = self._octave_views(
+                generator, None if schedule is None else schedule[o],
+                iters, 2 * window + 1)
+            cb = None
+            if callback is not None:
+                def cb(done, loss, _o=o):
+                    callback(done, loss, octave=_o)
+            param, losses, _ = run_octave(
+                param, loss_fn, data, views, iters=iters, lr=oc.lr,
+                b1=oc.b1, b2=oc.b2, log_every=oc.log_every, callback=cb,
+                optimizer=optimizer)
+            losses_all.append(losses)
+        param = self._resize_param(param, full_shape)
+        with torch.no_grad():
+            d_star = torch.clamp(self._apply_param(param, d_full), min=0.0)
+        return param, d_star, losses_all
+
     def stylize_frame(self, d: np.ndarray,
                       vels: Optional[np.ndarray] = None,
                       init_param: Optional[torch.Tensor] = None,
@@ -239,58 +304,25 @@ class GridStyler(StylerBase):
             raise _not_ported("in-frame checkpoints (checkpoint_path)",
                               "item 16")
         cfg = self.cfg
-        oc = cfg.optim
         warm = (init_param is not None) if warm is None else warm
-        iters = (oc.warm_iters if (warm and oc.warm_iters is not None)
-                 else oc.iters)
-        optimizer = self._warm_optimizer if warm else self._optimizer
         d_full = self._on_device(d)
         full_shape = tuple(d_full.shape)
         generator = (generator if generator is not None
                      else torch.Generator().manual_seed(cfg.seed))
-        window = oc.window if vels is not None else 0
-        shapes = octave_shapes(full_shape, oc.octave_n, oc.octave_scale)
+        window = cfg.optim.window if vels is not None else 0
         param = (self._on_device(init_param) if init_param is not None
                  else self.init_param(full_shape))
-        vels_full = self._on_device(vels) if window else None
-        info = {"octave_losses": []}
-
-        for o, shape in enumerate(shapes):
-            param = self._resize_param(param, shape)
-            d_o = resize(d_full, shape) if shape != full_shape else d_full
-            data = {"d": d_o, "pool": self.view_pool,
-                    "vgg": self.vgg_params, "targets": self.gram_targets,
-                    "content": self.content_feats}
-            if window:
-                data["vels"] = (vels_full if shape == full_shape else
-                                torch.stack([resize(v, shape,
-                                                    is_velocity=True)
-                                             for v in vels_full]))
-            loss_fn = self._get_loss_fn(
-                d_full.ndim, window,
-                self._octave_render_size(shape, full_shape))
-            views = self._octave_views(
-                generator,
-                None if view_schedule is None else view_schedule[o],
-                iters, 2 * window + 1)
-            cb = None
-            if callback is not None:
-                def cb(done, loss, _o=o):
-                    callback(done, loss, octave=_o)
-            param, losses, _ = run_octave(
-                param, loss_fn, data, views, iters=iters, lr=oc.lr,
-                b1=oc.b1, b2=oc.b2, log_every=oc.log_every, callback=cb,
-                optimizer=optimizer)
-            info["octave_losses"].append(losses)
-
-        with torch.no_grad():
-            d_star = torch.clamp(self._apply_param(param, d_full), min=0.0)
-        return d_star, param, info
+        param, d_star, losses = self._octave_sweep(
+            param, d_full, self._on_device(vels) if window else None,
+            generator, warm, view_schedule, callback)
+        return d_star, param, {"octave_losses": losses}
 
     def _frame_generator(self, t: int) -> torch.Generator:
-        """Per-frame generator, seeded by the frame's index in the
+        """Per-frame generator, seeded by the frame's absolute index in the
         sequence (or the same seed for every frame with
-        render.fixed_view_schedule)."""
+        render.fixed_view_schedule). Every sequence path keys its frames
+        the same way, so a resumed run draws what the uninterrupted run
+        drew."""
         if self.cfg.render.fixed_view_schedule:
             return torch.Generator().manual_seed(self.cfg.seed)
         seed = np.random.SeedSequence([self.cfg.seed, t])
@@ -299,51 +331,141 @@ class GridStyler(StylerBase):
     def stylize_sequence(self, densities, velocities=None, callback=None,
                          fused: Optional[int] = None,
                          checkpoint_path: Optional[str] = None,
-                         view_schedule=None):
-        """Stylize a frame sequence with temporal coherence (TNST §6), on
-        the streaming path: one frame after the other, each warm-started
-        by transporting the previous frame's param forward.
+                         view_schedule=None,
+                         init_param: Optional[torch.Tensor] = None,
+                         prev_velocity=None, frame_offset: int = 0):
+        """Stylize a frame sequence with temporal coherence (TNST §6):
+        each frame is warm-started by transporting the previous frame's
+        param forward.
 
         Args:
           densities: (T, D, H, W) array or list of per-frame densities.
           velocities: optional (T, D, H, W, 3) sim velocities (cells per
             frame); needed for the window loss and the recursive init.
-          fused: frames per dispatch; only 0/1 (streaming) is ported.
+          fused: frames per chunk. None reads ``optim.fused_frames``. 0 or
+            1 yields param with every frame; F > 1 yields it only at the
+            end of each chunk of F frames and at the last frame, as the
+            JAX package's fused path does (a fresh run's frame 0 stands
+            before the first chunk when optim.warm_iters or warm_lr is
+            set). Only the yields differ: eager torch has no dispatch to
+            fuse, so the frames are stylized alike either way, with the
+            same per-frame generators. The JAX package's chunk
+            executables, carry masks and padded tail chunks (which avoid
+            recompiles on the TPU) have no counterpart, and where its
+            fused path draws from another PRNG stream than its streaming
+            path, the port's two agree.
           view_schedule: optional per-frame pool indices, (T, octave_n,
             iters[, 2W+1]).
+          init_param / prev_velocity / frame_offset: continue the
+            recursive warm-start chain mid-sequence. ``init_param`` is the
+            previous (completed) frame's final param, ``prev_velocity``
+            that frame's sim velocity (it transports init_param into
+            frame 0 and is frame 0's backward window tap),
+            ``frame_offset`` the absolute index of densities[0]. Frame
+            generators are keyed on ``frame_offset + t``, so with W <= 1
+            a resumed run computes what the uninterrupted run did.
 
-        Yields (frame_index, d_star, param) per frame.
+        Yields (frame_index, d_star, param) per frame (param None between
+        chunk ends); the per-iteration losses of every frame are in
+        :attr:`frame_losses`.
         """
-        cfg = self.cfg
-        fused = cfg.optim.fused_frames if fused is None else fused
-        if fused and fused > 1:
-            raise _not_ported("fused multi-frame sequences (fused > 1)",
-                              "item 13")
+        oc = self.cfg.optim
+        fused = oc.fused_frames if fused is None else fused
         if checkpoint_path is not None:
             raise _not_ported("in-frame checkpoints (checkpoint_path)",
                               "item 16")
-        W = cfg.optim.window
         # one bulk upload of the whole sequence
         densities = self._on_device(densities)
         if velocities is not None:
             velocities = self._on_device(velocities)
+        if prev_velocity is not None:
+            prev_velocity = self._on_device(prev_velocity)
+        if init_param is not None:
+            init_param = self._on_device(init_param)
         T = densities.shape[0]
-        param = None
-        for t in range(T):
+        # a fresh run's cold frame 0 precedes the chunks of warm frames
+        chunk0 = int(init_param is None and (oc.warm_iters is not None
+                                             or oc.warm_lr is not None))
+        self.frame_losses: Dict[int, torch.Tensor] = {}
+        for t, d_star, param, losses in self._frames(
+                densities, velocities, 0, init_param, prev_velocity,
+                frame_offset, view_schedule, callback):
+            self.frame_losses[t] = losses
+            chunk_end = (fused <= 1 or t == T - 1
+                         or (t >= chunk0 and (t + 1 - chunk0) % fused == 0))
+            yield t, d_star, (param if chunk_end else None)
+
+    def _frames(self, densities, vels, offset: int, param, prev_velocity,
+                frame_offset: int, view_schedule=None, callback=None):
+        """The frame loop of every sequence path: yields (t, d_star,
+        param, (octave_n, iters) losses) for each frame t of
+        ``densities``. ``vels`` (or None) holds the sim velocities from
+        frame ``-offset`` on, counted from densities[0]; ``param``, when
+        given, is the previous frame's final param, transported into
+        frame 0 by ``prev_velocity``."""
+        W = self.cfg.optim.window
+        for t in range(densities.shape[0]):
             vels_win = None
-            if W > 0 and velocities is not None:
-                idx = ([max(t - W + j, 0) for j in range(W)]
-                       + [min(t + j, T - 1) for j in range(W)])
-                vels_win = velocities[idx]
-            if param is not None and velocities is not None:
-                param = self._advect_param(param, velocities[t - 1])
-            d_star, param, _ = self.stylize_frame(
+            if W > 0 and vels is not None:
+                vels_win = self._window_vels(vels, offset + t, W,
+                                             prev_velocity)
+            if param is not None:
+                v_prev = prev_velocity
+                if t > 0:
+                    v_prev = None if vels is None else vels[offset + t - 1]
+                if v_prev is not None:
+                    param = self._advect_param(param, v_prev)
+            d_star, param, info = self.stylize_frame(
                 densities[t], vels=vels_win, init_param=param,
-                generator=self._frame_generator(t),
+                generator=self._frame_generator(frame_offset + t),
                 callback=callback,
                 view_schedule=(None if view_schedule is None
                                else view_schedule[t]))
-            yield t, d_star, param
+            yield t, d_star, param, torch.stack(info["octave_losses"])
 
-    def stylize_sequence_blocks(self, *args, **kwargs):
-        raise _not_ported("block-streamed sequences", "item 13")
+    def stylize_sequence_blocks(self, blocks, fused: int = 8,
+                                view_schedule=None):
+        """Block-streamed sequence: frames arrive in host-memory blocks
+        (``io/stream.py`` ``iter_sequence_blocks`` reads them from a
+        chunk directory), so the device holds one block and its working
+        set. Each block runs through the frame loop of
+        :meth:`stylize_sequence`, continuing the previous block's carry;
+        frame generators are keyed on the absolute frame index, so the
+        frames equal the streaming path's.
+
+        Args:
+          blocks: iterable of (t0, dens_block (B, D, H, W), vels_ctx),
+            vels_ctx None (no temporal coupling) or a (B + 2P, D, H, W, 3)
+            velocity context covering global frames [t0 - P, t0 + B + P)
+            with P = max(window, 1), edge frames replicated at the true
+            sequence boundaries. The carry enters a block through
+            vels_ctx[P - 1].
+          fused: the JAX package's frames per dispatch within a block.
+            Both packages yield param only at block ends, and eager torch
+            has no dispatch to fuse, so it changes nothing here.
+          view_schedule: optional pool indices per absolute frame,
+            (T, octave_n, iters[, 2W+1]).
+
+        Yields (t, d_star, param): param is the carry after each block's
+        last frame (None mid-block), usable for restarts. Per-iteration
+        losses land in :attr:`frame_losses`, keyed on t.
+        """
+        P = max(self.cfg.optim.window, 1)
+        self.frame_losses = {}
+        carry = None
+        for t0, dens_block, vels_ctx in blocks:
+            dens_block = self._on_device(dens_block)
+            B = dens_block.shape[0]
+            prev = None
+            if vels_ctx is not None:
+                vels_ctx = self._on_device(vels_ctx)
+                prev = vels_ctx[P - 1]
+            if carry is None and t0 > 0:
+                # a stream that starts mid-sequence warm-starts from zeros
+                carry = self.init_param(tuple(dens_block.shape[1:]))
+            for t, d_star, carry, losses in self._frames(
+                    dens_block, vels_ctx, P, carry, prev, t0,
+                    None if view_schedule is None
+                    else view_schedule[t0:t0 + B]):
+                self.frame_losses[t0 + t] = losses
+                yield t0 + t, d_star, (carry if t == B - 1 else None)

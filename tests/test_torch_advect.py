@@ -1,4 +1,4 @@
-"""nfs_tpu_torch advection (K1-K3 plain twins, the window-tap sum and
+"""nfs_tpu_torch advection (K1-K3b plain twins, the window-tap sum and
 MacCormack) against the JAX package on the CPU.
 
 Inputs are made with numpy from a seed and fed to both sides. The JAX
@@ -22,6 +22,7 @@ from jax.experimental import pallas as pl
 
 from nfs_tpu.ops.advect import advect as jax_advect
 from nfs_tpu.ops.advect import advect_maccormack as jax_maccormack
+from nfs_tpu.ops import pallas_advect as pa
 from nfs_tpu.ops.pallas_advect import advect_pallas
 from nfs_tpu_torch.ops import advect_kernels as ak
 from nfs_tpu_torch.ops.advect import advect, advect_maccormack
@@ -195,3 +196,79 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         ak.load_library()
     ak.load_library.cache_clear()
+
+
+def _grads_of_square_loss(f, v, max_disp):
+    """Gradients of sum(advect(f, v)^2) in f and v through the port."""
+    ft = torch.tensor(f, requires_grad=True)
+    vt = torch.tensor(v, requires_grad=True)
+    (ak.AdvectWindow.apply(ft, vt, max_disp) ** 2).sum().backward()
+    return ft.grad.numpy(), vt.grad.numpy()
+
+
+@pytest.mark.parametrize("kind", ["random", "zero"])
+def test_fused_backward_matches_jax_fused(interpret_mode, monkeypatch,
+                                          kind):
+    """FUSED_BWD on both sides: K3b's plain version against the JAX
+    package's _bwd_fused_kernel in Pallas interpret mode, for the
+    gradients of sum(advect(f, v)^2)."""
+    monkeypatch.setattr(pa, "FUSED_BWD", True)
+    monkeypatch.setattr(ak, "FUSED_BWD", True)
+    f, v, _ = _case(kind, shape=(12, 10, 14), seed=8)
+    jg = jax.grad(lambda f, v: jnp.sum(advect_pallas(f, v, 1.0, 2.0, 4)
+                                       ** 2), argnums=(0, 1))(
+        jnp.asarray(f), jnp.asarray(v))
+    got = _grads_of_square_loss(f, v, 2.0)
+    # f32 sums of the same terms in another order (measured 2.1e-7 of
+    # max|g| on the random case, 0 on the zero case)
+    for g_t, g_j in zip(got, jg):
+        g_j = np.asarray(g_j)
+        np.testing.assert_allclose(g_t, g_j,
+                                   atol=1e-5 * float(np.abs(g_j).max()))
+    if kind == "zero":  # F1: abs'(0) = +1 keeps the transport gradient
+        assert np.abs(got[1]).max() > 0.0
+
+
+@pytest.mark.parametrize("kind", ["random", "integer", "boundary"])
+def test_fused_backward_equals_split(monkeypatch, kind):
+    """K3b's plain version computes K2's and K3's plain versions, so the
+    fused backward's gradients equal the split backward's exactly."""
+    f, v, _ = _case(kind, shape=(7, 9, 6), seed=4)
+    split = _grads_of_square_loss(f, v, 2.0)
+    monkeypatch.setattr(ak, "FUSED_BWD", True)
+    fused = _grads_of_square_loss(f, v, 2.0)
+    for a, b in zip(fused, split):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fused_backward_runs_one_kernel_for_what_is_asked(monkeypatch):
+    """With FUSED_BWD the backward calls K3b once whether one or both
+    inputs need a gradient, never K2 or K3, and returns only the
+    gradients asked for."""
+    calls = []
+    for name in ("advect_bwd_field", "advect_bwd_vel", "advect_bwd_fused"):
+        orig = getattr(ak, name)
+        monkeypatch.setattr(
+            ak, name, lambda *a, _o=orig, _n=name: calls.append(_n) or _o(*a))
+    monkeypatch.setattr(ak, "FUSED_BWD", True)
+    f, v, _ = _case("random", shape=(5, 6, 7))
+    for need_f, need_v in ((True, False), (False, True), (True, True)):
+        ft = torch.tensor(f, requires_grad=need_f)
+        vt = torch.tensor(v, requires_grad=need_v)
+        ak.AdvectWindow.apply(ft, vt, 2.0).sum().backward()
+        assert calls == ["advect_bwd_fused"]
+        assert (ft.grad is not None, vt.grad is not None) == (need_f, need_v)
+        calls.clear()
+
+
+def test_fused_wrapper_checks_inputs():
+    f, v, w = _case("random", shape=(4, 5, 6))
+    ft, vt, gt = (torch.from_numpy(a) for a in (f, v, w))
+    with pytest.raises(ValueError):
+        ak.advect_bwd_fused(ft, vt, gt[:3].contiguous(), 2.0)
+    with pytest.raises(TypeError):
+        ak.advect_bwd_fused(ft, vt.double(), gt, 2.0)
+    before = dict(ak.LAUNCHES)
+    gf, gs = ak.advect_bwd_fused(ft, vt, gt, 2.0)  # CPU: plain, no launch
+    assert ak.LAUNCHES == before
+    assert gf.shape == (4, 5, 6) and gs.shape == (4, 5, 6, 3)

@@ -1,11 +1,22 @@
-"""The port's CLI runs grid and particle mode: options of parts not
-ported yet are refused with the ROADMAP item that holds them, before any
-work starts, and the mesh and transfer-function flags are not accepted."""
+"""The port's CLIs: the stylization CLI runs grid and particle mode,
+options of parts not ported yet are refused with the ROADMAP item that
+holds them, before any work starts, and the mesh and transfer-function
+flags are not accepted; a fused grid sequence resumes from its manifest.
+The scene CLI writes the frames of the JAX package's solvers."""
 
+import json
+import os
+
+import numpy as np
 import pytest
 import torch
 
+from nfs_tpu.io.uni import read_uni as jax_read_uni
+from nfs_tpu.sim import flip as jax_flip
+from nfs_tpu.sim import smoke as jax_smoke
+from nfs_tpu_torch.cli import scene
 from nfs_tpu_torch.cli.stylize import build_parser, main
+from nfs_tpu_torch.io.npz import FrameStore
 
 torch.set_num_threads(2)
 
@@ -13,7 +24,7 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("argv, item", [
     (["--mode", "particle", "--opt_color"], "item 6"),
     (["--parallel"], "item 21"),
-    (["--fused", "4"], "item 13"),
+    (["--checkpoint_in_frame", "--fused", "4"], "item 16"),
     (["--checkpoint_in_frame"], "item 16"),
 ])
 def test_unported_options_raise(argv, item, tmp_path):
@@ -47,3 +58,97 @@ def test_particle_flags_reach_the_config():
                                                      2.0)
     assert cfg.data.p_path == "q_%04d.npz"
     assert args.grid_shape == [8, 9, 10]
+
+
+SCENES = {
+    "smoke2d": (["--res", "20", "16"], 2),
+    "smoke3d": (["--res", "12", "10", "12", "--uni"], 3),
+    "liquid2d": (["--res", "20", "20"], 2),
+    "liquid3d": (["--res", "10", "10", "10"], 3),
+}
+
+
+def _jax_scene(name, res, frames):
+    """The JAX package's cli/scene.py configurations, run directly."""
+    if name.startswith("smoke"):
+        center = (0.85, 0.5) if name == "smoke2d" else (0.5, 0.85, 0.5)
+        return jax_smoke.smoke_sequence(
+            jax_smoke.SmokeConfig(shape=res, source_center=center), frames)
+    nd = len(res)
+    return jax_flip.liquid_sequence(
+        jax_flip.FlipConfig(shape=res, block_lo=(0.05,) + (0.3,) * (nd - 1),
+                            block_hi=(0.5,) + (0.7,) * (nd - 1)), frames)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_scene_cli_writes_the_jax_scenes(name, tmp_path):
+    flags, nd = SCENES[name]
+    res = tuple(int(a) for a in flags[1:1 + nd])
+    out = tmp_path / name
+    scene.main(["--scene", name, "--out", str(out), "--frames", "2",
+                "--device", "cpu"] + flags)
+    want = _jax_scene(name, res, 2)
+    store = FrameStore(str(out))
+    for t in range(2):
+        if name.startswith("smoke"):
+            got = (store.load_density(t), store.load_velocity(t))
+            # f32 sums in another order over 40 Jacobi sweeps
+            tol = [1e-5 * float(np.abs(w[t]).max()) for w in want]
+        else:
+            p = store.load_particles(t)
+            got = (p["x"], p["vel"])
+            assert (p["dens"] == 1.0).all()
+            tol = [1e-4, 1e-4]  # cells, as tests/test_torch_sim.py
+        for g, w, a in zip(got, want, tol):
+            np.testing.assert_allclose(g, w[t], atol=a)
+    if "--uni" in flags:
+        np.testing.assert_array_equal(
+            jax_read_uni(str(out / "d_0001.uni"))[0], store.load_density(1))
+
+
+def test_scene_cli_refuses_a_missing_gpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scene.main(["--scene", "smoke2d", "--out", str(tmp_path / "x")])
+    assert not (tmp_path / "x").exists()
+
+
+def _stylize(data, log, extra=()):
+    main(["--data_dir", str(data), "--log_dir", str(log), "--tag", "seq",
+          "--device", "cpu", "--render_size", "32", "32", "--n_views", "2",
+          "--octave_n", "2", "--octave_scale", "2.0", "--iter", "2",
+          "--style_layer", "relu1_1", "--style_target",
+          str(data / "style.npy"), "--num_frames", "4", "--window", "1",
+          "--fused", "2", *extra])
+
+
+def test_fused_sequence_resumes_from_its_manifest(tmp_path, capsys):
+    """--fused 2 saves the carry param at frames 1 and 3; a rerun with a
+    complete manifest stylizes nothing; with frames 2-3 lost it resumes at
+    frame 2 from param_0001 and velocity 1 and writes the same frames."""
+    data = tmp_path / "data"
+    scene.main(["--scene", "smoke3d", "--out", str(data), "--res", "12",
+                "10", "12", "--frames", "4", "--device", "cpu"])
+    np.save(data / "style.npy",
+            np.random.default_rng(0).random((32, 32, 3), dtype=np.float32))
+    log = tmp_path / "log"
+    _stylize(data, log)
+    seq = log / "seq"
+    first = [FrameStore(str(seq)).load_density(t) for t in range(4)]
+    assert sorted(p for p in os.listdir(seq) if p.startswith("param")) == [
+        "param_0001.npz", "param_0003.npz"]
+    manifest = json.loads((seq / "manifest.json").read_text())
+    assert sorted(manifest) == ["0", "1", "2", "3"]
+
+    capsys.readouterr()
+    _stylize(data, log)
+    assert "all frames already stylized (manifest)" in capsys.readouterr().out
+
+    for t in (2, 3):
+        os.unlink(seq / f"d_{t:04d}.npz")
+    _stylize(data, log)
+    out = capsys.readouterr().out
+    assert "[frame 2]" in out and "[frame 1]" not in out
+    for t in range(4):
+        np.testing.assert_array_equal(
+            FrameStore(str(seq)).load_density(t), first[t])

@@ -1,5 +1,6 @@
-"""CUDA kernels K1-K5 of nfs_tpu_torch against their plain versions, on
-the GPU. Every test here needs a CUDA device and skips without one.
+"""CUDA kernels K1-K5 and K3b of nfs_tpu_torch against their plain
+versions, on the GPU. Every test here needs a CUDA device and skips
+without one.
 
 This file imports no JAX, so it also runs where only the port and torch
 are installed; tests/conftest.py imports JAX, so there run it as
@@ -60,7 +61,9 @@ def test_kernels_match_plain(cuda_device, kind, max_disp):
     torch.testing.assert_close(ak.advect_bwd_vel(f, v, g, max_disp),
                                ak.advect_bwd_vel_plain(f, v, g, max_disp),
                                atol=GRAD_ATOL, rtol=0)
-    assert all(ak.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert all(ak.LAUNCHES[k] == before[k] + 1
+               for k in ("fwd", "bwd_field", "bwd_vel"))
+    assert ak.LAUNCHES["bwd_fused"] == before["bwd_fused"]
 
 
 @pytest.mark.cuda
@@ -91,6 +94,47 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
         ak.advect_bwd_field(v, g.transpose(0, 2), 2.0)
     with pytest.raises(TypeError):
         ak.advect_bwd_vel(f.half(), v, g, 2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,max_disp", [("random", 2.0), ("random", 1.0),
+                                           ("integer", 2.0), ("zero", 1.0)])
+def test_fused_kernel_matches_plain_and_split(cuda_device, kind, max_disp):
+    """K3b against its plain version and against K2 + K3 launched
+    separately (the same device functions, so the same sums)."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(kind, max_disp, seed=2))
+    before = dict(ak.LAUNCHES)
+    gf, gs = ak.advect_bwd_fused(f, v, g, max_disp)
+    assert ak.LAUNCHES["bwd_fused"] == before["bwd_fused"] + 1
+    for got, want in zip((gf, gs),
+                         ak.advect_bwd_fused_plain(f, v, g, max_disp)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    torch.testing.assert_close(gf, ak.advect_bwd_field(v, g, max_disp),
+                               atol=GRAD_ATOL, rtol=0)
+    torch.testing.assert_close(gs, ak.advect_bwd_vel(f, v, g, max_disp),
+                               atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_backward_on_gpu_matches_split(cuda_device, monkeypatch):
+    """AdvectWindow's backward with FUSED_BWD (one K3b launch) against the
+    split backward (K2 and K3) on the GPU."""
+    f, _, v = _inputs("random", 2.0, seed=6)
+    grads = {}
+    for fused in (False, True):
+        monkeypatch.setattr(ak, "FUSED_BWD", fused)
+        ft = torch.tensor(f, device=cuda_device, requires_grad=True)
+        vt = torch.tensor(v, device=cuda_device, requires_grad=True)
+        before = dict(ak.LAUNCHES)
+        (advect(ft, vt, max_disp=2.0) ** 2).sum().backward()
+        launched = {k: ak.LAUNCHES[k] - before[k] for k in before}
+        assert launched["bwd_fused"] == (1 if fused else 0)
+        assert launched["bwd_field"] == launched["bwd_vel"] == (
+            0 if fused else 1)
+        grads[fused] = (ft.grad, vt.grad)
+    for got, want in zip(grads[True], grads[False]):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
 
 
 def _bins(case, shape=(20, 14, 24), n=6000, seed=0):

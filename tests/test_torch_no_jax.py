@@ -1,7 +1,9 @@
 """nfs_tpu_torch needs no JAX: a fresh interpreter in which any import of
-``jax`` fails imports every module of the port, then runs the CLI on the
-CPU at a tiny size: grid mode (a single frame and a 2-frame window
-sequence) and particle mode (3 frames, keyframes 0 and 2)."""
+``jax`` fails imports every module of the port, then runs the CLIs on
+the CPU at a tiny size: the scene CLI (a 3D smoke and a 3D liquid), grid
+mode (a single frame, a 2-frame window sequence and a fused 3-frame
+sequence over the scene's smoke, run twice: the rerun resumes from its
+manifest) and particle mode (3 frames, keyframes 0 and 2)."""
 
 import json
 import os
@@ -26,8 +28,13 @@ SCRIPT = textwrap.dedent("""
         nfs_tpu_torch.__path__, "nfs_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    from nfs_tpu_torch.cli import scene
     from nfs_tpu_torch.cli.stylize import main
     data, log = sys.argv[1], sys.argv[2]
+    for name, res in (("smoke3d", ["12", "10", "12"]),
+                      ("liquid3d", ["8", "8", "8"])):
+        scene.main(["--scene", name, "--out", log + "/" + name, "--res",
+                    *res, "--frames", "3", "--device", "cpu"])
     common = ["--data_dir", data, "--log_dir", log, "--device", "cpu",
               "--render_size", "32", "32", "--n_views", "2",
               "--octave_n", "2", "--octave_scale", "2.0", "--iter", "2",
@@ -39,6 +46,10 @@ SCRIPT = textwrap.dedent("""
     main(common + ["--tag", "lnst", "--mode", "particle", "--num_frames",
                    "3", "--keyframe_stride", "2", "--opt_density",
                    "--grid_shape", "12", "10", "12"])
+    fused = [a if a != data else log + "/smoke3d" for a in common]
+    for _ in range(2):
+        main(fused + ["--tag", "fused", "--num_frames", "3", "--window",
+                      "1", "--fused", "2"])
     bad = sorted(m for m in sys.modules
                  if m == "nfs_tpu" or m.startswith("nfs_tpu."))
     print("MODULES", len(names), "JAX_PACKAGE", bad)
@@ -69,6 +80,16 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
     line = [l for l in proc.stdout.splitlines() if l.startswith("MODULES")]
     assert line and line[0].endswith("JAX_PACKAGE []"), proc.stdout
     assert int(line[0].split()[1]) >= 20
+
+    smoke3d = FrameStore(str(tmp_path / "log" / "smoke3d"))
+    assert smoke3d.load_velocity(2).shape == shape + (3,)
+    liquid = FrameStore(str(tmp_path / "log" / "liquid3d")).load_particles(2)
+    assert liquid["x"].shape[1] == 3 and np.isfinite(liquid["x"]).all()
+    fused = tmp_path / "log" / "fused"
+    assert sorted(json.loads((fused / "manifest.json").read_text())) == [
+        "0", "1", "2"]
+    assert "all frames already stylized (manifest)" in proc.stdout
+    assert np.isfinite(FrameStore(str(fused)).load_density(2)).all()
 
     out = FrameStore(str(tmp_path / "log" / "single"))
     d0 = out.load_density(0)

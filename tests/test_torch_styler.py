@@ -217,7 +217,7 @@ def test_not_ported_options_raise(vgg_np):
     _, ts = _stylers(vgg_np)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         next(ts.stylize_sequence(np.zeros((2,) + SHAPE, np.float32),
-                                 fused=4))
+                                 fused=4, checkpoint_path="x.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.stylize_frame(_density(), checkpoint_path="x.npz")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
