@@ -13,14 +13,19 @@ Phases, each printing one JSON line:
    both at once, and loads them.
 3. kernels — every kernel against its plain PyTorch version on the card,
    at the main paths' shapes: K1-K3b at 112x64x112 (random, clamped,
-   integer-valued and zero velocities; max_disp 2 and 1), K3b also
-   against K2 + K3 launched separately; K4-K5 on the particle path's
+   integer-valued and zero velocities at max_disp 2 and 1, random at
+   max_disp 3, the density slice's smooth swirl), K2 and K3b also
+   launched twice (bitwise equal) and K3b against K2 + K3 launched
+   separately (exactly equal); K4-K5 on the particle path's
    finest octave (200 000 particles of the particles_3d bench binned at
    96x64x96 with the styler's own capacity K: as binned, drifted +-0.5
    cell, crowded past K = 2, integer positions). Each kernel, its plain
    version and the one PyTorch library call that computes the same
-   function, where there is one, are timed (median of 30 CUDA-event
-   timed runs).
+   function, where there is one, are timed: ``ms`` is the median of 30
+   single calls between two CUDA events (the host's work to launch
+   included), ``device_ms`` the median of 30 runs of 10 calls queued
+   behind a device sleep (device time only); K2 and K3b also at
+   max_disp 3 and on the swirl.
    reference — small runs of the grid and particle slices on the GPU
    against the same runs on the CPU (plain versions; the CPU port is held
    against the JAX package by the tests).
@@ -165,7 +170,8 @@ def _bound(nbytes: float, ops: float):
 def _kernel_inputs(case: str, max_disp: float, seed: int):
     """Seeded field, cotangent and displacement. 'random' velocities are
     normal with sigma = max_disp / 1.2816, so ~20% of the components
-    exceed max_disp and get clamped."""
+    exceed max_disp and get clamped; 'swirl' is the density slice's
+    smooth swirl (|v| <= 1.5)."""
     rng = np.random.default_rng(seed)
     f = rng.random(SHAPE, dtype=np.float32)
     g = rng.standard_normal(SHAPE, dtype=np.float32)
@@ -175,10 +181,15 @@ def _kernel_inputs(case: str, max_disp: float, seed: int):
         v = np.round(v)
     elif case == "zero":
         v = np.zeros_like(v)
+    elif case == "swirl":
+        v = _swirl_velocity(SHAPE, 0)
     return f, g, v
 
 
 def _median_ms(fn, runs: int = 30) -> float:
+    """Median of ``runs`` single calls of ``fn``, each between two CUDA
+    events on an idle device: the host's work up to the launch is timed
+    with the device's."""
     import torch
 
     for _ in range(3):
@@ -192,6 +203,32 @@ def _median_ms(fn, runs: int = 30) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _device_ms(fn, runs: int = 30, reps: int = 10) -> float:
+    """Median over ``runs`` of the time per call of ``reps`` calls of
+    ``fn`` between two CUDA events, each run queued behind a device sleep
+    (~1 ms), so the device finds the calls queued and the events time the
+    device only. A function whose host work per call exceeds its device
+    time (the plain versions' many small launches) still shows the
+    host's."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -209,16 +246,20 @@ def _all_finite(a) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in parts)
 
 
-def phase_kernels(card: str):
-    """K1-K3b against the plain twins on the card, and K3b against K2 + K3
-    launched separately. Returns the per-kernel records of the final JSON
-    line (launches are filled in later)."""
+def _cuda_inputs(case: str, max_disp: float, seed: int):
     import torch
 
+    dev = torch.device("cuda", 0)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in _kernel_inputs(case, max_disp, seed))
+
+
+def _advect_pairs():
+    """(kernel, plain version) of K1-K3b, each called as fn(f, g, v,
+    max_disp)."""
     from nfs_tpu_torch.ops import advect_kernels as ak
 
-    dev = torch.device("cuda", 0)
-    pairs = {
+    return {
         "fwd": (lambda f, g, v, d: ak.advect_fwd(f, v, d),
                 lambda f, g, v, d: ak.advect_fwd_plain(f, v, d)),
         "bwd_field": (lambda f, g, v, d: ak.advect_bwd_field(v, g, d),
@@ -229,12 +270,31 @@ def phase_kernels(card: str):
             lambda f, g, v, d: ak.advect_bwd_fused(f, v, g, d),
             lambda f, g, v, d: ak.advect_bwd_fused_plain(f, v, g, d)),
     }
+
+
+def _equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, tuple):
+        return all(_equal(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def phase_kernels(card: str):
+    """K1-K3b against the plain twins on the card; K2 and K3b launched
+    twice must agree bitwise, and K3b must equal K2 + K3 launched
+    separately exactly. Returns the per-kernel records of the final JSON
+    line (launches are filled in later)."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    pairs = _advect_pairs()
     errs = {k: 0.0 for k in pairs}
     cases = [("random", 2.0), ("random", 1.0), ("integer", 2.0),
-             ("zero", 1.0)]
+             ("zero", 1.0), ("random", 3.0), ("swirl", 2.0)]
     for n, (case, md) in enumerate(cases):
-        f, g, v = (torch.from_numpy(a).to(dev)
-                   for a in _kernel_inputs(case, md, seed=n))
+        f, g, v = _cuda_inputs(case, md, seed=n)
         case_err = {}
         for key, (kern, plain) in pairs.items():
             out_k = kern(f, g, v, md)
@@ -249,16 +309,22 @@ def phase_kernels(card: str):
                     f"{key} disagrees with its plain twin on case "
                     f"{case} max_disp={md}: {err} > {TOL[key]}")
             errs[key] = max(errs[key], err)
-        # K3b against K2 and K3 launched separately on the same inputs
+            # the pull kernels are deterministic: no atomics
+            if key in ("bwd_field", "bwd_fused") and not _equal(
+                    out_k, kern(f, g, v, md)):
+                raise AssertionError(f"{key}: two launches differ on case "
+                                     f"{case} max_disp={md}")
+        # K3b against K2 and K3 launched separately on the same inputs:
+        # the same sums term for term
         split_err = _max_err(ak.advect_bwd_fused(f, v, g, md),
                              (ak.advect_bwd_field(v, g, md),
                               ak.advect_bwd_vel(f, v, g, md)))
-        if not split_err <= TOL["bwd_fused"]:
-            raise AssertionError(f"K3b disagrees with K2 + K3 on case "
+        if split_err != 0.0:
+            raise AssertionError(f"K3b differs from K2 + K3 on case "
                                  f"{case} max_disp={md}: {split_err}")
         emit({"phase": "kernels", "case": case, "max_disp": md,
               "max_abs_err": case_err, "k3b_vs_k2_k3": split_err,
-              "tol": TOL})
+              "bitwise_repeat": True, "tol": TOL})
 
     # times at the main path's shape: K1/K2 as the window loss runs them
     # (max_disp 2), K3 as the velocity parameter runs it (max_disp 1), K3b
@@ -266,38 +332,51 @@ def phase_kernels(card: str):
     # input read once, each output written once (K3b: vel, g and f in,
     # grad_f and grad_s out, 9 floats per cell)
     records = []
-    n = math.prod(SHAPE)
-    io_floats = {"fwd": 5 * n, "bwd_field": 5 * n, "bwd_vel": 8 * n,
-                 "bwd_fused": 9 * n}
     for key, name, replaces in KERNELS:
         md = 1.0 if key == "bwd_vel" else 2.0
-        f, g, v = (torch.from_numpy(a).to(dev)
-                   for a in _kernel_inputs("random", md, seed=99))
-        kern, plain = pairs[key]
-        ms = _median_ms(lambda: kern(f, g, v, md))
-        plain_ms = _median_ms(lambda: plain(f, g, v, md))
-        library = _advect_library_call(key, f, g, v, md)
-        library_ms = _median_ms(library)
-        bound_ms, bound_by = _bound(4 * io_floats[key],
-                                    OPS_PER_ELEMENT[key] * n)
+        t = _time_advect(key, "random", md, card)
         records.append({"name": name, "route": "cuda",
                         "source": "nfs_tpu_torch/csrc/advect.cu",
                         "replaces": replaces, "launches": None,
-                        "max_abs_err": errs[key], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms})
-        emit({"phase": "kernel_time", "kernel": name, "max_disp": md,
-              "shape": list(SHAPE), "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bound_ms,
-              "card": card})
+                        "max_abs_err": errs[key], **t})
+    # the pull kernels also at max_disp 3 (R = 3) and on the smooth swirl
+    # the density slice advects with
+    for key in ("bwd_field", "bwd_fused"):
+        for case, md in (("random", 3.0), ("swirl", 2.0)):
+            _time_advect(key, case, md, card)
     return records
+
+
+def _time_advect(key: str, case: str, md: float, card: str) -> dict:
+    """Kernel, plain version and library call of one advection kernel on
+    seed-99 inputs, each timed with :func:`_median_ms`, the kernel and
+    the library call also with :func:`_device_ms`, and the least time;
+    emits a kernel_time line and returns its numbers."""
+    kern, plain = _advect_pairs()[key]
+    f, g, v = _cuda_inputs(case, md, seed=99)
+    n = math.prod(SHAPE)
+    io_floats = {"fwd": 5 * n, "bwd_field": 5 * n, "bwd_vel": 8 * n,
+                 "bwd_fused": 9 * n}
+    library = _advect_library_call(key, f, g, v, md)
+    t = {"ms": _median_ms(lambda: kern(f, g, v, md)),
+         "plain_ms": _median_ms(lambda: plain(f, g, v, md)),
+         "library_ms": _median_ms(library),
+         "device_ms": _device_ms(lambda: kern(f, g, v, md)),
+         "library_device_ms": _device_ms(library)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * io_floats[key],
+                                          OPS_PER_ELEMENT[key] * n)
+    name = next(nm for k, nm, _ in KERNELS if k == key)
+    emit({"phase": "kernel_time", "kernel": name, "inputs": case,
+          "max_disp": md, "shape": list(SHAPE), **t, "card": card})
+    return t
 
 
 def _advect_library_call(key, f, g, v, md):
     """The one PyTorch call computing K1's function (``F.grid_sample`` at
-    the clamped backtrace, zero padding, align_corners) or K2's and K3's
-    together (its backward, ``aten.grid_sampler_3d_backward``). A
-    yardstick only: the port never calls it."""
+    the clamped backtrace, zero padding, align_corners) or its backward,
+    ``aten.grid_sampler_3d_backward``: asked for the input gradient alone
+    for K2, for both gradients for K3 and K3b. A yardstick only: the port
+    never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -313,8 +392,9 @@ def _advect_library_call(key, f, g, v, md):
                                      padding_mode="zeros",
                                      align_corners=True)
     gout = g[None, None]
+    mask = [True, key != "bwd_field"]
     return lambda: torch.ops.aten.grid_sampler_3d_backward(
-        gout, inp, grid, 0, 0, True, [True, True])
+        gout, inp, grid, 0, 0, True, mask)
 
 
 def _bin_inputs(case: str, K: int, seed: int):
@@ -398,17 +478,19 @@ def phase_bin_kernels(card: str, K: int):
         kern, plain = calls[key]
         ms = _median_ms(kern)
         plain_ms = _median_ms(plain)
+        device_ms = _device_ms(kern)
         bound_ms, bound_by = _bound(*work[key])
         records.append({"name": name, "route": "cuda",
                         "source": "nfs_tpu_torch/csrc/binsplat.cu",
                         "replaces": replaces, "launches": None,
                         "max_abs_err": errs[key], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": None,
+                        "device_ms": device_ms, "library_device_ms": None})
         emit({"phase": "kernel_time", "kernel": name, "K": K,
               "padded_grid": list(g.shape), "occupied_slots": occupied,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "card": card})
+              "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+              "bound_ms": bound_ms, "card": card})
     return records
 
 
@@ -1240,7 +1322,8 @@ def main(argv=None) -> int:
             if rec["launches"] <= 0:
                 raise AssertionError(f"{rec['name']} never launched")
             if not all(math.isfinite(rec[k]) for k in
-                        ("max_abs_err", "ms", "plain_ms", "bound_ms")):
+                        ("max_abs_err", "ms", "plain_ms", "device_ms",
+                         "bound_ms")):
                 raise AssertionError(f"bad numbers in {rec}")
     emit({"kernels": records + bin_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,26 +16,45 @@
 // with tent(u) = max(0, 1 - |u|), corners outside the grid reading 0, and
 // the derivative of tent taken with JAX's subgradient conventions
 // (abs'(0) = +1, 0.5 at |u| == 1), exactly as _dtent does. K3b writes K2's
-// gf and K3's gs from one thread per cell.
+// gf and K3's gs.
 //
 // Design. The TPU kernels evaluate all (2K+1)^3 window taps from a VMEM
 // slab because the TPU has no fast gather. On Hopper a gather through L1
-// is cheap, so each kernel touches only the taps whose weight can be
-// nonzero: 8 corners for K1, 27 taps for K3 (s_a - 1 .. s_a + 1 around
-// floor(s_a); the tap at floor + 2 always has |u| > 1), and
-// (2R+1)^3 source cells for K2 with R = ceil(max_disp) (a source i
-// further away backtraces to |s_a - j_a| >= 1 and has zero weight).
-// One thread per output cell, neighbouring threads on neighbouring x, so
-// the reads of a warp coalesce. K2 gathers (pull) instead of scattering
-// with atomics: it is deterministic, which bit-exact resume needs.
-// Bound on the H100: K1 and K3 are memory-bound (one read of vel and g,
-// 8 / 27 mostly-L1 reads of f, one write). K2 re-reads (2R+1)^3 vel/g
-// neighbours per cell, mostly from L1/L2; its time grows with R^3, and
-// the early exit on a zero z-weight skips most of the y/x work.
-// K3b runs K2's and K3's device functions back to back in one thread: it
-// saves one launch and one read of vel and g (36 B per cell against 48 B
-// for the pair), and its result equals the pair's term for term. The TPU
-// kernel fused the two legs to halve slab DMAs; there is no slab here.
+// is cheap, so K1 and K3 touch only the taps whose weight can be nonzero:
+// 8 corners for K1, 27 taps for K3 (s_a - 1 .. s_a + 1 around floor(s_a);
+// the tap at floor + 2 always has |u| > 1), one thread per cell,
+// neighbouring threads on neighbouring x. Both are bound by memory on the
+// H100 (one read of vel and g, 8 / 27 mostly-L1 reads of f, one write).
+//
+// K2 and K3b pull: cell j sums over the (2R+1)^3 source cells i within
+// R = ceil(max_disp) of it (a source further away backtraces to
+// |s_a - j_a| >= 1 and has zero weight). Pulling instead of scattering
+// with atomics keeps them deterministic, which bit-exact resume needs;
+// there are no atomics anywhere here. Their least time is set by bytes
+// (20 / 36 B per cell), but what bounds them on the H100 is the
+// instructions they issue for the (2R+1)^3 = 125 source visits per cell
+// at R = 2: with one thread per cell reading its sources from global
+// memory, every source would be re-read and re-backtraced up to 125
+// times, through strided loads of the channel-last vel.
+//
+// So a block owns a TZ x TY x TX tile of output cells (x fastest; the
+// wrapper picks the tile from R, 4 x 8 x 24 up to R = 5) and stages the
+// tile plus its R-halo of sources in dynamic shared memory, each source
+// backtraced once per block: (s_z, s_y, s_x, g) as one float4 (16 B per
+// source). The pull then reads shared memory only, without a branch, in
+// ascending (iz, iy, ix) with the arithmetic of the pull from device
+// memory, so for finite g the sum is the same to the bit. A thread takes
+// kCellsX = 3 cells along x: per row of sources it loads 2R + 3 of them
+// (not 3 (2R + 1)) and computes w_z * w_y once per source for its cells.
+// Shared-memory bandwidth and issued instructions then bound the pull.
+// A source outside the grid is staged with s = kOutside and g = 0: its
+// weight is 0 for every cell.
+//
+// K3b also stages f over the tile with an (R+1)-halo, zero outside the
+// grid, which holds all 27 taps of every cell of the tile, and runs K3's
+// arithmetic on its staged s and f without a branch per tap (a tap
+// outside the grid adds +-0 instead of being skipped): its result equals
+// K2 + K3 to the bit.
 
 #include <cuda_runtime.h>
 
@@ -60,6 +79,10 @@ __device__ __forceinline__ float backtrace(int i, float v, float max_disp,
   return fminf(fmaxf(static_cast<float>(i) - disp, 0.0f),
                static_cast<float>(n - 1));
 }
+
+// Staged backtrace of a source outside the grid: tent(kOutside - j) == 0
+// for every cell j, and its g is 0.
+constexpr float kOutside = -1.0e30f;
 
 __global__ void advect_fwd_kernel(const float* __restrict__ field,
                                   const float* __restrict__ vel,
@@ -94,49 +117,23 @@ __global__ void advect_fwd_kernel(const float* __restrict__ field,
   out[idx] = acc;
 }
 
-// K2's pull at cell (z, y, x): the (2R+1)^3 source cells i in the grid,
-// each weighted by prod_a tent(s_a[i] - j_a). A source outside the grid is
-// skipped (the TPU kernel reads g = 0 in its zero pad there).
-__device__ __forceinline__ float pull_field_grad(
-    const float* __restrict__ vel, const float* __restrict__ g, int z, int y,
-    int x, int D, int H, int W, float max_disp, int R) {
-  const float fz = static_cast<float>(z);
-  const float fy = static_cast<float>(y);
-  const float fx = static_cast<float>(x);
-  float acc = 0.0f;
-  for (int iz = max(z - R, 0); iz <= min(z + R, D - 1); ++iz) {
-    for (int iy = max(y - R, 0); iy <= min(y + R, H - 1); ++iy) {
-      const long long row = (static_cast<long long>(iz) * H + iy) * W;
-      for (int ix = max(x - R, 0); ix <= min(x + R, W - 1); ++ix) {
-        const long long i = row + ix;
-        const float wz = tent(backtrace(iz, vel[3 * i + 0], max_disp, D) - fz);
-        if (wz == 0.0f) continue;
-        const float wy = tent(backtrace(iy, vel[3 * i + 1], max_disp, H) - fy);
-        if (wy == 0.0f) continue;
-        const float wx = tent(backtrace(ix, vel[3 * i + 2], max_disp, W) - fx);
-        acc += wz * wy * wx * g[i];
-      }
-    }
-  }
-  return acc;
-}
-
 struct Grad3 {
   float z, y, x;
 };
 
-// K3's 27 taps at cell idx = (z, y, x), before the factor g[idx]:
-// sum_c d_a[prod tent](s - c) * f[c] for a = z, y, x.
-__device__ __forceinline__ Grad3 push_vel_grad(
-    const float* __restrict__ field, const float* __restrict__ vel,
-    long long idx, int z, int y, int x, int D, int H, int W,
-    float max_disp) {
-  const float s[3] = {backtrace(z, vel[3 * idx + 0], max_disp, D),
-                      backtrace(y, vel[3 * idx + 1], max_disp, H),
-                      backtrace(x, vel[3 * idx + 2], max_disp, W)};
+// K3's 27 taps at a cell with backtrace s, before the factor g of the
+// cell: sum_c d_a[prod tent](s - c) * f[c] for a = z, y, x. ``row(cz,
+// cy)[cx]`` is f at a tap, in global or shared memory. A tap outside the
+// grid reads a zero field value: it is skipped, or, with kZeroPadded
+// (``row`` reads 0 there), summed as its +-0 terms, which leave each sum
+// as it was (a sum that starts at +0 never becomes -0), so both give the
+// same bits and the padded form needs no branch.
+template <bool kZeroPadded, class Row>
+__device__ __forceinline__ Grad3 push_vel_grad(const float s[3], int D,
+                                               int H, int W, Row row) {
   const int dims[3] = {D, H, W};
   // Per axis: taps floor(s)-1 .. floor(s)+1, their tent weight and tent
-  // derivative; a tap outside the grid reads a zero field value.
+  // derivative; c < 0 marks a tap to skip.
   int c[3][3];
   float w[3][3];
   float d[3][3];
@@ -144,7 +141,7 @@ __device__ __forceinline__ Grad3 push_vel_grad(
     const int base = static_cast<int>(floorf(s[a])) - 1;
     for (int t = 0; t < 3; ++t) {
       const int ct = base + t;
-      const bool ok = ct >= 0 && ct < dims[a];
+      const bool ok = kZeroPadded || (ct >= 0 && ct < dims[a]);
       const float u = s[a] - static_cast<float>(ct);
       c[a][t] = ok ? ct : -1;
       w[a][t] = tent(u);
@@ -153,14 +150,13 @@ __device__ __forceinline__ Grad3 push_vel_grad(
   }
   float az = 0.0f, ay = 0.0f, ax = 0.0f;
   for (int tz = 0; tz < 3; ++tz) {
-    if (c[0][tz] < 0) continue;
+    if (!kZeroPadded && c[0][tz] < 0) continue;
     for (int ty = 0; ty < 3; ++ty) {
-      if (c[1][ty] < 0) continue;
-      const float* row =
-          field + (static_cast<long long>(c[0][tz]) * H + c[1][ty]) * W;
+      if (!kZeroPadded && c[1][ty] < 0) continue;
+      const float* f_row = row(c[0][tz], c[1][ty]);
       for (int tx = 0; tx < 3; ++tx) {
-        if (c[2][tx] < 0) continue;
-        const float f = row[c[2][tx]];
+        if (!kZeroPadded && c[2][tx] < 0) continue;
+        const float f = f_row[c[2][tx]];
         az += d[0][tz] * w[1][ty] * w[2][tx] * f;
         ay += w[0][tz] * d[1][ty] * w[2][tx] * f;
         ax += w[0][tz] * w[1][ty] * d[2][tx] * f;
@@ -168,19 +164,6 @@ __device__ __forceinline__ Grad3 push_vel_grad(
     }
   }
   return {az, ay, ax};
-}
-
-// Linear index of this thread's cell and its (z, y, x); false past the end.
-__device__ __forceinline__ bool cell_of_thread(int D, int H, int W,
-                                               long long* idx, int* z,
-                                               int* y, int* x) {
-  const long long n = static_cast<long long>(D) * H * W;
-  *idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (*idx >= n) return false;
-  *x = static_cast<int>(*idx % W);
-  *y = static_cast<int>((*idx / W) % H);
-  *z = static_cast<int>(*idx / (static_cast<long long>(W) * H));
-  return true;
 }
 
 __device__ __forceinline__ void store_grad_s(float* __restrict__ grad_s,
@@ -191,31 +174,197 @@ __device__ __forceinline__ void store_grad_s(float* __restrict__ grad_s,
   grad_s[3 * idx + 2] = a.x * gi;
 }
 
-__global__ void advect_bwd_field_kernel(const float* __restrict__ vel,
-                                        const float* __restrict__ g,
-                                        float* __restrict__ grad_field,
-                                        int D, int H, int W, float max_disp,
-                                        int R) {
-  long long idx;
-  int z, y, x;
-  if (!cell_of_thread(D, H, W, &idx, &z, &y, &x)) return;
-  grad_field[idx] = pull_field_grad(vel, g, z, y, x, D, H, W, max_disp, R);
-}
-
 __global__ void advect_bwd_vel_kernel(const float* __restrict__ field,
                                       const float* __restrict__ vel,
                                       const float* __restrict__ g,
                                       float* __restrict__ grad_s, int D,
                                       int H, int W, float max_disp) {
-  long long idx;
-  int z, y, x;
-  if (!cell_of_thread(D, H, W, &idx, &z, &y, &x)) return;
-  store_grad_s(grad_s, idx,
-               push_vel_grad(field, vel, idx, z, y, x, D, H, W, max_disp),
-               g[idx]);
+  const long long n = static_cast<long long>(D) * H * W;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int x = static_cast<int>(idx % W);
+  const int y = static_cast<int>((idx / W) % H);
+  const int z = static_cast<int>(idx / (static_cast<long long>(W) * H));
+  const float s[3] = {backtrace(z, vel[3 * idx + 0], max_disp, D),
+                      backtrace(y, vel[3 * idx + 1], max_disp, H),
+                      backtrace(x, vel[3 * idx + 2], max_disp, W)};
+  const Grad3 a = push_vel_grad<false>(s, D, H, W, [=](int cz, int cy) {
+    return field + (static_cast<long long>(cz) * H + cy) * W;
+  });
+  store_grad_s(grad_s, idx, a, g[idx]);
 }
 
-// K3b: one thread per cell j writes K2's grad_f[j] and K3's grad_s[j, :].
+// ---------------------------------------------------------------------
+// K2 and K3b: a tile of output cells per block, sources staged in shared
+// memory. blockDim is (TX / kCellsX, TY, TZ): one thread per kCellsX
+// output cells that follow each other along x; blockIdx (x, y, z)
+// numbers the tiles.
+// ---------------------------------------------------------------------
+
+// Output cells per thread along x. Neighbouring cells along x share all
+// but one of their sources per row and, since prod_a tent is summed as
+// ((w_z * w_y) * w_x) * g, the product w_z * w_y of every shared source.
+// Odd, so that the 16-byte loads of 8 lanes kCellsX sources apart hit
+// distinct banks of shared memory.
+constexpr int kCellsX = 3;
+
+// A box of staged cells: its first grid cell and its extent.
+struct Box {
+  int z0, y0, x0;
+  int nz, ny, nx;
+  __device__ int size() const { return nz * ny * nx; }
+};
+
+__device__ __forceinline__ int thread_rank() {
+  return (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int block_threads() {
+  return blockDim.x * blockDim.y * blockDim.z;
+}
+
+// The tile of this block grown by ``halo`` cells on every side.
+__device__ __forceinline__ Box tile_box(int halo) {
+  const int tx = kCellsX * static_cast<int>(blockDim.x);
+  return {static_cast<int>(blockIdx.z * blockDim.z) - halo,
+          static_cast<int>(blockIdx.y * blockDim.y) - halo,
+          static_cast<int>(blockIdx.x) * tx - halo,
+          static_cast<int>(blockDim.z) + 2 * halo,
+          static_cast<int>(blockDim.y) + 2 * halo,
+          tx + 2 * halo};
+}
+
+// visit(k, iz, iy, ix) for every cell k of ``box``, the block's threads
+// taking k = rank, rank + threads, ...; the cell's coordinates are
+// carried from one step to the next, not divided out of k each time.
+template <class Visit>
+__device__ __forceinline__ void for_box(Box box, Visit visit) {
+  const int n = box.size();
+  const int step = block_threads();
+  const int k0 = thread_rank();
+  const int sx = step % box.nx;
+  const int sy = step / box.nx % box.ny;
+  const int sz = step / box.nx / box.ny;
+  int lx = k0 % box.nx;
+  int ly = k0 / box.nx % box.ny;
+  int lz = k0 / box.nx / box.ny;
+  for (int k = k0; k < n; k += step) {
+    visit(k, box.z0 + lz, box.y0 + ly, box.x0 + lx);
+    lx += sx;
+    ly += sy;
+    lz += sz;
+    if (lx >= box.nx) {
+      lx -= box.nx;
+      ++ly;
+    }
+    if (ly >= box.ny) {
+      ly -= box.ny;
+      ++lz;
+    }
+  }
+}
+
+// (s_z, s_y, s_x, g) of every source of ``box`` in ``st``, backtraced
+// once; (kOutside, kOutside, kOutside, 0) for a source outside the grid.
+__device__ __forceinline__ void stage_sources(const float* __restrict__ vel,
+                                              const float* __restrict__ g,
+                                              Box box, float4* st, int D,
+                                              int H, int W, float max_disp) {
+  for_box(box, [&](int k, int iz, int iy, int ix) {
+    if (iz >= 0 && iz < D && iy >= 0 && iy < H && ix >= 0 && ix < W) {
+      const long long i = (static_cast<long long>(iz) * H + iy) * W + ix;
+      st[k] = make_float4(backtrace(iz, vel[3 * i + 0], max_disp, D),
+                          backtrace(iy, vel[3 * i + 1], max_disp, H),
+                          backtrace(ix, vel[3 * i + 2], max_disp, W), g[i]);
+    } else {
+      st[k] = make_float4(kOutside, kOutside, kOutside, 0.0f);
+    }
+  });
+}
+
+// f over ``box``, 0 outside the grid.
+__device__ __forceinline__ void stage_field(const float* __restrict__ field,
+                                            Box box, float* s_f, int D,
+                                            int H, int W) {
+  for_box(box, [&](int k, int iz, int iy, int ix) {
+    const bool in = iz >= 0 && iz < D && iy >= 0 && iy < H && ix >= 0 &&
+                    ix < W;
+    s_f[k] = in ? field[(static_cast<long long>(iz) * H + iy) * W + ix]
+                : 0.0f;
+  });
+}
+
+// Index in ``box`` of the cell at this thread's offset from the box's
+// first cell: for the tile with its R-halo, the source
+// (z - R, y - R, x - R) of this thread's first cell (z, y, x).
+__device__ __forceinline__ int first_source(Box src) {
+  return (threadIdx.z * src.ny + threadIdx.y) * src.nx +
+         kCellsX * threadIdx.x;
+}
+
+// K2's pull at this thread's cells (z, y, x + c), c < kCellsX, from the
+// staged sources of ``src`` (the tile with its R-halo): for each cell the
+// (2R+1)^3 sources in ascending (iz, iy, ix), each weighted by
+// prod_a tent(s_a[i] - j_a), with the arithmetic of the pull from device
+// memory it replaces. That pull skipped a source at a zero z or y weight;
+// here every source adds its term, a zero weight adding +-0, which leaves
+// the sum's bits as they were for finite g (a sum that starts at +0 never
+// becomes -0). Skipping does not pay: the lanes of a warp visit different
+// sources, so some lane nearly always needs the rest of the source, and
+// a branch would only add its own instructions. Each row of sources is
+// read once for the thread's cells, and each source's w_z * w_y computed
+// once.
+__device__ __forceinline__ void pull_field_grad(const float4* st, Box src,
+                                                int R, int z, int y, int x,
+                                                float acc[kCellsX]) {
+  const float fz = static_cast<float>(z);
+  const float fy = static_cast<float>(y);
+  const int span = 2 * R + 1;
+  const int k0 = first_source(src);
+#pragma unroll
+  for (int c = 0; c < kCellsX; ++c) acc[c] = 0.0f;
+  for (int dz = 0; dz < span; ++dz) {
+    for (int dy = 0; dy < span; ++dy) {
+      const int row = k0 + (dz * src.ny + dy) * src.nx;
+      // source j of the row lies in the window of cells j - 2R .. j
+      for (int j = 0; j < span + kCellsX - 1; ++j) {
+        const float4 q = st[row + j];
+        const float wzy = tent(q.x - fz) * tent(q.y - fy);
+#pragma unroll
+        for (int c = 0; c < kCellsX; ++c) {
+          if (j < c || j >= c + span) continue;
+          acc[c] += wzy * tent(q.z - static_cast<float>(x + c)) * q.w;
+        }
+      }
+    }
+  }
+}
+
+__global__ void advect_bwd_field_kernel(const float* __restrict__ vel,
+                                        const float* __restrict__ g,
+                                        float* __restrict__ grad_field,
+                                        int D, int H, int W, float max_disp,
+                                        int R) {
+  extern __shared__ float4 st[];
+  const Box src = tile_box(R);
+  stage_sources(vel, g, src, st, D, H, W, max_disp);
+  __syncthreads();
+  const int z = src.z0 + R + threadIdx.z;
+  const int y = src.y0 + R + threadIdx.y;
+  const int x = src.x0 + R + kCellsX * threadIdx.x;
+  if (z >= D || y >= H || x >= W) return;
+  float acc[kCellsX];
+  pull_field_grad(st, src, R, z, y, x, acc);
+  const long long row = (static_cast<long long>(z) * H + y) * W;
+#pragma unroll
+  for (int c = 0; c < kCellsX; ++c) {
+    if (x + c < W) grad_field[row + x + c] = acc[c];
+  }
+}
+
+// K3b: K2's grad_f and K3's grad_s of every cell of the tile, both from
+// shared memory: the sources with their R-halo, f with an (R+1)-halo.
 __global__ void advect_bwd_fused_kernel(const float* __restrict__ field,
                                         const float* __restrict__ vel,
                                         const float* __restrict__ g,
@@ -223,13 +372,37 @@ __global__ void advect_bwd_fused_kernel(const float* __restrict__ field,
                                         float* __restrict__ grad_s, int D,
                                         int H, int W, float max_disp,
                                         int R) {
-  long long idx;
-  int z, y, x;
-  if (!cell_of_thread(D, H, W, &idx, &z, &y, &x)) return;
-  grad_field[idx] = pull_field_grad(vel, g, z, y, x, D, H, W, max_disp, R);
-  store_grad_s(grad_s, idx,
-               push_vel_grad(field, vel, idx, z, y, x, D, H, W, max_disp),
-               g[idx]);
+  extern __shared__ float4 st[];
+  const Box src = tile_box(R);
+  const Box fb = tile_box(R + 1);
+  float* s_f = reinterpret_cast<float*>(st + src.size());
+  stage_sources(vel, g, src, st, D, H, W, max_disp);
+  stage_field(field, fb, s_f, D, H, W);
+  __syncthreads();
+  const int z = src.z0 + R + threadIdx.z;
+  const int y = src.y0 + R + threadIdx.y;
+  const int x = src.x0 + R + kCellsX * threadIdx.x;
+  if (z >= D || y >= H || x >= W) return;
+  float acc[kCellsX];
+  pull_field_grad(st, src, R, z, y, x, acc);
+  const long long row = (static_cast<long long>(z) * H + y) * W;
+  // the thread's own staged sources, and f at its first cell
+  const int k = first_source(src) + (R * src.ny + R) * src.nx + R;
+  const float* f0 =
+      s_f + first_source(fb) + ((R + 1) * fb.ny + R + 1) * fb.nx + R + 1;
+#pragma unroll
+  for (int c = 0; c < kCellsX; ++c) {
+    if (x + c >= W) break;
+    grad_field[row + x + c] = acc[c];
+    const float4 q = st[k + c];
+    const float s[3] = {q.x, q.y, q.z};
+    // every tap lies within R + 1 of the cell (|s - cell| <= max_disp <=
+    // R), inside the staged f, which reads 0 outside the grid
+    const Grad3 a = push_vel_grad<true>(s, D, H, W, [=](int cz, int cy) {
+      return f0 + ((cz - z) * fb.ny + cy - y) * fb.nx - x;
+    });
+    store_grad_s(grad_s, row + x + c, a, q.w);
+  }
 }
 
 constexpr int kThreads = 256;
@@ -239,10 +412,36 @@ unsigned int blocks_for(int D, int H, int W) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+// Dynamic shared memory a kernel may use without opting in, and the most
+// a block may use on the H100.
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;
+
+// Launch geometry of K2 / K3b for a TZ x TY x TX tile of cells (TX a
+// multiple of kCellsX) staging ``smem_bytes`` (the wrapper's tile plan);
+// opts the kernel in to more than the default shared memory where the
+// plan needs it. cudaSuccess, or cudaErrorInvalidValue when the tile or
+// its shared memory is refused.
+cudaError_t tile_launch(const void* kernel, int D, int H, int W, int R,
+                        int TZ, int TY, int TX, int smem_bytes, dim3* grid,
+                        dim3* block) {
+  if (R < 0 || TZ < 1 || TY < 1 || TX < 1 || TX % kCellsX != 0 ||
+      TZ * TY * (TX / kCellsX) > 1024 || smem_bytes > kMaxSmem) {
+    return cudaErrorInvalidValue;
+  }
+  *block = dim3(TX / kCellsX, TY, TZ);
+  *grid = dim3((W + TX - 1) / TX, (H + TY - 1) / TY, (D + TZ - 1) / TZ);
+  if (smem_bytes <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes);
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on the given
-// stream, does not synchronise, and returns cudaGetLastError().
+// stream, does not synchronise, and returns cudaGetLastError() (or the
+// error that refused the launch).
 extern "C" {
 
 int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
@@ -254,10 +453,18 @@ int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 with a TZ x TY x TX tile and ``smem_bytes`` of dynamic shared
+// memory, at most 232 448 on the H100: 16 bytes per source of the tile
+// with its R-halo.
 int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
-                         int D, int H, int W, float max_disp, int R,
-                         void* stream) {
-  advect_bwd_field_kernel<<<blocks_for(D, H, W), kThreads, 0,
+                         int D, int H, int W, float max_disp, int R, int TZ,
+                         int TY, int TX, int smem_bytes, void* stream) {
+  dim3 grid, block;
+  const cudaError_t err = tile_launch(
+      reinterpret_cast<const void*>(advect_bwd_field_kernel), D, H, W, R, TZ,
+      TY, TX, smem_bytes, &grid, &block);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  advect_bwd_field_kernel<<<grid, block, smem_bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vel), static_cast<const float*>(g),
       static_cast<float*>(grad_field), D, H, W, max_disp, R);
@@ -275,10 +482,18 @@ int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3b with a TZ x TY x TX tile; ``smem_bytes`` K2's and 4 bytes per cell
+// of f over the tile with an (R+1)-halo.
 int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
                          void* grad_field, void* grad_s, int D, int H, int W,
-                         float max_disp, int R, void* stream) {
-  advect_bwd_fused_kernel<<<blocks_for(D, H, W), kThreads, 0,
+                         float max_disp, int R, int TZ, int TY, int TX,
+                         int smem_bytes, void* stream) {
+  dim3 grid, block;
+  const cudaError_t err = tile_launch(
+      reinterpret_cast<const void*>(advect_bwd_fused_kernel), D, H, W, R, TZ,
+      TY, TX, smem_bytes, &grid, &block);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  advect_bwd_fused_kernel<<<grid, block, smem_bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(field), static_cast<const float*>(vel),
       static_cast<const float*>(g), static_cast<float*>(grad_field),

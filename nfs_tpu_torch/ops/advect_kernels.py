@@ -29,10 +29,12 @@ time.
 The TPU kernels evaluate every tap of the (2K+1)^3 window from VMEM
 because a gather is slow on the TPU. On Hopper a gather through L1 is
 cheap, so the kernels visit only the taps whose weight can be nonzero
-(8 for K1, 27 for K3, (2R+1)^3 source cells for K2 with
-R = ceil(max_disp)); the result equals the window sum. What bounds each
-kernel on the H100 and what the design does about it is noted in
-``advect.cu``.
+(8 for K1, 27 for K3, (2R+1)^3 source cells for K2 and K3b with
+R = ceil(max_disp)); the result equals the window sum. K2 and K3b give
+each block a tile of output cells and stage its sources, with an R-cell
+halo, in shared memory; :func:`_pull_plan` picks the tile and its bytes
+from R. What bounds each kernel on the H100 and what the design does
+about it is noted in ``advect.cu``.
 
 The library is built with ``nvcc`` for ``sm_90a`` from the repository's
 own source at first use into ``build/nfs_tpu_torch/`` next to the
@@ -94,9 +96,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, p]
-    lib.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f, i, p]
+    lib.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f, i, i, i, i, i,
+                                         p]
     lib.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, f, p]
-    lib.nfs_advect_bwd_fused.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
+    lib.nfs_advect_bwd_fused.argtypes = [p, p, p, p, p, i, i, i, f, i, i, i,
+                                         i, i, p]
     for fn in (lib.nfs_advect_fwd, lib.nfs_advect_bwd_field,
                lib.nfs_advect_bwd_vel, lib.nfs_advect_bwd_fused):
         fn.restype = ctypes.c_int
@@ -268,6 +272,54 @@ def _radius(max_disp: float) -> int:
     return int(math.ceil(max_disp))
 
 
+# Dynamic shared memory one block may use on the H100 (227 KB); the
+# output cells each K2 / K3b thread takes along x (advect.cu kCellsX; the
+# C entry points refuse a tile whose TX is not a multiple of it); and the
+# tile of output cells they start from, (TZ, TY, TX) with x fastest and
+# 256 threads (PERF.md names the shapes tried).
+SMEM_LIMIT = 232_448
+CELLS_X = 3
+PULL_TILE = (4, 8, 24)
+
+
+def _staged_bytes(R: int, tile, fused: bool) -> int:
+    """Shared memory K2 (``fused=False``) or K3b stages for a (TZ, TY, TX)
+    tile: s_z, s_y, s_x and g of every source of the tile with its R-halo
+    (16 B each); K3b adds f over the tile with an (R+1)-halo (4 B
+    each)."""
+    tz, ty, tx = tile
+    src = (tz + 2 * R) * (ty + 2 * R) * (tx + 2 * R)
+    f = (tz + 2 * R + 2) * (ty + 2 * R + 2) * (tx + 2 * R + 2) if fused else 0
+    return 16 * src + 4 * f
+
+
+@functools.lru_cache(maxsize=None)
+def _pull_plan(R: int, fused: bool = False):
+    """(TZ, TY, TX, shared-memory bytes) of K2's or K3b's tile at radius
+    R: :data:`PULL_TILE`, with TZ and then TY halved until the staged
+    bytes fit in :data:`SMEM_LIMIT`. TX stays 24 (8 threads of
+    :data:`CELLS_X` cells). Raises ValueError where even a 1 x 1 x 24 tile
+    does not fit: R > 8 for K2, R > 7 for K3b (max_disp above 8 or 7
+    cells)."""
+    if R < 0:
+        raise ValueError(f"advection radius must be >= 0, got {R}")
+    tz, ty, tx = PULL_TILE
+    while True:
+        nbytes = _staged_bytes(R, (tz, ty, tx), fused)
+        if nbytes <= SMEM_LIMIT:
+            return tz, ty, tx, nbytes
+        if tz > 1:
+            tz //= 2
+        elif ty > 1:
+            ty //= 2
+        else:
+            raise ValueError(
+                f"{'K3b' if fused else 'K2'} at radius R = {R} (max_disp "
+                f"> {R - 1}) stages {nbytes} B of shared memory even for a "
+                f"1 x 1 x {tx} tile, more than the {SMEM_LIMIT} B a block "
+                f"may use")
+
+
 def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
                max_disp: float) -> torch.Tensor:
     """K1: advected field (D, H, W)."""
@@ -289,18 +341,21 @@ def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
 
 def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
                      max_disp: float) -> torch.Tensor:
-    """K2: gradient wrt the advected field, (D, H, W)."""
+    """K2: gradient wrt the advected field, (D, H, W). On CUDA, raises
+    ValueError for max_disp > 8 (:func:`_pull_plan`)."""
     D, H, W = g.shape
     _check("g", g, (D, H, W), g.device)
     _check("vel", vel, (D, H, W, 3), g.device)
     if _route(g) == "plain":
         return advect_bwd_field_plain(vel, g, max_disp)
+    R = _radius(max_disp)
+    plan = _pull_plan(R)
     lib = load_library()
     out = torch.empty_like(g)
     with torch.cuda.device(g.device):
         rc = lib.nfs_advect_bwd_field(vel.data_ptr(), g.data_ptr(),
                                       out.data_ptr(), D, H, W,
-                                      float(max_disp), _radius(max_disp),
+                                      float(max_disp), R, *plan,
                                       _stream(g.device))
     _raise_on(rc, "advect_bwd_field")
     LAUNCHES["bwd_field"] += 1
@@ -330,13 +385,16 @@ def advect_bwd_vel(field: torch.Tensor, vel: torch.Tensor,
 def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
                      g: torch.Tensor, max_disp: float):
     """K3b: (gradient wrt the field (D, H, W), gradient wrt s
-    (D, H, W, 3)) in one launch."""
+    (D, H, W, 3)) in one launch. On CUDA, raises ValueError for
+    max_disp > 7 (:func:`_pull_plan`)."""
     D, H, W = field.shape
     _check("field", field, (D, H, W), field.device)
     _check("vel", vel, (D, H, W, 3), field.device)
     _check("g", g, (D, H, W), field.device)
     if _route(field) == "plain":
         return advect_bwd_fused_plain(field, vel, g, max_disp)
+    R = _radius(max_disp)
+    plan = _pull_plan(R, fused=True)
     lib = load_library()
     grad_field = torch.empty_like(field)
     grad_s = torch.empty_like(vel)
@@ -344,7 +402,7 @@ def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
         rc = lib.nfs_advect_bwd_fused(
             field.data_ptr(), vel.data_ptr(), g.data_ptr(),
             grad_field.data_ptr(), grad_s.data_ptr(), D, H, W,
-            float(max_disp), _radius(max_disp), _stream(field.device))
+            float(max_disp), R, *plan, _stream(field.device))
     _raise_on(rc, "advect_bwd_fused")
     LAUNCHES["bwd_fused"] += 1
     return grad_field, grad_s

@@ -1,5 +1,6 @@
 """nfs_tpu_torch advection (K1-K3b plain twins, the window-tap sum and
-MacCormack) against the JAX package on the CPU.
+MacCormack) against the JAX package on the CPU, and the shared-memory
+tile plan of the K2 / K3b kernels.
 
 Inputs are made with numpy from a seed and fed to both sides. The JAX
 side is ``advect(impl='xla')`` (the XLA window sum) and ``advect_pallas``
@@ -84,7 +85,7 @@ def _assert_match(got, want):
     np.testing.assert_allclose(gv, want[2], atol=GRAD_ATOL)
 
 
-@pytest.mark.parametrize("max_disp", [1.0, 2.0])
+@pytest.mark.parametrize("max_disp", [1.0, 2.0, 3.0, 1.5])
 @pytest.mark.parametrize("kind", ["random", "clamped", "zero", "integer",
                                   "boundary"])
 def test_kernel_path_matches_xla_window(kind, max_disp):
@@ -272,3 +273,44 @@ def test_fused_wrapper_checks_inputs():
     gf, gs = ak.advect_bwd_fused(ft, vt, gt, 2.0)  # CPU: plain, no launch
     assert ak.LAUNCHES == before
     assert gf.shape == (4, 5, 6) and gs.shape == (4, 5, 6, 3)
+
+
+def _staged_bytes(R, tile, fused):
+    """advect.cu's shared memory for K2 / K3b, written out independently:
+    s_z, s_y, s_x and g (4 floats) per source of the tile with its
+    R-halo, and for K3b f over the tile with an (R+1)-halo."""
+    tz, ty, tx = tile
+    sources = (tz + 2 * R) * (ty + 2 * R) * (tx + 2 * R)
+    f = (tz + 2 * R + 2) * (ty + 2 * R + 2) * (tx + 2 * R + 2)
+    return 16 * sources + (4 * f if fused else 0)
+
+
+@pytest.mark.parametrize("R", range(9))
+def test_pull_plan_fits_shared_memory(R):
+    """The tile K2 and K3b stage at radius R: the staged bytes follow the
+    formula, fit in the H100's 232 448 B a block may use, and the tile
+    covers at least one cell with whole threads of CELLS_X cells, at
+    most 1024 of them; the wrapper's formula agrees."""
+    for fused in (False, True):
+        if R > 7 + (not fused):
+            continue  # past the plan's limit (next test)
+        tz, ty, tx, nbytes = ak._pull_plan(R, fused)
+        assert min(tz, ty, tx) >= 1 and tx % ak.CELLS_X == 0
+        assert tz * ty * tx // ak.CELLS_X <= 1024
+        assert nbytes == _staged_bytes(R, (tz, ty, tx), fused)
+        assert nbytes == ak._staged_bytes(R, (tz, ty, tx), fused)
+        assert nbytes <= 232_448
+        if _staged_bytes(R, ak.PULL_TILE, fused) <= 232_448:
+            assert (tz, ty, tx) == ak.PULL_TILE
+        else:  # shrunk in z, then y, never in x
+            assert tx == ak.PULL_TILE[2] and tz < ak.PULL_TILE[0]
+
+
+def test_pull_plan_raises_past_its_limit():
+    """K2 takes R up to 8 and K3b up to 7; past that even a 1 x 1 x 24
+    tile does not fit, and the plan raises instead of falling back."""
+    assert ak._pull_plan(8)[:3] == (1, 4, 24)
+    assert ak._pull_plan(7, fused=True)[:3] == (1, 4, 24)
+    for R, fused in ((9, False), (8, True), (12, False), (-1, False)):
+        with pytest.raises(ValueError):
+            ak._pull_plan(R, fused)

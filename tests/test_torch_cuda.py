@@ -117,6 +117,101 @@ def test_fused_kernel_matches_plain_and_split(cuda_device, kind, max_disp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "integer", "zero"])
+@pytest.mark.parametrize("max_disp", [0.0, 1.0, 1.5, 3.0, 4.0])
+@pytest.mark.parametrize("shape", [(13, 7, 37), (1, 1, 5), (3, 64, 2)])
+def test_pull_kernels_on_ragged_tiles(cuda_device, shape, max_disp, kind):
+    """K2 and K3b (shared-memory tiles, R = 0-4) on shapes that are not
+    multiples of the tile or are smaller than its halo: against their
+    plain versions, K3b against K2 + K3 exactly, and two launches
+    bitwise equal (no atomics)."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(kind, max(max_disp, 0.5), shape, seed=9))
+    gf = ak.advect_bwd_field(v, g, max_disp)
+    fused = ak.advect_bwd_fused(f, v, g, max_disp)
+    torch.testing.assert_close(gf, ak.advect_bwd_field_plain(v, g, max_disp),
+                               atol=GRAD_ATOL, rtol=0)
+    for got, want in zip(fused, ak.advect_bwd_fused_plain(f, v, g,
+                                                          max_disp)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    assert torch.equal(fused[0], gf)
+    assert torch.equal(fused[1], ak.advect_bwd_vel(f, v, g, max_disp))
+    assert torch.equal(ak.advect_bwd_field(v, g, max_disp), gf)
+    again = ak.advect_bwd_fused(f, v, g, max_disp)
+    assert torch.equal(again[0], fused[0]) and torch.equal(again[1],
+                                                           fused[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", range(10))
+def test_pull_kernels_every_radius_of_the_plan(cuda_device, R):
+    """Every radius the tile plan takes runs on the card (K2 to R = 8,
+    K3b to R = 7, the largest on a shrunk tile); one more raises
+    ValueError and launches nothing."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs("random", max(R, 0.5), (13, 7, 37), seed=R))
+    md = float(R)
+    before = dict(ak.LAUNCHES)
+    if R <= 8:
+        torch.testing.assert_close(ak.advect_bwd_field(v, g, md),
+                                   ak.advect_bwd_field_plain(v, g, md),
+                                   atol=GRAD_ATOL, rtol=0)
+        assert ak.LAUNCHES["bwd_field"] == before["bwd_field"] + 1
+    else:
+        with pytest.raises(ValueError):
+            ak.advect_bwd_field(v, g, md)
+        assert ak.LAUNCHES == before
+    before = dict(ak.LAUNCHES)
+    if R <= 7:
+        for got, want in zip(ak.advect_bwd_fused(f, v, g, md),
+                             ak.advect_bwd_fused_plain(f, v, g, md)):
+            torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+        assert ak.LAUNCHES["bwd_fused"] == before["bwd_fused"] + 1
+    else:
+        with pytest.raises(ValueError):
+            ak.advect_bwd_fused(f, v, g, md)
+        assert ak.LAUNCHES == before
+
+
+def _pull_on_tile(f, g, v, max_disp, tile, fused):
+    """K2 (``fused=False``) or K3b launched through the C interface on a
+    given (TZ, TY, TX) tile instead of the plan's."""
+    lib = ak.load_library()
+    D, H, W = g.shape
+    R = ak._radius(max_disp)
+    nbytes = ak._staged_bytes(R, tile, fused)
+    stream = ak._stream(g.device)
+    gf = torch.empty_like(g)
+    if not fused:
+        ak._raise_on(lib.nfs_advect_bwd_field(
+            v.data_ptr(), g.data_ptr(), gf.data_ptr(), D, H, W, max_disp, R,
+            *tile, nbytes, stream), "advect_bwd_field")
+        return (gf,)
+    gs = torch.empty_like(v)
+    ak._raise_on(lib.nfs_advect_bwd_fused(
+        f.data_ptr(), v.data_ptr(), g.data_ptr(), gf.data_ptr(),
+        gs.data_ptr(), D, H, W, max_disp, R, *tile, nbytes, stream),
+        "advect_bwd_fused")
+    return gf, gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(2, 8, 48), (1, 1, 3), (8, 8, 12)])
+@pytest.mark.parametrize("max_disp", [2.0, 3.0])
+def test_pull_kernels_same_bits_on_any_tile(cuda_device, tile, max_disp):
+    """K2 and K3b sum every cell's sources in the same order whatever the
+    tile: another tile (one over the 48 KB that needs no opt-in among
+    them) gives the plan's bits."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs("random", max_disp, (13, 7, 37), seed=5))
+    assert torch.equal(_pull_on_tile(f, g, v, max_disp, tile, False)[0],
+                       ak.advect_bwd_field(v, g, max_disp))
+    for got, want in zip(_pull_on_tile(f, g, v, max_disp, tile, True),
+                         ak.advect_bwd_fused(f, v, g, max_disp)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_fused_backward_on_gpu_matches_split(cuda_device, monkeypatch):
     """AdvectWindow's backward with FUSED_BWD (one K3b launch) against the
     split backward (K2 and K3) on the GPU."""
