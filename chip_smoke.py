@@ -9,23 +9,29 @@ Phases, each printing one JSON line:
    (``nfs_tpu_torch``) beside the script; prints the card's name and the
    ``nvidia-smi`` name and power limit.
 2. build   — compiles ``nfs_tpu_torch/csrc/advect.cu`` and
-   ``binsplat.cu`` with nvcc for sm_90a into ``build/nfs_tpu_torch/``,
-   both at once, and loads them.
+   ``binsplat.cu`` with nvcc for sm_90a and ``ops.cpp`` (the operators
+   ``torch.ops.nfs_tpu_torch.*`` the wrappers launch through) with g++
+   against torch's headers into ``build/nfs_tpu_torch/``, all three at
+   once, links the operators to the kernels and loads them.
 3. kernels — every kernel against its plain PyTorch version on the card,
    at the main paths' shapes: K1-K3b at 112x64x112 (random, clamped,
    integer-valued and zero velocities at max_disp 2 and 1, random at
-   max_disp 3, the density slice's smooth swirl), K2 and K3b also
+   max_disp 3, the density slice's smooth swirl), K1, K2 and K3b also
    launched twice (bitwise equal) and K3b against K2 + K3 launched
    separately (exactly equal); K4-K5 on the particle path's
    finest octave (200 000 particles of the particles_3d bench binned at
    96x64x96 with the styler's own capacity K: as binned, drifted +-0.5
-   cell, crowded past K = 2, integer positions). Each kernel, its plain
+   cell, crowded past K = 2, integer positions), K4 also launched twice
+   (bitwise equal). Each kernel, its plain
    version and the one PyTorch library call that computes the same
    function, where there is one, are timed: ``ms`` is the median of 30
    single calls between two CUDA events (the host's work to launch
    included), ``device_ms`` the median of 30 runs of 10 calls queued
-   behind a device sleep (device time only); K2 and K3b also at
-   max_disp 3 and on the swirl.
+   behind a device sleep (device time only), ``host_us`` the host's
+   microseconds per call of the kernel's wrapper or the library call
+   (100 calls behind a device sleep, median of 5 batches: the checks,
+   allocation and launch alone); K2 and K3b also at max_disp 3 and on
+   the swirl.
    reference — small runs of the grid and particle slices on the GPU
    against the same runs on the CPU (plain versions; the CPU port is held
    against the JAX package by the tests).
@@ -144,19 +150,18 @@ def phase_device():
 
 
 def phase_build():
-    """Both libraries, one nvcc each, started together."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from nfs_tpu_torch.ops import advect_kernels as ak
-    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    """The two kernel libraries (one nvcc each) and the operator library
+    (g++ against torch's headers), the three compiles started together,
+    then linked and loaded."""
+    from nfs_tpu_torch.ops import _cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        sos = list(pool.map(lambda m: m.build_library(), (ak, bk)))
-    ak.load_library()
-    bk.load_library()
+    ops = _cuda_build.build_operators()
+    _cuda_build.load_operators()
+    libs = [_cuda_build.library_path(_cuda_build.CSRC / src, stem)
+            for src, stem in _cuda_build.KERNEL_SOURCES] + [ops]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [os.path.relpath(so) for so in sos]})
+          "libraries": [os.path.relpath(so) for so in libs]})
 
 
 def _bound(nbytes: float, ops: float):
@@ -230,6 +235,37 @@ def _device_ms(fn, runs: int = 30, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def _host_us(fn, calls: int = 100, batches: int = 5) -> float:
+    """Host microseconds per call of ``fn`` (the wrapper's checks,
+    allocation and launch): the median over ``batches`` of ``calls`` calls
+    timed with ``perf_counter_ns`` while the device is held behind a
+    device sleep, so that no call waits on the device. A batch that the
+    device caught up with is run again behind a sleep twice as long."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    cycles, per_call = 50_000_000, []
+    while len(per_call) < batches:
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter_ns()
+        caught_up = stream.query()
+        torch.cuda.synchronize()
+        if not caught_up:
+            per_call.append((t1 - t0) / calls / 1e3)
+        elif cycles < 2_000_000_000:
+            cycles *= 2
+        else:
+            raise AssertionError("the device caught up with the host even "
+                                 "behind a 1 s sleep")
+    return statistics.median(per_call)
 
 
 def _max_err(a, b) -> float:
@@ -309,8 +345,8 @@ def phase_kernels(card: str):
                     f"{key} disagrees with its plain twin on case "
                     f"{case} max_disp={md}: {err} > {TOL[key]}")
             errs[key] = max(errs[key], err)
-            # the pull kernels are deterministic: no atomics
-            if key in ("bwd_field", "bwd_fused") and not _equal(
+            # K1 and the pull kernels are deterministic: no atomics
+            if key in ("fwd", "bwd_field", "bwd_fused") and not _equal(
                     out_k, kern(f, g, v, md)):
                 raise AssertionError(f"{key}: two launches differ on case "
                                      f"{case} max_disp={md}")
@@ -350,8 +386,9 @@ def phase_kernels(card: str):
 def _time_advect(key: str, case: str, md: float, card: str) -> dict:
     """Kernel, plain version and library call of one advection kernel on
     seed-99 inputs, each timed with :func:`_median_ms`, the kernel and
-    the library call also with :func:`_device_ms`, and the least time;
-    emits a kernel_time line and returns its numbers."""
+    the library call also with :func:`_device_ms` and :func:`_host_us`,
+    and the least time; emits a kernel_time line and returns its
+    numbers."""
     kern, plain = _advect_pairs()[key]
     f, g, v = _cuda_inputs(case, md, seed=99)
     n = math.prod(SHAPE)
@@ -362,7 +399,9 @@ def _time_advect(key: str, case: str, md: float, card: str) -> dict:
          "plain_ms": _median_ms(lambda: plain(f, g, v, md)),
          "library_ms": _median_ms(library),
          "device_ms": _device_ms(lambda: kern(f, g, v, md)),
-         "library_device_ms": _device_ms(library)}
+         "library_device_ms": _device_ms(library),
+         "host_us": _host_us(lambda: kern(f, g, v, md)),
+         "library_host_us": _host_us(library)}
     t["bound_ms"], t["bound_by"] = _bound(4 * io_floats[key],
                                           OPS_PER_ELEMENT[key] * n)
     name = next(nm for k, nm, _ in KERNELS if k == key)
@@ -429,6 +468,15 @@ def _bin_inputs(case: str, K: int, seed: int):
     return a4, p4, g, int(bn.valid.sum()), int(bn.n_overflow)
 
 
+def _sectors(t, index) -> int:
+    """The 32-byte sectors of the contiguous float32 tensor ``t`` that
+    hold at least one of its elements at the flat ``index``."""
+    import torch
+
+    lead = (t.data_ptr() % 32) // 4
+    return int(torch.unique((index + lead) // 8).numel())
+
+
 def _bench_particles(rng) -> np.ndarray:
     return (rng.random((P_COUNT, 3)) * np.array([80, 48, 80])
             + np.array([8, 8, 8])).astype(np.float32)
@@ -445,9 +493,13 @@ def phase_bin_kernels(card: str, K: int):
     for n, case in enumerate(("binned", "drifted", "crowded", "integer")):
         k = 2 if case == "crowded" else K
         a4, p4, g, occupied, parked = _bin_inputs(case, k, seed=n)
+        out = bk.binsplat_fwd(a4, *p4)
+        # K4 pulls without atomics: two launches agree bitwise
+        if not _equal(out, bk.binsplat_fwd(a4, *p4)):
+            raise AssertionError(f"binsplat fwd: two launches differ on "
+                                 f"case {case}")
         case_err = {
-            "fwd": float((bk.binsplat_fwd(a4, *p4)
-                          - bk.window_fwd_plain(a4, *p4)).abs().max()),
+            "fwd": float((out - bk.window_fwd_plain(a4, *p4)).abs().max()),
             "bwd": max(float((x - y).abs().max()) for x, y in zip(
                 bk.binsplat_bwd(a4, *p4, g),
                 bk.window_bwd_plain(a4, *p4, g)))}
@@ -460,7 +512,8 @@ def phase_bin_kernels(card: str, K: int):
             errs[key] = max(errs[key], err)
         emit({"phase": "kernels", "case": case, "K": k,
               "occupied_slots": occupied, "parked": parked,
-              "max_abs_err": case_err, "tol": BIN_TOL})
+              "max_abs_err": case_err, "fwd_bitwise_repeat": True,
+              "tol": BIN_TOL})
 
     a4, p4, g, occupied, _ = _bin_inputs("binned", K, seed=99)
     slots, cells = a4.numel(), g.numel()
@@ -468,8 +521,14 @@ def phase_bin_kernels(card: str, K: int):
                      lambda: bk.window_fwd_plain(a4, *p4)),
              "bwd": (lambda: bk.binsplat_bwd(a4, *p4, g),
                      lambda: bk.window_bwd_plain(a4, *p4, g))}
-    # least bytes: each input read once, each output written once
-    work = {"fwd": (4 * (4 * slots + cells),
+    # least bytes: each input the function needs read once, each output
+    # written once. K4's sum does not depend on an empty slot's (a == 0)
+    # positions, so it needs a of every slot but the positions only in
+    # the 32-byte sectors that hold an occupied slot; K5's da of an empty
+    # slot does depend on its positions, so it needs them all.
+    occ = (a4 != 0).reshape(-1).nonzero().squeeze(1)
+    pos_sectors = sum(_sectors(p, occ) for p in p4)
+    work = {"fwd": (4 * (slots + cells) + 32 * pos_sectors,
                     OPS_PER_ELEMENT["binsplat_fwd"] * occupied),
             "bwd": (4 * (8 * slots + cells),
                     OPS_PER_ELEMENT["binsplat_bwd"] * slots)}
@@ -479,6 +538,7 @@ def phase_bin_kernels(card: str, K: int):
         ms = _median_ms(kern)
         plain_ms = _median_ms(plain)
         device_ms = _device_ms(kern)
+        host_us = _host_us(kern)
         bound_ms, bound_by = _bound(*work[key])
         records.append({"name": name, "route": "cuda",
                         "source": "nfs_tpu_torch/csrc/binsplat.cu",
@@ -486,11 +546,13 @@ def phase_bin_kernels(card: str, K: int):
                         "max_abs_err": errs[key], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None,
-                        "device_ms": device_ms, "library_device_ms": None})
+                        "device_ms": device_ms, "library_device_ms": None,
+                        "host_us": host_us, "library_host_us": None})
         emit({"phase": "kernel_time", "kernel": name, "K": K,
               "padded_grid": list(g.shape), "occupied_slots": occupied,
               "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-              "bound_ms": bound_ms, "card": card})
+              "host_us": host_us, "bound_ms": bound_ms,
+              "least_bytes": work[key][0], "card": card})
     return records
 
 
@@ -1323,7 +1385,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{rec['name']} never launched")
             if not all(math.isfinite(rec[k]) for k in
                         ("max_abs_err", "ms", "plain_ms", "device_ms",
-                         "bound_ms")):
+                         "host_us", "bound_ms")):
                 raise AssertionError(f"bad numbers in {rec}")
     emit({"kernels": records + bin_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

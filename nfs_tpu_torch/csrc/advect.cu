@@ -22,9 +22,21 @@
 // slab because the TPU has no fast gather. On Hopper a gather through L1
 // is cheap, so K1 and K3 touch only the taps whose weight can be nonzero:
 // 8 corners for K1, 27 taps for K3 (s_a - 1 .. s_a + 1 around floor(s_a);
-// the tap at floor + 2 always has |u| > 1), one thread per cell,
-// neighbouring threads on neighbouring x. Both are bound by memory on the
-// H100 (one read of vel and g, 8 / 27 mostly-L1 reads of f, one write).
+// the tap at floor + 2 always has |u| > 1), neighbouring threads on
+// neighbouring x. K3 takes one thread per cell over the flat index and
+// is bound by memory on the H100 (one read of vel and g, 27 mostly-L1
+// reads of f, one write).
+//
+// K1 was first written that way too, and spent its issue slots on three
+// 64-bit divisions per cell and loop guards (PERF.md: 32% of its least
+// time). It now runs a 2D launch with 32-bit indices: a thread owns one
+// (y, x) and kFwdCellsZ cells along z, loads all their displacements
+// before it gathers, and clamps its upper corners instead of guarding
+// them. It
+// runs at ~40% of its least time, random and smooth displacements within
+// 10% of each other; staging f with its halo in shared memory lost to
+// the gather through L1 in every tile tried (PERF.md), so f is read
+// through L1.
 //
 // K2 and K3b pull: cell j sums over the (2R+1)^3 source cells i within
 // R = ceil(max_disp) of it (a source further away backtraces to
@@ -58,6 +70,10 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
+#include "launch.cuh"
+
 namespace {
 
 __device__ __forceinline__ float tent(float u) {
@@ -84,37 +100,76 @@ __device__ __forceinline__ float backtrace(int i, float v, float max_disp,
 // for every cell j, and its g is 0.
 constexpr float kOutside = -1.0e30f;
 
+// K1's launch: blocks of kFwdThreads threads along the (y, x) plane, each
+// thread taking kFwdCellsZ cells along z (PERF.md gives the launches
+// tried).
+constexpr int kFwdThreads = 512;
+constexpr int kFwdCellsZ = 2;
+
+// K1: a thread owns one (y, x) of the plane and kFwdCellsZ cells along z
+// at it (blockIdx.y numbers the runs of kFwdCellsZ planes). Neighbouring
+// lanes take neighbouring x, so every load of vel and every corner gather
+// of f is coalesced across the warp as far as the displacement allows. The
+// thread loads the displacements of all its cells before it gathers, so
+// their loads are in flight together. Indices are 32-bit (one division by
+// W per thread); the entry point refuses D * H or H * W past INT_MAX. The
+// upper corner's index is clamped instead of guarded: it leaves the grid
+// only where s == n - 1, whose weight there is exactly 0, so the term
+// adds +-0 and, for finite f, the sum keeps the bits of a loop that skips
+// it (a sum that starts at +0 never becomes -0). The arithmetic is that
+// of the one-thread-per-cell kernel this replaces: wzy = wz * wy, then
+// acc += (wzy * wx) * f in (zc, yc, xc) order.
 __global__ void advect_fwd_kernel(const float* __restrict__ field,
                                   const float* __restrict__ vel,
                                   float* __restrict__ out, int D, int H,
                                   int W, float max_disp) {
-  const long long n = static_cast<long long>(D) * H * W;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % W);
-  const int y = static_cast<int>((idx / W) % H);
-  const int z = static_cast<int>(idx / (static_cast<long long>(W) * H));
-  const float sz = backtrace(z, vel[3 * idx + 0], max_disp, D);
-  const float sy = backtrace(y, vel[3 * idx + 1], max_disp, H);
-  const float sx = backtrace(x, vel[3 * idx + 2], max_disp, W);
-  // s lies in [0, n-1], so floor(s) is a valid index and only the upper
-  // corner can fall outside (then s == n-1 exactly and its weight is 0).
-  const int z0 = static_cast<int>(floorf(sz));
-  const int y0 = static_cast<int>(floorf(sy));
-  const int x0 = static_cast<int>(floorf(sx));
-  float acc = 0.0f;
-  for (int zc = z0; zc <= z0 + 1 && zc < D; ++zc) {
-    const float wz = tent(sz - static_cast<float>(zc));
-    for (int yc = y0; yc <= y0 + 1 && yc < H; ++yc) {
-      const float wzy = wz * tent(sy - static_cast<float>(yc));
-      const float* row = field + (static_cast<long long>(zc) * H + yc) * W;
-      for (int xc = x0; xc <= x0 + 1 && xc < W; ++xc) {
-        acc += wzy * tent(sx - static_cast<float>(xc)) * row[xc];
+  const int plane = H * W;
+  const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (p >= plane) return;
+  const int y = p / W;
+  const int x = p - y * W;
+  const int z_begin = static_cast<int>(blockIdx.y) * kFwdCellsZ;
+  float v[kFwdCellsZ][3];
+#pragma unroll
+  for (int j = 0; j < kFwdCellsZ; ++j) {
+    // a cell past the last plane loads the last plane's displacement and
+    // stores nothing
+    const long long i =
+        static_cast<long long>(min(z_begin + j, D - 1)) * plane + p;
+    v[j][0] = vel[3 * i + 0];
+    v[j][1] = vel[3 * i + 1];
+    v[j][2] = vel[3 * i + 2];
+  }
+#pragma unroll
+  for (int j = 0; j < kFwdCellsZ; ++j) {
+    const int z = z_begin + j;
+    if (z >= D) break;
+    const float sz = backtrace(z, v[j][0], max_disp, D);
+    const float sy = backtrace(y, v[j][1], max_disp, H);
+    const float sx = backtrace(x, v[j][2], max_disp, W);
+    // s lies in [0, n-1], so floor(s) is a valid index
+    const int z0 = static_cast<int>(floorf(sz));
+    const int y0 = static_cast<int>(floorf(sy));
+    const int x0 = static_cast<int>(floorf(sx));
+    float acc = 0.0f;
+#pragma unroll
+    for (int zc = z0; zc <= z0 + 1; ++zc) {
+      const float wz = tent(sz - static_cast<float>(zc));
+      const int zi = min(zc, D - 1);
+#pragma unroll
+      for (int yc = y0; yc <= y0 + 1; ++yc) {
+        const float wzy = wz * tent(sy - static_cast<float>(yc));
+        const float* row =
+            field + static_cast<long long>(zi * H + min(yc, H - 1)) * W;
+#pragma unroll
+        for (int xc = x0; xc <= x0 + 1; ++xc) {
+          acc += wzy * tent(sx - static_cast<float>(xc)) *
+                 row[min(xc, W - 1)];
+        }
       }
     }
+    out[static_cast<long long>(z) * plane + p] = acc;
   }
-  out[idx] = acc;
 }
 
 struct Grad3 {
@@ -405,6 +460,7 @@ __global__ void advect_bwd_fused_kernel(const float* __restrict__ field,
   }
 }
 
+// K3: one thread per cell over the flat index.
 constexpr int kThreads = 256;
 
 unsigned int blocks_for(int D, int H, int W) {
@@ -439,18 +495,28 @@ cudaError_t tile_launch(const void* kernel, int D, int H, int W, int R,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). Each launches on the given
-// stream, does not synchronise, and returns cudaGetLastError() (or the
-// error that refused the launch).
+// Plain C entry points, called by the operators of ops.cpp once they have
+// checked the tensors. Each launches on ``stream`` of CUDA device
+// ``device`` (made current for the launch when it is not already), does
+// not synchronise, and returns cudaGetLastError() (or the error that
+// refused the launch).
 extern "C" {
 
 int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
-                   int H, int W, float max_disp, void* stream) {
-  advect_fwd_kernel<<<blocks_for(D, H, W), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(field), static_cast<const float*>(vel),
-      static_cast<float*>(out), D, H, W, max_disp);
-  return static_cast<int>(cudaGetLastError());
+                   int H, int W, float max_disp, int device, void* stream) {
+  if (static_cast<long long>(H) * W > INT_MAX ||
+      static_cast<long long>(D) * H > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return nfs::on_device(device, [&] {
+    const dim3 grid((H * W + kFwdThreads - 1) / kFwdThreads,
+                    (D + kFwdCellsZ - 1) / kFwdCellsZ);
+    advect_fwd_kernel<<<grid, kFwdThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(field), static_cast<const float*>(vel),
+        static_cast<float*>(out), D, H, W, max_disp);
+    return cudaGetLastError();
+  });
 }
 
 // K2 with a TZ x TY x TX tile and ``smem_bytes`` of dynamic shared
@@ -458,28 +524,33 @@ int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
 // with its R-halo.
 int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
                          int D, int H, int W, float max_disp, int R, int TZ,
-                         int TY, int TX, int smem_bytes, void* stream) {
-  dim3 grid, block;
-  const cudaError_t err = tile_launch(
-      reinterpret_cast<const void*>(advect_bwd_field_kernel), D, H, W, R, TZ,
-      TY, TX, smem_bytes, &grid, &block);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  advect_bwd_field_kernel<<<grid, block, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vel), static_cast<const float*>(g),
-      static_cast<float*>(grad_field), D, H, W, max_disp, R);
-  return static_cast<int>(cudaGetLastError());
+                         int TY, int TX, int smem_bytes, int device,
+                         void* stream) {
+  return nfs::on_device(device, [&] {
+    dim3 grid, block;
+    const cudaError_t err = tile_launch(
+        reinterpret_cast<const void*>(advect_bwd_field_kernel), D, H, W, R,
+        TZ, TY, TX, smem_bytes, &grid, &block);
+    if (err != cudaSuccess) return err;
+    advect_bwd_field_kernel<<<grid, block, smem_bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(vel), static_cast<const float*>(g),
+        static_cast<float*>(grad_field), D, H, W, max_disp, R);
+    return cudaGetLastError();
+  });
 }
 
 int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
                        void* grad_s, int D, int H, int W, float max_disp,
-                       void* stream) {
-  advect_bwd_vel_kernel<<<blocks_for(D, H, W), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(field), static_cast<const float*>(vel),
-      static_cast<const float*>(g), static_cast<float*>(grad_s), D, H, W,
-      max_disp);
-  return static_cast<int>(cudaGetLastError());
+                       int device, void* stream) {
+  return nfs::on_device(device, [&] {
+    advect_bwd_vel_kernel<<<blocks_for(D, H, W), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(field), static_cast<const float*>(vel),
+        static_cast<const float*>(g), static_cast<float*>(grad_s), D, H, W,
+        max_disp);
+    return cudaGetLastError();
+  });
 }
 
 // K3b with a TZ x TY x TX tile; ``smem_bytes`` K2's and 4 bytes per cell
@@ -487,18 +558,20 @@ int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
 int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
                          void* grad_field, void* grad_s, int D, int H, int W,
                          float max_disp, int R, int TZ, int TY, int TX,
-                         int smem_bytes, void* stream) {
-  dim3 grid, block;
-  const cudaError_t err = tile_launch(
-      reinterpret_cast<const void*>(advect_bwd_fused_kernel), D, H, W, R, TZ,
-      TY, TX, smem_bytes, &grid, &block);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  advect_bwd_fused_kernel<<<grid, block, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(field), static_cast<const float*>(vel),
-      static_cast<const float*>(g), static_cast<float*>(grad_field),
-      static_cast<float*>(grad_s), D, H, W, max_disp, R);
-  return static_cast<int>(cudaGetLastError());
+                         int smem_bytes, int device, void* stream) {
+  return nfs::on_device(device, [&] {
+    dim3 grid, block;
+    const cudaError_t err = tile_launch(
+        reinterpret_cast<const void*>(advect_bwd_fused_kernel), D, H, W, R,
+        TZ, TY, TX, smem_bytes, &grid, &block);
+    if (err != cudaSuccess) return err;
+    advect_bwd_fused_kernel<<<grid, block, smem_bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(field), static_cast<const float*>(vel),
+        static_cast<const float*>(g), static_cast<float*>(grad_field),
+        static_cast<float*>(grad_s), D, H, W, max_disp, R);
+    return cudaGetLastError();
+  });
 }
 
 }  // extern "C"

@@ -22,25 +22,38 @@
 //
 // Design. The TPU kernels keep a z-slab of the bins in VMEM and the output
 // block resident across a sequential k grid dimension. On Hopper blocks
-// run in no order, so both kernels are one thread per output element with
-// the k and tap loops inside the thread, and neither uses atomics: the
-// results are deterministic, which bit-exact resume will need.
-//   K4 pulls: one thread per padded cell q reads the 27 bins q - off of
-//   every rank k. Neighbouring threads read neighbouring x, so a warp's
-//   reads coalesce and the 27-fold re-reads of a bin mostly hit L1/L2. An
-//   empty slot (a == 0) contributes exactly 0 and is skipped: at the
-//   particles_3d finest octave ~7% of the slots hold a particle.
+// run in no order, so the k loop runs inside the thread, and neither
+// kernel uses atomics: the results are deterministic, which bit-exact
+// resume needs.
+//   K4 pulls. Its first version took one thread per padded cell reading
+//   the 27 bins q - off of every rank from device memory. Only ~7% of the slots
+//   hold a particle at the particles_3d finest octave, yet some lane of a
+//   warp nearly always did, so every warp ran the full weight arithmetic
+//   for each of its 27 K slots, each slot's weights recomputed up to 27
+//   times: bound by issued instructions, at 8.6% of its least time.
+//   Staging a tile's bins, one rank at a time, with their weights in
+//   shared memory (the natural translation of the TPU's VMEM slab) ran at
+//   0.09-0.12 ms whatever was tried: 52-72 B per staged slot left one or
+//   two blocks, 4-8 warps, per SM, and the time followed the warps per SM
+//   (PERF.md). So K4 keeps nothing in shared memory: a warp owns a row of
+//   30 cells along x, a lane a column of cells along z, and the lane
+//   walks the slots of its own column (one load of a per slot and row),
+//   computes its slot's weights once per row of slots and hands
+//   ((w_z * w_y) * w_x) and a to the two lanes beside it by shuffle. Each
+//   slot's weights are computed 3 times (once per row of cells it
+//   reaches), not 27, a row of slots that is empty across the warp is
+//   skipped, and 40 registers a thread keep ~48 warps per SM in flight.
+//   Issued instructions and the latency of the loads of a then bound it.
 //   K5 gathers, as the TPU kernel does: one thread per slot (k, b)
 //   evaluates 3 weights and 3 derivatives per axis once and reads the 27
 //   cotangents g[b + off] (g is one (Z, Y, X) grid, small enough to stay
-//   in L2).
-// Bound on the H100: both are memory-bound at the main path's shapes (K4
-// moves 4 bin arrays in and one grid out, K5 4 bin arrays + g in and 4
-// bin arrays out; a few hundred flops per slot are far below the f32
-// rate). A shared-memory tile of bins with its 2-cell low halo and the 9
-// weights precomputed per bin is the next step for K4.
+//   in L2); memory-bound (4 bin arrays + g in, 4 bin arrays out).
 
 #include <cuda_runtime.h>
+
+#include <climits>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -66,44 +79,103 @@ __device__ __forceinline__ float dw1d(float u) {
   return 0.0f;
 }
 
-__global__ void binsplat_fwd_kernel(const float* __restrict__ a,
-                                    const float* __restrict__ pz,
-                                    const float* __restrict__ py,
-                                    const float* __restrict__ px,
-                                    float* __restrict__ out, int K, int Z,
-                                    int Y, int X) {
+// ---------------------------------------------------------------------
+// K4: a warp owns kLanesX output cells along x (its 32 lanes cover them
+// and the 2 bins below them), a lane one column of kCellsZ cells along z;
+// a block holds kRows warps, one per row y (PERF.md gives the launches
+// tried). No shared memory and no barrier, so the SM keeps as many warps
+// in flight as registers allow; the launch bounds ask for kWarpsPerSm
+// warps per SM, which holds a thread to 40 registers.
+// ---------------------------------------------------------------------
+
+constexpr int kLanesX = 30;
+constexpr int kRows = 4;
+constexpr int kCellsZ = 4;
+constexpr int kWarpsPerSm = 48;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// out[q] for this lane's cells (z0 + j, y, x), j < kCellsZ, summed in
+// the order of the one-thread-per-cell version this replaces: rank k,
+// then oz, oy, ox ascending, each term ((w_z * w_y) * w_x) * a. The lane
+// visits the slots (bz, y - oy, x) of its own column, bz descending from
+// the top cell down to z0 - 2, so a cell meets its slots in ascending oz;
+// for each it computes the slot's weights once and takes
+// ((w_z * w_y) * w_x) and a of the slots x - 1 and x - 2 from the lanes
+// beside it. A row of slots that holds no particle
+// in the whole warp adds only +0 terms and is skipped; an empty slot's
+// positions are not read (empty and parked slots may hold any position).
+// Deterministic, no atomics.
+__global__ void __launch_bounds__(32 * kRows, kWarpsPerSm / kRows)
+    binsplat_fwd_kernel(const float* __restrict__ a,
+                        const float* __restrict__ pz,
+                        const float* __restrict__ py,
+                        const float* __restrict__ px,
+                        float* __restrict__ out, int K, int Z, int Y,
+                        int X) {
+  const int lane = static_cast<int>(threadIdx.x);
+  const int x = static_cast<int>(blockIdx.x) * kLanesX - 2 + lane;
+  const int y = static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
+  const int z0 = static_cast<int>(blockIdx.z) * kCellsZ;
+  if (y >= Y) return;  // the whole warp: all its lanes share y
+  const bool column = x >= 0 && x < X;
   const long long cells = static_cast<long long>(Z) * Y * X;
-  const long long q =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= cells) return;
-  const int qx = static_cast<int>(q % X);
-  const int qy = static_cast<int>((q / X) % Y);
-  const int qz = static_cast<int>(q / (static_cast<long long>(X) * Y));
-  float acc = 0.0f;
+  float acc[kCellsZ];
+#pragma unroll
+  for (int j = 0; j < kCellsZ; ++j) acc[j] = 0.0f;
   for (int k = 0; k < K; ++k) {
-    const long long kbase = static_cast<long long>(k) * cells;
-    for (int oz = 0; oz < 3 && qz - oz >= 0; ++oz) {
-      const int bz = qz - oz;
-      for (int oy = 0; oy < 3 && qy - oy >= 0; ++oy) {
-        const int by = qy - oy;
-        const long long row =
-            kbase + (static_cast<long long>(bz) * Y + by) * X;
-        for (int ox = 0; ox < 3 && qx - ox >= 0; ++ox) {
-          const int bx = qx - ox;
-          const long long i = row + bx;
-          const float av = a[i];
-          if (av == 0.0f) continue;
+    const long long rank = k * cells;
+#pragma unroll
+    for (int t = kCellsZ + 1; t >= 0; --t) {
+      const int bz = z0 - 2 + t;
+#pragma unroll
+      for (int oy = 0; oy < 3; ++oy) {
+        const int by = y - oy;
+        const bool in = column && bz >= 0 && bz < Z && by >= 0;
+        const long long i =
+            rank + (in ? static_cast<long long>(bz * Y + by) * X + x : 0);
+        float av = a[i];
+        if (!in) av = 0.0f;
+        if (!__any_sync(kFullWarp, av != 0.0f)) continue;
+        float wx[3] = {0.0f, 0.0f, 0.0f};
+        float wzy[3] = {0.0f, 0.0f, 0.0f};
+        if (av != 0.0f) {
           const float fz = pz[i] + kPad - static_cast<float>(bz);
           const float fy = py[i] + kPad - static_cast<float>(by);
-          const float fx = px[i] + kPad - static_cast<float>(bx);
-          acc += w1d(static_cast<float>(oz) - fz) *
-                 w1d(static_cast<float>(oy) - fy) *
-                 w1d(static_cast<float>(ox) - fx) * av;
+          const float fx = px[i] + kPad - static_cast<float>(x);
+          const float wy = w1d(static_cast<float>(oy) - fy);
+#pragma unroll
+          for (int o = 0; o < 3; ++o) {
+            wx[o] = w1d(static_cast<float>(o) - fx);
+            // cell z0 + t - 2 + o takes this slot at oz = o
+            if (t - 2 + o >= 0 && t - 2 + o < kCellsZ) {
+              wzy[o] = w1d(static_cast<float>(o) - fz) * wy;
+            }
+          }
+        }
+        const float a1 = __shfl_up_sync(kFullWarp, av, 1);
+        const float a2 = __shfl_up_sync(kFullWarp, av, 2);
+#pragma unroll
+        for (int oz = 0; oz < 3; ++oz) {
+          const int j = t - 2 + oz;
+          if (j < 0 || j >= kCellsZ) continue;
+          const float w0 = wzy[oz] * wx[0];
+          const float w1 = __shfl_up_sync(kFullWarp, wzy[oz] * wx[1], 1);
+          const float w2 = __shfl_up_sync(kFullWarp, wzy[oz] * wx[2], 2);
+          acc[j] += w0 * av;
+          acc[j] += w1 * a1;
+          acc[j] += w2 * a2;
         }
       }
     }
   }
-  out[q] = acc;
+  if (lane < 2 || x >= X) return;
+  const long long row = static_cast<long long>(y) * X + x;
+#pragma unroll
+  for (int j = 0; j < kCellsZ; ++j) {
+    if (z0 + j < Z) {
+      out[static_cast<long long>(z0 + j) * Y * X + row] = acc[j];
+    }
+  }
 }
 
 __global__ void binsplat_bwd_kernel(
@@ -155,6 +227,7 @@ __global__ void binsplat_bwd_kernel(
   dpx[i] = sx * av;
 }
 
+// K5: one thread per slot.
 constexpr int kThreads = 256;
 
 unsigned int blocks_for(long long n) {
@@ -163,35 +236,46 @@ unsigned int blocks_for(long long n) {
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). Each launches on the given
-// stream, does not synchronise, and returns cudaGetLastError().
+// Plain C entry points, called by the operators of ops.cpp once they have
+// checked the tensors. Each launches on ``stream`` of CUDA device
+// ``device`` (made current for the launch when it is not already), does
+// not synchronise, and returns cudaGetLastError() (or the error that
+// refused the launch).
 extern "C" {
 
 int nfs_binsplat_fwd(const void* a, const void* pz, const void* py,
                      const void* px, void* out, int K, int Z, int Y, int X,
-                     void* stream) {
-  const long long cells = static_cast<long long>(Z) * Y * X;
-  binsplat_fwd_kernel<<<blocks_for(cells), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(pz),
-      static_cast<const float*>(py), static_cast<const float*>(px),
-      static_cast<float*>(out), K, Z, Y, X);
-  return static_cast<int>(cudaGetLastError());
+                     int device, void* stream) {
+  if (static_cast<long long>(Z) * Y > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return nfs::on_device(device, [&] {
+    const dim3 grid((X + kLanesX - 1) / kLanesX, (Y + kRows - 1) / kRows,
+                    (Z + kCellsZ - 1) / kCellsZ);
+    binsplat_fwd_kernel<<<grid, dim3(32, kRows), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(a), static_cast<const float*>(pz),
+        static_cast<const float*>(py), static_cast<const float*>(px),
+        static_cast<float*>(out), K, Z, Y, X);
+    return cudaGetLastError();
+  });
 }
 
 int nfs_binsplat_bwd(const void* a, const void* pz, const void* py,
                      const void* px, const void* g, void* da, void* dpz,
                      void* dpy, void* dpx, int K, int Z, int Y, int X,
-                     void* stream) {
-  const long long slots = static_cast<long long>(K) * Z * Y * X;
-  binsplat_bwd_kernel<<<blocks_for(slots), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(pz),
-      static_cast<const float*>(py), static_cast<const float*>(px),
-      static_cast<const float*>(g), static_cast<float*>(da),
-      static_cast<float*>(dpz), static_cast<float*>(dpy),
-      static_cast<float*>(dpx), K, Z, Y, X);
-  return static_cast<int>(cudaGetLastError());
+                     int device, void* stream) {
+  return nfs::on_device(device, [&] {
+    const long long slots = static_cast<long long>(K) * Z * Y * X;
+    binsplat_bwd_kernel<<<blocks_for(slots), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(a), static_cast<const float*>(pz),
+        static_cast<const float*>(py), static_cast<const float*>(px),
+        static_cast<const float*>(g), static_cast<float*>(da),
+        static_cast<float*>(dpz), static_cast<float*>(dpy),
+        static_cast<float*>(dpx), K, Z, Y, X);
+    return cudaGetLastError();
+  });
 }
 
 }  // extern "C"

@@ -1,0 +1,242 @@
+// The PyTorch operators torch.ops.nfs_tpu_torch.* through which the kernel
+// wrappers of nfs_tpu_torch/ops launch the CUDA kernels of advect.cu and
+// binsplat.cu on CUDA tensors.
+//
+// Each operator checks its tensors as the Python wrappers check CPU ones:
+// for each tensor in turn, TypeError unless it is float32, ValueError
+// unless it has its shape, lies on the first tensor's device and is
+// contiguous. It allocates the outputs, reads the device's current stream
+// through c10 and calls the kernel's C entry point (which makes the device
+// current when it is not); RuntimeError on the CUDA error that entry point
+// returns. Built with the host compiler against torch's headers and linked
+// to the two kernel libraries (ops/_cuda_build.py): a call from Python then
+// costs the dispatcher's argument parsing, not a Python frame per check and
+// a ctypes conversion per argument (PERF.md gives both).
+
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
+#include <ATen/ops/empty_like.h>
+#include <c10/core/impl/DeviceGuardImplInterface.h>
+#include <torch/library.h>
+
+#include <string>
+#include <tuple>
+
+extern "C" {
+int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
+                   int H, int W, float max_disp, int device, void* stream);
+int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
+                         int D, int H, int W, float max_disp, int R, int TZ,
+                         int TY, int TX, int smem_bytes, int device,
+                         void* stream);
+int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
+                       void* grad_s, int D, int H, int W, float max_disp,
+                       int device, void* stream);
+int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
+                         void* grad_field, void* grad_s, int D, int H, int W,
+                         float max_disp, int R, int TZ, int TY, int TX,
+                         int smem_bytes, int device, void* stream);
+int nfs_binsplat_fwd(const void* a, const void* pz, const void* py,
+                     const void* px, void* out, int K, int Z, int Y, int X,
+                     int device, void* stream);
+int nfs_binsplat_bwd(const void* a, const void* pz, const void* py,
+                     const void* px, const void* g, void* da, void* dpz,
+                     void* dpy, void* dpx, int K, int Z, int Y, int X,
+                     int device, void* stream);
+}
+
+namespace {
+
+using at::Tensor;
+
+// A shape as the Python wrappers print it: "(24, 16, 40)".
+std::string shape_str(at::IntArrayRef shape) {
+  std::string s = "(";
+  for (size_t i = 0; i < shape.size(); ++i) {
+    s += (i ? ", " : "") + std::to_string(shape[i]);
+  }
+  return s + (shape.size() == 1 ? ",)" : ")");
+}
+
+void check(const char* name, const Tensor& t, at::IntArrayRef shape,
+           const at::Device& device) {
+  TORCH_CHECK_TYPE(t.scalar_type() == at::kFloat, name,
+                   ": expected float32, got ", t.scalar_type());
+  TORCH_CHECK_VALUE(t.sizes().equals(shape), name, ": expected shape ",
+                    shape_str(shape), ", got ", shape_str(t.sizes()));
+  TORCH_CHECK_VALUE(t.device() == device, name, ": on ", t.device(),
+                    ", expected ", device);
+  TORCH_CHECK_VALUE(t.is_contiguous(), name, ": must be contiguous");
+}
+
+// The grid of a field (D, H, W), and the shapes of the field and of a
+// displacement on it (D, H, W, 3).
+struct Grid {
+  int D, H, W;
+  int64_t cells[3];
+  int64_t vec[4];
+};
+
+Grid grid_of(const char* name, const Tensor& t) {
+  TORCH_CHECK_VALUE(t.dim() == 3, name, ": expected (D, H, W), got ",
+                    shape_str(t.sizes()));
+  const int64_t D = t.size(0), H = t.size(1), W = t.size(2);
+  return {static_cast<int>(D), static_cast<int>(H), static_cast<int>(W),
+          {D, H, W}, {D, H, W, 3}};
+}
+
+void* current_stream(const at::Device& device) {
+  return c10::impl::getDeviceGuardImpl(c10::DeviceType::CUDA)
+      ->getStream(device)
+      .native_handle();
+}
+
+void raise_on(int rc, const char* what) {
+  TORCH_CHECK(rc == 0, what, ": CUDA launch failed with error ", rc);
+}
+
+Tensor advect_fwd(const Tensor& field, const Tensor& vel, double max_disp) {
+  const Grid n = grid_of("field", field);
+  const at::Device device = field.device();
+  check("field", field, n.cells, device);
+  check("vel", vel, n.vec, device);
+  Tensor out = at::empty_like(field);
+  raise_on(nfs_advect_fwd(field.data_ptr(), vel.data_ptr(), out.data_ptr(),
+                          n.D, n.H, n.W, static_cast<float>(max_disp),
+                          device.index(), current_stream(device)),
+           "advect_fwd");
+  return out;
+}
+
+Tensor advect_bwd_field(const Tensor& vel, const Tensor& g, double max_disp,
+                        int64_t R, int64_t TZ, int64_t TY, int64_t TX,
+                        int64_t smem_bytes) {
+  const Grid n = grid_of("g", g);
+  const at::Device device = g.device();
+  check("g", g, n.cells, device);
+  check("vel", vel, n.vec, device);
+  Tensor out = at::empty_like(g);
+  raise_on(nfs_advect_bwd_field(vel.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                n.D, n.H, n.W, static_cast<float>(max_disp),
+                                static_cast<int>(R), static_cast<int>(TZ),
+                                static_cast<int>(TY), static_cast<int>(TX),
+                                static_cast<int>(smem_bytes), device.index(),
+                                current_stream(device)),
+           "advect_bwd_field");
+  return out;
+}
+
+Tensor advect_bwd_vel(const Tensor& field, const Tensor& vel, const Tensor& g,
+                      double max_disp) {
+  const Grid n = grid_of("field", field);
+  const at::Device device = field.device();
+  check("field", field, n.cells, device);
+  check("vel", vel, n.vec, device);
+  check("g", g, n.cells, device);
+  Tensor out = at::empty_like(vel);
+  raise_on(nfs_advect_bwd_vel(field.data_ptr(), vel.data_ptr(), g.data_ptr(),
+                              out.data_ptr(), n.D, n.H, n.W,
+                              static_cast<float>(max_disp), device.index(),
+                              current_stream(device)),
+           "advect_bwd_vel");
+  return out;
+}
+
+std::tuple<Tensor, Tensor> advect_bwd_fused(const Tensor& field,
+                                            const Tensor& vel,
+                                            const Tensor& g, double max_disp,
+                                            int64_t R, int64_t TZ,
+                                            int64_t TY, int64_t TX,
+                                            int64_t smem_bytes) {
+  const Grid n = grid_of("field", field);
+  const at::Device device = field.device();
+  check("field", field, n.cells, device);
+  check("vel", vel, n.vec, device);
+  check("g", g, n.cells, device);
+  Tensor grad_field = at::empty_like(field);
+  Tensor grad_s = at::empty_like(vel);
+  raise_on(nfs_advect_bwd_fused(
+               field.data_ptr(), vel.data_ptr(), g.data_ptr(),
+               grad_field.data_ptr(), grad_s.data_ptr(), n.D, n.H, n.W,
+               static_cast<float>(max_disp), static_cast<int>(R),
+               static_cast<int>(TZ), static_cast<int>(TY),
+               static_cast<int>(TX), static_cast<int>(smem_bytes),
+               device.index(), current_stream(device)),
+           "advect_bwd_fused");
+  return {grad_field, grad_s};
+}
+
+// The bin arrays' checks: a has four axes (K, Zp, Yp, Xp), the positions
+// its shape.
+void check_bins(const Tensor& a, const Tensor& pz, const Tensor& py,
+                const Tensor& px) {
+  TORCH_CHECK_VALUE(a.dim() == 4, "a: expected (K, Zp, Yp, Xp), got ",
+                    shape_str(a.sizes()));
+  const at::Device device = a.device();
+  check("a", a, a.sizes(), device);
+  check("p_z", pz, a.sizes(), device);
+  check("p_y", py, a.sizes(), device);
+  check("p_x", px, a.sizes(), device);
+}
+
+Tensor binsplat_fwd(const Tensor& a, const Tensor& pz, const Tensor& py,
+                    const Tensor& px) {
+  check_bins(a, pz, py, px);
+  Tensor out = at::empty(a.sizes().slice(1), a.options());
+  raise_on(nfs_binsplat_fwd(a.data_ptr(), pz.data_ptr(), py.data_ptr(),
+                            px.data_ptr(), out.data_ptr(),
+                            static_cast<int>(a.size(0)),
+                            static_cast<int>(a.size(1)),
+                            static_cast<int>(a.size(2)),
+                            static_cast<int>(a.size(3)), a.device().index(),
+                            current_stream(a.device())),
+           "binsplat_fwd");
+  return out;
+}
+
+std::tuple<Tensor, Tensor, Tensor, Tensor> binsplat_bwd(
+    const Tensor& a, const Tensor& pz, const Tensor& py, const Tensor& px,
+    const Tensor& g) {
+  check_bins(a, pz, py, px);
+  check("g", g, a.sizes().slice(1), a.device());
+  Tensor da = at::empty_like(a), dpz = at::empty_like(a),
+         dpy = at::empty_like(a), dpx = at::empty_like(a);
+  raise_on(nfs_binsplat_bwd(a.data_ptr(), pz.data_ptr(), py.data_ptr(),
+                            px.data_ptr(), g.data_ptr(), da.data_ptr(),
+                            dpz.data_ptr(), dpy.data_ptr(), dpx.data_ptr(),
+                            static_cast<int>(a.size(0)),
+                            static_cast<int>(a.size(1)),
+                            static_cast<int>(a.size(2)),
+                            static_cast<int>(a.size(3)), a.device().index(),
+                            current_stream(a.device())),
+           "binsplat_bwd");
+  return {da, dpz, dpy, dpx};
+}
+
+}  // namespace
+
+TORCH_LIBRARY(nfs_tpu_torch, m) {
+  m.def("advect_fwd(Tensor field, Tensor vel, float max_disp) -> Tensor");
+  m.def(
+      "advect_bwd_field(Tensor vel, Tensor g, float max_disp, int R, int TZ, "
+      "int TY, int TX, int smem_bytes) -> Tensor");
+  m.def(
+      "advect_bwd_vel(Tensor field, Tensor vel, Tensor g, float max_disp) "
+      "-> Tensor");
+  m.def(
+      "advect_bwd_fused(Tensor field, Tensor vel, Tensor g, float max_disp, "
+      "int R, int TZ, int TY, int TX, int smem_bytes) -> (Tensor, Tensor)");
+  m.def("binsplat_fwd(Tensor a, Tensor pz, Tensor py, Tensor px) -> Tensor");
+  m.def(
+      "binsplat_bwd(Tensor a, Tensor pz, Tensor py, Tensor px, Tensor g) -> "
+      "(Tensor, Tensor, Tensor, Tensor)");
+}
+
+TORCH_LIBRARY_IMPL(nfs_tpu_torch, CUDA, m) {
+  m.impl("advect_fwd", &advect_fwd);
+  m.impl("advect_bwd_field", &advect_bwd_field);
+  m.impl("advect_bwd_vel", &advect_bwd_vel);
+  m.impl("advect_bwd_fused", &advect_bwd_fused);
+  m.impl("binsplat_fwd", &binsplat_fwd);
+  m.impl("binsplat_bwd", &binsplat_bwd);
+}

@@ -30,22 +30,25 @@ The TPU kernels evaluate every tap of the (2K+1)^3 window from VMEM
 because a gather is slow on the TPU. On Hopper a gather through L1 is
 cheap, so the kernels visit only the taps whose weight can be nonzero
 (8 for K1, 27 for K3, (2R+1)^3 source cells for K2 and K3b with
-R = ceil(max_disp)); the result equals the window sum. K2 and K3b give
-each block a tile of output cells and stage its sources, with an R-cell
-halo, in shared memory; :func:`_pull_plan` picks the tile and its bytes
-from R. What bounds each kernel on the H100 and what the design does
-about it is noted in ``advect.cu``.
+R = ceil(max_disp)); the result equals the window sum. K1 gives each
+thread one (y, x) and a run of cells along z; it stages nothing, so any
+shape and max_disp launches. K2 and K3b give each block a tile of
+output cells and stage its sources, with an R-cell halo, in shared
+memory; :func:`_pull_plan` picks the tile and its bytes from R. What
+bounds each kernel on the H100 and what the design does about it is
+noted in ``advect.cu``.
 
 The library is built with ``nvcc`` for ``sm_90a`` from the repository's
 own source at first use into ``build/nfs_tpu_torch/`` next to the
-package, under a file name keyed on a hash of the source and flags
-(``ops/_cuda_build.py``, shared with the binned-splat kernels), and
-loaded with ``ctypes``.
+package, under a file name keyed on a hash of the source and flags. On
+CUDA tensors each wrapper calls its operator ``torch.ops.nfs_tpu_torch``
+(``csrc/ops.cpp``), which checks the tensors and launches on the current
+stream in C++ (``ops/_cuda_build.py``, shared with the binned-splat
+kernels).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from pathlib import Path
@@ -89,22 +92,9 @@ def build_library() -> Path:
     return _cuda_build.build_library(SOURCE, "nfs_advect")
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library; raises RuntimeError
-    when it cannot be built."""
-    lib = ctypes.CDLL(str(build_library()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, p]
-    lib.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f, i, i, i, i, i,
-                                         p]
-    lib.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, f, p]
-    lib.nfs_advect_bwd_fused.argtypes = [p, p, p, p, p, i, i, i, f, i, i, i,
-                                         i, i, p]
-    for fn in (lib.nfs_advect_fwd, lib.nfs_advect_bwd_field,
-               lib.nfs_advect_bwd_vel, lib.nfs_advect_bwd_fused):
-        fn.restype = ctypes.c_int
-    return lib
+# Build (first use) and load the kernels and the operators that launch
+# them; returns ``torch.ops.nfs_tpu_torch`` (ops/_cuda_build.py).
+load_library = _cuda_build.load_operators
 
 
 # --------------------------------------------------------------------- #
@@ -257,13 +247,7 @@ def advect_bwd_fused_plain(field: torch.Tensor, vel: torch.Tensor,
 # wrappers: plain twin on CPU tensors, CUDA kernel on CUDA tensors
 # --------------------------------------------------------------------- #
 
-_check = _cuda_build.check_tensor
-_raise_on = _cuda_build.raise_on
-_stream = _cuda_build.current_stream
-
-
-def _route(ref: torch.Tensor) -> str:
-    return _cuda_build.route(ref, "advection kernels")
+_check = _cuda_build.check
 
 
 def _radius(max_disp: float) -> int:
@@ -323,63 +307,44 @@ def _pull_plan(R: int, fused: bool = False):
 def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
                max_disp: float) -> torch.Tensor:
     """K1: advected field (D, H, W)."""
+    if field.is_cuda:
+        out = load_library().advect_fwd.default(field, vel, float(max_disp))
+        LAUNCHES["fwd"] += 1
+        return out
     D, H, W = field.shape
-    _check("field", field, (D, H, W), field.device)
-    _check("vel", vel, (D, H, W, 3), field.device)
-    if _route(field) == "plain":
-        return advect_fwd_plain(field, vel, max_disp)
-    lib = load_library()
-    out = torch.empty_like(field)
-    with torch.cuda.device(field.device):
-        rc = lib.nfs_advect_fwd(field.data_ptr(), vel.data_ptr(),
-                                out.data_ptr(), D, H, W, float(max_disp),
-                                _stream(field.device))
-    _raise_on(rc, "advect_fwd")
-    LAUNCHES["fwd"] += 1
-    return out
+    _check("advection kernels", ("field", "vel"), (field, vel),
+           ((D, H, W), (D, H, W, 3)))
+    return advect_fwd_plain(field, vel, max_disp)
 
 
 def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
                      max_disp: float) -> torch.Tensor:
     """K2: gradient wrt the advected field, (D, H, W). On CUDA, raises
     ValueError for max_disp > 8 (:func:`_pull_plan`)."""
+    if g.is_cuda:
+        R = _radius(max_disp)
+        out = load_library().advect_bwd_field.default(
+            vel, g, float(max_disp), R, *_pull_plan(R))
+        LAUNCHES["bwd_field"] += 1
+        return out
     D, H, W = g.shape
-    _check("g", g, (D, H, W), g.device)
-    _check("vel", vel, (D, H, W, 3), g.device)
-    if _route(g) == "plain":
-        return advect_bwd_field_plain(vel, g, max_disp)
-    R = _radius(max_disp)
-    plan = _pull_plan(R)
-    lib = load_library()
-    out = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        rc = lib.nfs_advect_bwd_field(vel.data_ptr(), g.data_ptr(),
-                                      out.data_ptr(), D, H, W,
-                                      float(max_disp), R, *plan,
-                                      _stream(g.device))
-    _raise_on(rc, "advect_bwd_field")
-    LAUNCHES["bwd_field"] += 1
-    return out
+    _check("advection kernels", ("g", "vel"), (g, vel),
+           ((D, H, W), (D, H, W, 3)))
+    return advect_bwd_field_plain(vel, g, max_disp)
 
 
 def advect_bwd_vel(field: torch.Tensor, vel: torch.Tensor,
                    g: torch.Tensor, max_disp: float) -> torch.Tensor:
     """K3: gradient wrt the backtrace coordinates s, (D, H, W, 3)."""
+    if field.is_cuda:
+        out = load_library().advect_bwd_vel.default(field, vel, g,
+                                                    float(max_disp))
+        LAUNCHES["bwd_vel"] += 1
+        return out
     D, H, W = field.shape
-    _check("field", field, (D, H, W), field.device)
-    _check("vel", vel, (D, H, W, 3), field.device)
-    _check("g", g, (D, H, W), field.device)
-    if _route(field) == "plain":
-        return advect_bwd_vel_plain(field, vel, g, max_disp)
-    lib = load_library()
-    out = torch.empty_like(vel)
-    with torch.cuda.device(field.device):
-        rc = lib.nfs_advect_bwd_vel(field.data_ptr(), vel.data_ptr(),
-                                    g.data_ptr(), out.data_ptr(), D, H, W,
-                                    float(max_disp), _stream(field.device))
-    _raise_on(rc, "advect_bwd_vel")
-    LAUNCHES["bwd_vel"] += 1
-    return out
+    _check("advection kernels", ("field", "vel", "g"), (field, vel, g),
+           ((D, H, W), (D, H, W, 3), (D, H, W)))
+    return advect_bwd_vel_plain(field, vel, g, max_disp)
 
 
 def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
@@ -387,25 +352,16 @@ def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
     """K3b: (gradient wrt the field (D, H, W), gradient wrt s
     (D, H, W, 3)) in one launch. On CUDA, raises ValueError for
     max_disp > 7 (:func:`_pull_plan`)."""
+    if field.is_cuda:
+        R = _radius(max_disp)
+        grads = load_library().advect_bwd_fused.default(
+            field, vel, g, float(max_disp), R, *_pull_plan(R, fused=True))
+        LAUNCHES["bwd_fused"] += 1
+        return grads
     D, H, W = field.shape
-    _check("field", field, (D, H, W), field.device)
-    _check("vel", vel, (D, H, W, 3), field.device)
-    _check("g", g, (D, H, W), field.device)
-    if _route(field) == "plain":
-        return advect_bwd_fused_plain(field, vel, g, max_disp)
-    R = _radius(max_disp)
-    plan = _pull_plan(R, fused=True)
-    lib = load_library()
-    grad_field = torch.empty_like(field)
-    grad_s = torch.empty_like(vel)
-    with torch.cuda.device(field.device):
-        rc = lib.nfs_advect_bwd_fused(
-            field.data_ptr(), vel.data_ptr(), g.data_ptr(),
-            grad_field.data_ptr(), grad_s.data_ptr(), D, H, W,
-            float(max_disp), R, *plan, _stream(field.device))
-    _raise_on(rc, "advect_bwd_fused")
-    LAUNCHES["bwd_fused"] += 1
-    return grad_field, grad_s
+    _check("advection kernels", ("field", "vel", "g"), (field, vel, g),
+           ((D, H, W), (D, H, W, 3), (D, H, W)))
+    return advect_bwd_fused_plain(field, vel, g, max_disp)
 
 
 class AdvectWindow(torch.autograd.Function):

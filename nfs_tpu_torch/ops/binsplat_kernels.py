@@ -28,14 +28,21 @@ slot layout is rank-major, so ``attr_b[:n_slots]`` already views as
 ``binned_layout`` 'auto' and 'slots' both mean the slot layout.
 :func:`splat_binned_window` is the drop-in for ``splat_binned_pallas``.
 
-The library is built with ``nvcc`` for ``sm_90a`` at first use
-(``ops/_cuda_build.py``) and loaded with ``ctypes``.
+K4 gives each warp a row of output cells along x and each lane a column
+of cells along z; a lane computes its own slot's weights once per row of
+slots and passes them to the lanes beside it. It stages nothing in
+shared memory, so its launch does not depend on K.
+``binsplat.cu`` notes what bounds each kernel on the H100 and what the
+design does about it.
+
+The library is built with ``nvcc`` for ``sm_90a`` at first use. On
+CUDA tensors each wrapper calls its operator ``torch.ops.nfs_tpu_torch``
+(``csrc/ops.cpp``), which checks the tensors and launches on the current
+stream in C++ (``ops/_cuda_build.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from pathlib import Path
 from typing import Dict, Tuple
@@ -62,17 +69,9 @@ def build_library() -> Path:
     return _cuda_build.build_library(SOURCE, "nfs_binsplat")
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library; raises RuntimeError
-    when it cannot be built."""
-    lib = ctypes.CDLL(str(build_library()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
-    lib.nfs_binsplat_bwd.argtypes = [p] * 9 + [i] * 4 + [p]
-    lib.nfs_binsplat_fwd.restype = ctypes.c_int
-    lib.nfs_binsplat_bwd.restype = ctypes.c_int
-    return lib
+# Build (first use) and load the kernels and the operators that launch
+# them; returns ``torch.ops.nfs_tpu_torch`` (ops/_cuda_build.py).
+load_library = _cuda_build.load_operators
 
 
 # --------------------------------------------------------------------- #
@@ -147,47 +146,33 @@ def window_bwd_plain(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
 # wrappers: plain version on CPU tensors, CUDA kernel on CUDA tensors
 # --------------------------------------------------------------------- #
 
-def _check_bins(a, pz, py, px):
+def _check_bins(a, pz, py, px, *g):
+    """The bin arrays' checks, and g's when given (_cuda_build.check)."""
     if a.ndim != 4:
         raise ValueError(f"a: expected (K, Zp, Yp, Xp), got {tuple(a.shape)}")
-    for name, t in (("a", a), ("p_z", pz), ("p_y", py), ("p_x", px)):
-        _cuda_build.check_tensor(name, t, a.shape, a.device)
-    return _cuda_build.route(a, "binned-splat kernels")
+    s = a.shape
+    _cuda_build.check("binned-splat kernels", ("a", "p_z", "p_y", "p_x", "g"),
+                      (a, pz, py, px, *g), (s, s, s, s, s[1:]))
 
 
 def binsplat_fwd(a, pz, py, px) -> torch.Tensor:
     """K4: the padded (Zp, Yp, Xp) splat of the bins."""
-    if _check_bins(a, pz, py, px) == "plain":
-        return window_fwd_plain(a, pz, py, px)
-    K, Z, Y, X = a.shape
-    lib = load_library()
-    out = torch.empty((Z, Y, X), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = lib.nfs_binsplat_fwd(a.data_ptr(), pz.data_ptr(), py.data_ptr(),
-                                  px.data_ptr(), out.data_ptr(), K, Z, Y, X,
-                                  _cuda_build.current_stream(a.device))
-    _cuda_build.raise_on(rc, "binsplat_fwd")
-    LAUNCHES["fwd"] += 1
-    return out
+    if a.is_cuda:
+        out = load_library().binsplat_fwd.default(a, pz, py, px)
+        LAUNCHES["fwd"] += 1
+        return out
+    _check_bins(a, pz, py, px)
+    return window_fwd_plain(a, pz, py, px)
 
 
 def binsplat_bwd(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
     """K5: (da, dp_z, dp_y, dp_x) given the padded splat's cotangent g."""
-    route = _check_bins(a, pz, py, px)
-    _cuda_build.check_tensor("g", g, a.shape[1:], a.device)
-    if route == "plain":
-        return window_bwd_plain(a, pz, py, px, g)
-    K, Z, Y, X = a.shape
-    lib = load_library()
-    outs = [torch.empty_like(a) for _ in range(4)]
-    with torch.cuda.device(a.device):
-        rc = lib.nfs_binsplat_bwd(
-            a.data_ptr(), pz.data_ptr(), py.data_ptr(), px.data_ptr(),
-            g.data_ptr(), *(o.data_ptr() for o in outs), K, Z, Y, X,
-            _cuda_build.current_stream(a.device))
-    _cuda_build.raise_on(rc, "binsplat_bwd")
-    LAUNCHES["bwd"] += 1
-    return tuple(outs)
+    if a.is_cuda:
+        grads = load_library().binsplat_bwd.default(a, pz, py, px, g)
+        LAUNCHES["bwd"] += 1
+        return grads
+    _check_bins(a, pz, py, px, g)
+    return window_bwd_plain(a, pz, py, px, g)
 
 
 class BinWindow(torch.autograd.Function):

@@ -13,6 +13,7 @@ same terms in another order (measured differences are ~1e-7).
 
 import functools
 import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -173,18 +174,48 @@ def test_backward_runs_only_needed_kernels(monkeypatch):
     assert calls == ["advect_bwd_vel"]
 
 
-def test_wrappers_check_inputs():
-    f, v, _ = _case("random", shape=(4, 5, 6))
-    ft, vt = torch.from_numpy(f), torch.from_numpy(v)
-    with pytest.raises(TypeError):
-        ak.advect_fwd(ft.double(), vt, 2.0)
-    with pytest.raises(ValueError):
-        ak.advect_fwd(ft, vt[..., :2].contiguous(), 2.0)
-    strided = ft.transpose(0, 2).contiguous().transpose(0, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        ak.advect_fwd(strided, vt, 2.0)
+_WRAPPERS = {
+    "fwd": lambda f, v, g: ak.advect_fwd(f, v, 2.0),
+    "bwd_field": lambda f, v, g: ak.advect_bwd_field(v, g, 2.0),
+    "bwd_vel": lambda f, v, g: ak.advect_bwd_vel(f, v, g, 2.0),
+    "bwd_fused": lambda f, v, g: ak.advect_bwd_fused(f, v, g, 2.0),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_WRAPPERS))
+@pytest.mark.parametrize("bad,error,match", [
+    ("nothing", None, None),
+    ("float64", TypeError, "float32"),
+    ("vel short", ValueError, "shape"),
+    ("vel not contiguous", ValueError, "contiguous"),
+    ("rank 2", ValueError, None),
+    ("vel on another device", ValueError, "expected"),
+    ("all on the meta device", RuntimeError, "cpu or cuda"),
+])
+def test_wrappers_check_inputs(key, bad, error, match):
+    """The one-pass check of every advection wrapper raises on a wrong
+    type, shape, layout, rank or device of any tensor, and on a device
+    that is neither cpu nor cuda; on good CPU tensors the wrapper runs
+    its plain twin and counts no launch."""
+    f, v, w = (torch.from_numpy(a) for a in _case("random", shape=(4, 5, 6)))
+    if bad == "float64":
+        f, w = f.double(), w.double()
+    elif bad == "vel short":
+        v = v[..., :2].contiguous()
+    elif bad == "vel not contiguous":
+        v = v.transpose(0, 2).contiguous().transpose(0, 2)
+    elif bad == "rank 2":
+        f, w = f[0], w[0]
+    elif bad == "vel on another device":
+        v = v.to("meta")
+    elif bad == "all on the meta device":
+        f, v, w = (t.to("meta") for t in (f, v, w))
     before = dict(ak.LAUNCHES)
-    ak.advect_fwd(ft, vt, 2.0)  # CPU: the plain twin, no launch counted
+    if error is None:
+        _WRAPPERS[key](f, v, w)
+    else:
+        with pytest.raises(error, match=match):
+            _WRAPPERS[key](f, v, w)
     assert ak.LAUNCHES == before
 
 
@@ -197,6 +228,47 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         ak.load_library()
     ak.load_library.cache_clear()
+
+
+def test_operator_build_raises_without_host_compiler(monkeypatch,
+                                                    tmp_path):
+    """The operators (csrc/ops.cpp) are built with the host compiler next
+    to the kernels; without one the build refuses before any compile
+    starts, and nothing is written."""
+    from nfs_tpu_torch.ops import _cuda_build
+
+    monkeypatch.setattr(_cuda_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "build")
+    ak.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="host C\\+\\+ compiler"):
+        ak.load_library()
+    ak.load_library.cache_clear()
+    assert not (tmp_path / "build").exists()
+
+
+def test_operators_match_the_wrappers():
+    """Every operator csrc/ops.cpp defines is registered for CUDA and
+    called by one wrapper, each wrapper's operator exists, and each
+    operator's C entry point is one advect.cu or binsplat.cu defines."""
+    import re
+
+    from nfs_tpu_torch.ops import _cuda_build
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+
+    ops = (_cuda_build.CSRC / "ops.cpp").read_text()
+    defined = set(re.findall(r'm\.def\(\s*"(\w+)\(', ops))
+    registered = set(re.findall(r'm\.impl\("(\w+)"', ops))
+    wrappers = "".join(Path(m.__file__).read_text() for m in (ak, bk))
+    called = set(re.findall(r"load_library\(\)\.(\w+)\.default", wrappers))
+    assert defined == registered == called == {
+        "advect_fwd", "advect_bwd_field", "advect_bwd_vel",
+        "advect_bwd_fused", "binsplat_fwd", "binsplat_bwd"}
+    sources = "".join((_cuda_build.CSRC / src).read_text()
+                      for src, _ in _cuda_build.KERNEL_SOURCES)
+    entry = set(re.findall(r"^int (nfs_\w+)\(", sources, re.M))
+    assert entry == {f"nfs_{name}" for name in defined}
+    assert entry == set(re.findall(r"^int (nfs_\w+)\(", ops, re.M))
 
 
 def _grads_of_square_loss(f, v, max_disp):

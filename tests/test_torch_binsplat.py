@@ -284,21 +284,59 @@ def _generic_padded(ts, K, pshape):
     return out
 
 
-def test_window_wrappers_check_inputs():
+@pytest.mark.parametrize("bad,error,match", [
+    ("nothing", None, None),
+    ("a float64", TypeError, "float32"),
+    ("p_y short", ValueError, "shape"),
+    ("p_x not contiguous", ValueError, "contiguous"),
+    ("a rank 3", ValueError, "Zp"),
+    ("p_z on another device", ValueError, "expected"),
+    ("all on the meta device", RuntimeError, "cpu or cuda"),
+    ("g short", ValueError, "shape"),
+    ("g float64", TypeError, "float32"),
+    ("2D grid", ValueError, "3D grids"),
+])
+def test_window_wrappers_check_inputs(bad, error, match):
+    """The one-pass check of K4's and K5's wrappers raises on a wrong
+    type, shape, layout, rank or device of any bin array or of g, and on
+    a device that is neither cpu nor cuda; on good CPU tensors both run
+    their plain versions and count no launch."""
     a = torch.zeros((2, 6, 5, 7))
-    p = torch.zeros_like(a)
-    with pytest.raises(TypeError):
-        BK.binsplat_fwd(a.double(), p, p, p)
-    with pytest.raises(ValueError):
-        BK.binsplat_fwd(a, p[:, :5], p, p)
-    with pytest.raises(ValueError, match="contiguous"):
-        BK.binsplat_fwd(a, p.transpose(2, 3).contiguous().transpose(2, 3),
-                        p, p)
-    with pytest.raises(ValueError):
-        BK.binsplat_bwd(a, p, p, p, torch.zeros((6, 5, 6)))
-    with pytest.raises(ValueError, match="3D grids"):
-        BK.splat_binned_window(torch.zeros((2, 10)), torch.zeros((2, 10)),
-                               torch.ones(10, dtype=torch.bool), (4, 5), 1)
+    p = [torch.zeros_like(a) for _ in range(3)]
+    g = torch.zeros((6, 5, 7))
+    if bad == "2D grid":
+        with pytest.raises(error, match=match):
+            BK.splat_binned_window(torch.zeros((2, 10)), torch.zeros((2, 10)),
+                                   torch.ones(10, dtype=torch.bool), (4, 5), 1)
+        return
+    if bad == "a float64":
+        a = a.double()
+    elif bad == "p_y short":
+        p[1] = p[1][:, :5].contiguous()
+    elif bad == "p_x not contiguous":
+        p[2] = p[2].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "a rank 3":
+        a = a[0]
+    elif bad == "p_z on another device":
+        p[0] = p[0].to("meta")
+    elif bad == "all on the meta device":
+        a, g = a.to("meta"), g.to("meta")
+        p = [t.to("meta") for t in p]
+    elif bad == "g short":
+        g = g[:, :, :6].contiguous()
+    elif bad == "g float64":
+        g = g.double()
+    before = dict(BK.LAUNCHES)
+    if error is None:
+        BK.binsplat_fwd(a, *p)
+        BK.binsplat_bwd(a, *p, g)
+    else:
+        with pytest.raises(error, match=match):
+            BK.binsplat_bwd(a, *p, g)
+        if not bad.startswith("g "):
+            with pytest.raises(error, match=match):
+                BK.binsplat_fwd(a, *p)
+    assert BK.LAUNCHES == before
 
 
 @pytest.mark.parametrize("mode", ["clamp", "zero"])

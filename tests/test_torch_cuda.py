@@ -10,6 +10,8 @@ Tolerances: values atol 1e-5, gradients atol 1e-4 (float32 sums of the
 same terms in another order; K2's plain twin scatters with atomics).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -84,16 +86,81 @@ def test_advect_on_gpu_matches_cpu(cuda_device):
     torch.testing.assert_close(gpu[2], cpu[2], atol=GRAD_ATOL, rtol=0)
 
 
+_ADVECT_WRAPPERS = {
+    "fwd": lambda f, g, v: ak.advect_fwd(f, v, 2.0),
+    "bwd_field": lambda f, g, v: ak.advect_bwd_field(v, g, 2.0),
+    "bwd_vel": lambda f, g, v: ak.advect_bwd_vel(f, v, g, 2.0),
+    "bwd_fused": lambda f, g, v: ak.advect_bwd_fused(f, v, g, 2.0),
+}
+
+
 @pytest.mark.cuda
-def test_wrappers_refuse_bad_inputs(cuda_device):
+@pytest.mark.parametrize("key", sorted(_ADVECT_WRAPPERS))
+@pytest.mark.parametrize("bad,error", [
+    ("vel on the cpu", ValueError), ("vel not contiguous", ValueError),
+    ("field half", TypeError), ("vel short", ValueError),
+    ("g float64", TypeError)])
+def test_wrappers_refuse_bad_inputs(cuda_device, key, bad, error):
+    """Each advection wrapper refuses a wrong device, layout, type or
+    shape of any of its tensors, and launches nothing."""
     f, g, v = (torch.from_numpy(a).to(cuda_device)
                for a in _inputs("random", 2.0))
-    with pytest.raises(ValueError):  # field on the GPU, vel on the CPU
-        ak.advect_fwd(f, v.cpu(), 2.0)
-    with pytest.raises(ValueError):  # not contiguous
-        ak.advect_bwd_field(v, g.transpose(0, 2), 2.0)
-    with pytest.raises(TypeError):
-        ak.advect_bwd_vel(f.half(), v, g, 2.0)
+    if bad == "vel on the cpu":
+        v = v.cpu()
+    elif bad == "vel not contiguous":
+        v = v.transpose(0, 2).contiguous().transpose(0, 2)
+    elif bad == "field half":
+        f, g = f.half(), g.half()
+    elif bad == "vel short":
+        v = v[..., :2].contiguous()
+    else:
+        f, g = f.double(), g.double()
+    before = dict(ak.LAUNCHES)
+    with pytest.raises(error):
+        _ADVECT_WRAPPERS[key](f, g, v)
+    assert ak.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_disp", [0.5, 2.0, 3.0, 8.0])
+@pytest.mark.parametrize("shape", [(62, 36, 62), (35, 20, 35), (1, 7, 9),
+                                   (5, 1, 3), (4, 6, 1)]
+                         + [(3, 4, w) for w in range(1, 10)])
+def test_k1_on_ragged_shapes(cuda_device, shape, max_disp):
+    """K1 (a run of cells along z per thread) on the octave shapes, on
+    axes of one cell and on every W from 1 to 9, at max_disp 0.5 to 8:
+    against its plain twin, and two launches bitwise equal."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs("random", max_disp, shape, seed=7))
+    out = ak.advect_fwd(f, v, max_disp)
+    torch.testing.assert_close(out, ak.advect_fwd_plain(f, v, max_disp),
+                               atol=VALUE_ATOL, rtol=0)
+    assert torch.equal(out, ak.advect_fwd(f, v, max_disp))
+
+
+@pytest.mark.cuda
+def test_k1_refuses_shapes_past_32_bit_indices(cuda_device):
+    """K1 indexes a plane and a column of planes with 32-bit integers:
+    its entry point refuses H * W or D * H past INT_MAX before it
+    launches (the pointers are never read)."""
+    lib = ctypes.CDLL(str(ak.build_library()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p]
+    big = 1 << 16
+    for shape in ((1, big, big), (big, big, 1)):
+        assert lib.nfs_advect_fwd(None, None, None, *shape, 2.0,
+                                  cuda_device.index, None) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_disp", [12.0, 40.0])
+def test_k1_any_max_disp(cuda_device, max_disp):
+    """K1 stages nothing, so it takes any max_disp, past K2's limit too."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs("random", max_disp, (13, 7, 37), seed=9))
+    torch.testing.assert_close(ak.advect_fwd(f, v, max_disp),
+                               ak.advect_fwd_plain(f, v, max_disp),
+                               atol=VALUE_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -174,25 +241,14 @@ def test_pull_kernels_every_radius_of_the_plan(cuda_device, R):
 
 
 def _pull_on_tile(f, g, v, max_disp, tile, fused):
-    """K2 (``fused=False``) or K3b launched through the C interface on a
+    """K2 (``fused=False``) or K3b launched through its operator on a
     given (TZ, TY, TX) tile instead of the plan's."""
-    lib = ak.load_library()
-    D, H, W = g.shape
+    ops = ak.load_library()
     R = ak._radius(max_disp)
     nbytes = ak._staged_bytes(R, tile, fused)
-    stream = ak._stream(g.device)
-    gf = torch.empty_like(g)
     if not fused:
-        ak._raise_on(lib.nfs_advect_bwd_field(
-            v.data_ptr(), g.data_ptr(), gf.data_ptr(), D, H, W, max_disp, R,
-            *tile, nbytes, stream), "advect_bwd_field")
-        return (gf,)
-    gs = torch.empty_like(v)
-    ak._raise_on(lib.nfs_advect_bwd_fused(
-        f.data_ptr(), v.data_ptr(), g.data_ptr(), gf.data_ptr(),
-        gs.data_ptr(), D, H, W, max_disp, R, *tile, nbytes, stream),
-        "advect_bwd_fused")
-    return gf, gs
+        return (ops.advect_bwd_field(v, g, max_disp, R, *tile, nbytes),)
+    return ops.advect_bwd_fused(f, v, g, max_disp, R, *tile, nbytes)
 
 
 @pytest.mark.cuda
@@ -293,11 +349,136 @@ def test_bin_window_on_gpu_matches_cpu(cuda_device):
     torch.testing.assert_close(gpu[2], cpu[2], atol=GRAD_ATOL, rtol=0)
 
 
+def _bin_window(x, shape, K, seed=0):
+    """(a4, [p_z, p_y, p_x]) of particles ``x`` binned at ``shape`` with
+    capacity K, on the CPU, as the styler's window sees them."""
+    rng = np.random.default_rng(seed)
+    bn = B.bin_particles(torch.from_numpy(x), shape, K)
+    p_b = B.to_binned(bn, torch.from_numpy(x))
+    a_b = B.to_binned(bn, torch.from_numpy(
+        (0.5 + rng.random(len(x))).astype(np.float32)))
+    pshape = B.padded_shape(shape)
+    n_slots = bn.valid.shape[0]
+    a4 = torch.where(bn.valid, a_b[:n_slots], 0.0).view((K,) + pshape)
+    p4 = [p_b[d, :n_slots].view((K,) + pshape).contiguous()
+          for d in range(3)]
+    return a4, p4
+
+
+def _check_k4(a4, p4, device):
+    a4, p4 = a4.to(device), [p.to(device) for p in p4]
+    out = bk.binsplat_fwd(a4, *p4)
+    torch.testing.assert_close(out, bk.window_fwd_plain(a4, *p4),
+                               atol=VALUE_ATOL, rtol=0)
+    assert torch.equal(out, bk.binsplat_fwd(a4, *p4))
+    return out
+
+
 @pytest.mark.cuda
-def test_binsplat_wrappers_refuse_bad_inputs(cuda_device):
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(20, 14, 24), (7, 5, 9), (3, 1, 11),
+                                   (1, 1, 1)])
+def test_k4_ranks_and_ragged_grids(cuda_device, K, shape):
+    """K4 (a row of cells along x per warp, a column along z per lane) at
+    K = 1 to 8 on padded grids that are not multiples of its launch, with
+    crowded cells so that every rank holds particles: against its plain
+    version, and two launches bitwise equal."""
+    rng = np.random.default_rng(K)
+    n = 4 * int(np.prod(shape))
+    x = (rng.random((n, 3)) * (np.array(shape) - 1)).astype(np.float32)
+    _check_k4(*_bin_window(x, shape, K), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rank 0 only", "all empty",
+                                  "nan in empty slots"])
+def test_k4_sparse_bins(cuda_device, case):
+    """K4 where whole ranks, or all bins, are empty: one particle per
+    cell (rank 0 only), no particle (exact zeros), and NaN positions in
+    every empty slot, which leave the result's bits as they were (finite,
+    exact zeros where no particle reaches)."""
+    shape, K = (12, 9, 30), 4
+    x = (np.stack(np.meshgrid(*[np.arange(0, s, 3) for s in shape],
+                              indexing="ij"), -1).reshape(-1, 3)
+         + 0.3).astype(np.float32)
+    if case == "all empty":
+        x = x[:0]
+    a4, p4 = _bin_window(x, shape, K)
+    out = _check_k4(a4, p4, cuda_device)
+    assert bool(torch.isfinite(out).all())
+    if case == "all empty":
+        assert torch.equal(out, torch.zeros_like(out))
+    else:
+        assert bool((a4[1:] == 0).all())
+    if case == "nan in empty slots":
+        nan_p = [p.clone() for p in p4]
+        for p in nan_p:
+            p[a4 == 0] = float("nan")
+        nan_p = [p.to(cuda_device) for p in nan_p]
+        assert torch.equal(bk.binsplat_fwd(a4.to(cuda_device), *nan_p), out)
+
+
+@pytest.mark.cuda
+def test_k4_rank_skip_same_bits_as_filled_tiles(cuda_device):
+    """A row of slots that holds no particle in the whole warp is skipped
+    (rank 2 here, everywhere). The same bins with that rank filled in
+    every slot by particles whose weights are all exactly 0 (a != 0, the
+    particle far from its bin) run every row of every rank and add only
+    +0: the bits must be the same."""
+    shape, K = (20, 14, 24), 3
+    rng = np.random.default_rng(4)
+    x = (rng.random((600, 3)) * (np.array(shape) - 1)).astype(np.float32)
+    a4, p4 = _bin_window(x, shape, K)
+    assert bool((a4[2] == 0).all())    # rank 2 empty: skipped everywhere
+    filled_a, filled_p = a4.clone(), [p.clone() for p in p4]
+    filled_a[2] = 1.0
+    for p in filled_p:
+        p[2] = 1.0e4
+    skipped = _check_k4(a4, p4, cuda_device)
+    assert torch.equal(_check_k4(filled_a, filled_p, cuda_device), skipped)
+
+
+@pytest.mark.cuda
+def test_k4_refuses_shapes_past_32_bit_indices(cuda_device):
+    """K4 indexes a slot's plane row with 32-bit integers: its entry
+    point refuses Z * Y past INT_MAX before it launches (the pointers are
+    never read)."""
+    lib = ctypes.CDLL(str(bk.build_library()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [i, p]
+    assert lib.nfs_binsplat_fwd(None, None, None, None, None, 1, 1 << 16,
+                                1 << 16, 1, cuda_device.index, None) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,error", [
+    ("positions on the cpu", ValueError), ("a half", TypeError),
+    ("p_y short", ValueError), ("p_x not contiguous", ValueError),
+    ("a 3d", ValueError), ("g half", TypeError), ("g short", ValueError)])
+def test_binsplat_wrappers_refuse_bad_inputs(cuda_device, bad, error):
+    """K4's and K5's wrappers refuse a wrong device, type, shape, rank or
+    layout of any of their tensors, and launch nothing."""
     a = torch.zeros((2, 6, 5, 7), device=cuda_device)
-    with pytest.raises(ValueError):  # positions on the CPU
-        bk.binsplat_fwd(a, a.cpu(), a, a)
-    with pytest.raises(TypeError):
-        bk.binsplat_bwd(a, a, a, a, torch.zeros((6, 5, 7),
-                                                device=cuda_device).half())
+    p = [torch.zeros_like(a) for _ in range(3)]
+    g = torch.zeros((6, 5, 7), device=cuda_device)
+    if bad == "positions on the cpu":
+        p[0] = p[0].cpu()
+    elif bad == "a half":
+        a = a.half()
+    elif bad == "p_y short":
+        p[1] = p[1][:, :5].contiguous()
+    elif bad == "p_x not contiguous":
+        p[2] = p[2].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "a 3d":
+        a = a[0]
+    elif bad == "g half":
+        g = g.half()
+    else:
+        g = g[:, :4].contiguous()
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(error):
+        bk.binsplat_bwd(a, *p, g)
+    if not bad.startswith("g "):
+        with pytest.raises(error):
+            bk.binsplat_fwd(a, *p)
+    assert bk.LAUNCHES == before
