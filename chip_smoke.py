@@ -18,10 +18,14 @@ Phases, each printing one JSON line:
    integer-valued and zero velocities at max_disp 2 and 1, random at
    max_disp 3, the density slice's smooth swirl), K1, K2 and K3b also
    launched twice (bitwise equal) and K3b against K2 + K3 launched
-   separately (exactly equal); K4-K5 on the particle path's
+   separately (exactly equal); K2's untiled pull against the tiled one
+   at max_disp 2 and 8 (bitwise equal); past the tile plan (max_disp 9
+   and 12, 112x64x112) K2's untiled route against its plain twin and
+   K3b's route (K2 + K3) against K2 and K3; K4-K5 on the particle path's
    finest octave (200 000 particles of the particles_3d bench binned at
    96x64x96 with the styler's own capacity K: as binned, drifted +-0.5
-   cell, crowded past K = 2, integer positions), K4 also launched twice
+   cell, crowded past K = 2, integer positions), K5 also on the coarsest
+   octave's bins (30x20x30, its planned K), K4 also launched twice
    (bitwise equal). Each kernel, its plain
    version and the one PyTorch library call that computes the same
    function, where there is one, are timed: ``ms`` is the median of 30
@@ -31,7 +35,8 @@ Phases, each printing one JSON line:
    microseconds per call of the kernel's wrapper or the library call
    (100 calls behind a device sleep, median of 5 batches: the checks,
    allocation and launch alone); K2 and K3b also at max_disp 3 and on
-   the swirl.
+   the swirl, the untiled pull at max_disp 9 and 12, K5 also at the
+   coarsest octave.
    reference — small runs of the grid and particle slices on the GPU
    against the same runs on the CPU (plain versions; the CPU port is held
    against the JAX package by the tests).
@@ -41,9 +46,12 @@ Phases, each printing one JSON line:
 5. velocity — the velocity parameterization (config #4), one frame, W=1.
 6. fused_bwd_ab — 50 chained descent steps of sum(advect(f, v)^2) with
    gradients in f and v at 112x64x112 (bench/advect_bench.py's chain), ms
-   per step with ``FUSED_BWD`` off (K2 + K3) and on (K3b).
-7. velocity again with ``FUSED_BWD``: only K3b in the backward, losses
+   per step with ``FUSED_BWD`` off (K2 + K3) and on (K3b): K3b's path.
+7. velocity again with ``FUSED_BWD``: each advection there needs one
+   gradient, so the same K2 and K3 launches as phase 5 and no K3b, losses
    equal to phase 5's within rtol 1e-5.
+   far — the density slice's first frame with ``optim.max_disp`` 9 (K2's
+   untiled pull, R = 9), held against the same frame at max_disp 2.
 8. particle — the LNST path at the particles_3d bench widths:
    ``ParticleStyler.stylize_keyframes`` over 11 frames of 200 000
    particles on a 96x64x96 grid (keyframes 0 and 10), 3 octaves x 20
@@ -96,7 +104,11 @@ KERNELS = (
     ("bwd_fused", "advect_bwd_fused (K3b)",
      "nfs_tpu/ops/pallas_advect.py:301"),
 )
+UNTILED = ("bwd_field_untiled", "advect_bwd_field_untiled (K2, R > 8)",
+           "nfs_tpu/ops/pallas_advect.py:148")
 TOL = {"fwd": 1e-5, "bwd_field": 1e-4, "bwd_vel": 1e-4, "bwd_fused": 1e-4}
+# K2 past its tile plan: max_disp 9 and 12 (R = 9, 12)
+FAR_MAX_DISP = (9.0, 12.0)
 BIN_KERNELS = (
     ("fwd", "binsplat_fwd (K4)", "nfs_tpu/ops/pallas_binsplat.py:125"),
     ("bwd", "binsplat_bwd (K5)", "nfs_tpu/ops/pallas_binsplat.py:248"),
@@ -298,6 +310,7 @@ def _advect_pairs():
     return {
         "fwd": (lambda f, g, v, d: ak.advect_fwd(f, v, d),
                 lambda f, g, v, d: ak.advect_fwd_plain(f, v, d)),
+        # K2's wrapper takes the untiled pull past the tile plan (R > 8)
         "bwd_field": (lambda f, g, v, d: ak.advect_bwd_field(v, g, d),
                       lambda f, g, v, d: ak.advect_bwd_field_plain(v, g, d)),
         "bwd_vel": (lambda f, g, v, d: ak.advect_bwd_vel(f, v, g, d),
@@ -361,6 +374,15 @@ def phase_kernels(card: str):
         emit({"phase": "kernels", "case": case, "max_disp": md,
               "max_abs_err": case_err, "k3b_vs_k2_k3": split_err,
               "bitwise_repeat": True, "tol": TOL})
+    # K2's untiled pull, launched through its operator, gives the tiled
+    # pull's bits wherever the tile plan reaches (R = 2 and its last, 8)
+    for md in (2.0, 8.0):
+        f, g, v = _cuda_inputs("random", md, seed=7)
+        if not _equal(_untiled(v, g, md), ak.advect_bwd_field(v, g, md)):
+            raise AssertionError(f"K2 untiled differs from tiled at "
+                                 f"max_disp {md}")
+        emit({"phase": "kernels", "case": "random", "max_disp": md,
+              "k2_untiled_vs_tiled": "bitwise equal"})
 
     # times at the main path's shape: K1/K2 as the window loss runs them
     # (max_disp 2), K3 as the velocity parameter runs it (max_disp 1), K3b
@@ -383,11 +405,13 @@ def phase_kernels(card: str):
     return records
 
 
-def _time_advect(key: str, case: str, md: float, card: str) -> dict:
+def _time_advect(key: str, case: str, md: float, card: str,
+                 name: str | None = None) -> dict:
     """Kernel, plain version and library call of one advection kernel on
-    seed-99 inputs, each timed with :func:`_median_ms`, the kernel and
-    the library call also with :func:`_device_ms` and :func:`_host_us`,
-    and the least time; emits a kernel_time line and returns its
+    seed-99 inputs at SHAPE, each timed with :func:`_median_ms`, the
+    kernel and the library call also with :func:`_device_ms` and
+    :func:`_host_us`, and the least time; emits a kernel_time line under
+    ``name`` (the kernel's record name by default) and returns its
     numbers."""
     kern, plain = _advect_pairs()[key]
     f, g, v = _cuda_inputs(case, md, seed=99)
@@ -404,18 +428,76 @@ def _time_advect(key: str, case: str, md: float, card: str) -> dict:
          "library_host_us": _host_us(library)}
     t["bound_ms"], t["bound_by"] = _bound(4 * io_floats[key],
                                           OPS_PER_ELEMENT[key] * n)
-    name = next(nm for k, nm, _ in KERNELS if k == key)
+    name = name or next(nm for k, nm, _ in KERNELS if k == key)
     emit({"phase": "kernel_time", "kernel": name, "inputs": case,
           "max_disp": md, "shape": list(SHAPE), **t, "card": card})
     return t
+
+
+def _untiled(v, g, md):
+    """K2's untiled pull launched through its operator at any radius
+    (not counted: the wrapper counts its own launches)."""
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    return ak.load_library().advect_bwd_field_untiled(v, g, md,
+                                                      ak._radius(md))
+
+
+def phase_far_kernels(card: str):
+    """K2 past its tile plan (max_disp 9 and 12) at the main path's shape:
+    the wrapper's untiled pull against the plain twin, launched twice
+    bitwise equal; K3b's wrapper there (K2 + K3) against K2 and K3
+    launched separately (exactly equal) and against its plain version;
+    then the untiled pull timed at both. Returns its record at max_disp
+    9."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    kern, plain = _advect_pairs()["bwd_field"]
+    key, name, replaces = UNTILED
+    err = 0.0
+    for n, md in enumerate(FAR_MAX_DISP):
+        f, g, v = _cuda_inputs("random", md, seed=20 + n)
+        before = ak.LAUNCHES[key]
+        out = kern(f, g, v, md)
+        if ak.LAUNCHES[key] != before + 1:
+            raise AssertionError(f"max_disp {md}: K2 did not take its "
+                                 f"untiled route")
+        e = _max_err(out, plain(f, g, v, md))
+        fused = ak.advect_bwd_fused(f, v, g, md)
+        split_err = _max_err(fused, (out, ak.advect_bwd_vel(f, v, g, md)))
+        fused_err = _max_err(fused, ak.advect_bwd_fused_plain(f, v, g, md))
+        torch.cuda.synchronize()
+        if not (_all_finite(out) and e <= TOL["bwd_field"]
+                and fused_err <= TOL["bwd_fused"]):
+            raise AssertionError(f"max_disp {md}: K2 untiled err {e}, K3b "
+                                 f"route err {fused_err}")
+        if split_err != 0.0 or not _equal(out, kern(f, g, v, md)):
+            raise AssertionError(f"max_disp {md}: K3b's route differs from "
+                                 f"K2 + K3 ({split_err}) or two launches "
+                                 f"differ")
+        err = max(err, e)
+        emit({"phase": "kernels", "case": "random", "shape": list(SHAPE),
+              "max_disp": md, "max_abs_err": {key: e, "bwd_fused": fused_err},
+              "k3b_route_vs_k2_k3": split_err, "bitwise_repeat": True,
+              "tol": TOL})
+    times = [_time_advect("bwd_field", "random", md, card, name=name)
+             for md in FAR_MAX_DISP]
+    return {"name": name, "route": "cuda",
+            "source": "nfs_tpu_torch/csrc/advect.cu", "replaces": replaces,
+            "launches": None, "max_abs_err": err, **times[0],
+            "max_disp": FAR_MAX_DISP[0],
+            "at_max_disp_12": {k: times[1][k] for k in
+                               ("ms", "device_ms", "plain_ms", "library_ms")}}
 
 
 def _advect_library_call(key, f, g, v, md):
     """The one PyTorch call computing K1's function (``F.grid_sample`` at
     the clamped backtrace, zero padding, align_corners) or its backward,
     ``aten.grid_sampler_3d_backward``: asked for the input gradient alone
-    for K2, for both gradients for K3 and K3b. A yardstick only: the port
-    never calls it."""
+    for K2 (either route), for both gradients for K3 and K3b. A yardstick
+    only: the port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -423,7 +505,7 @@ def _advect_library_call(key, f, g, v, md):
 
     s = ak.backtrace(v, md)
     # normalised (x, y, z) sample grid, align_corners=True
-    grid = torch.stack([2.0 * s[a] / (SHAPE[a] - 1) - 1.0
+    grid = torch.stack([2.0 * s[a] / (f.shape[a] - 1) - 1.0
                         for a in (2, 1, 0)], dim=-1)[None].contiguous()
     inp = f[None, None]
     if key == "fwd":
@@ -436,10 +518,12 @@ def _advect_library_call(key, f, g, v, md):
         gout, inp, grid, 0, 0, True, mask)
 
 
-def _bin_inputs(case: str, K: int, seed: int):
-    """The finest octave's window operands for the particles_3d bench
-    particles: (a, p_z, p_y, p_x) as (K, Zp, Yp, Xp) CUDA tensors, the
-    cotangent g (Zp, Yp, Xp), and the occupied slots."""
+def _bin_inputs(case: str, K: int, seed: int, grid=P_GRID):
+    """The window operands of an octave of grid ``grid`` (the finest by
+    default) for the particles_3d bench particles, scaled to it as the
+    styler scales them: (a, p_z, p_y, p_x) as (K, Zp, Yp, Xp) CUDA
+    tensors, the cotangent g (Zp, Yp, Xp), the occupied slots and the
+    parked particles."""
     import torch
 
     from nfs_tpu_torch.ops import binsplat as B
@@ -451,12 +535,12 @@ def _bin_inputs(case: str, K: int, seed: int):
     elif case == "integer":    # integers and half-integers: _dw1d's ties
         x = np.round(2.0 * x) / 2.0
     dev = torch.device("cuda", 0)
-    xt = torch.from_numpy(x).to(dev)
-    bn = B.bin_particles(xt, P_GRID, K)
+    xt = torch.from_numpy(x).to(dev) * (grid[0] / P_GRID[0])
+    bn = B.bin_particles(xt, grid, K)
     if case == "drifted":
         xt = xt + torch.from_numpy(rng.uniform(
             -0.5, 0.5, x.shape).astype(np.float32)).to(dev)
-    pshape = B.padded_shape(P_GRID)
+    pshape = B.padded_shape(grid)
     n_slots = bn.valid.shape[0]
     p_b = B.to_binned(bn, xt)
     a_b = B.to_binned(bn, torch.from_numpy(
@@ -482,9 +566,23 @@ def _bench_particles(rng) -> np.ndarray:
             + np.array([8, 8, 8])).astype(np.float32)
 
 
-def phase_bin_kernels(card: str, K: int):
+def _live_slots(p4) -> int:
+    """Slots that some tap of K5 reaches: frac in (-1.5, 3.5) on every
+    axis (binsplat.cu)."""
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+
+    live = None
+    for f in bk._fracs(*p4):
+        ok = (f > -1.5) & (f < 3.5)
+        live = ok if live is None else live & ok
+    return int(live.sum())
+
+
+def phase_bin_kernels(card: str, K: int, coarse):
     """K4 and K5 against their plain versions on the particle path's
-    finest-octave operands; then timed on the 'binned' case."""
+    finest-octave operands, K5 also on the coarsest octave's (``coarse``:
+    its grid and the K the styler plans for it); then timed on the
+    'binned' case, K5 at both octaves."""
     import torch
 
     from nfs_tpu_torch.ops import binsplat_kernels as bk
@@ -500,9 +598,8 @@ def phase_bin_kernels(card: str, K: int):
                                  f"case {case}")
         case_err = {
             "fwd": float((out - bk.window_fwd_plain(a4, *p4)).abs().max()),
-            "bwd": max(float((x - y).abs().max()) for x, y in zip(
-                bk.binsplat_bwd(a4, *p4, g),
-                bk.window_bwd_plain(a4, *p4, g)))}
+            "bwd": _max_err(bk.binsplat_bwd(a4, *p4, g),
+                            bk.window_bwd_plain(a4, *p4, g))}
         torch.cuda.synchronize()
         for key, err in case_err.items():
             if not err <= BIN_TOL[key]:   # also catches NaN
@@ -512,48 +609,75 @@ def phase_bin_kernels(card: str, K: int):
             errs[key] = max(errs[key], err)
         emit({"phase": "kernels", "case": case, "K": k,
               "occupied_slots": occupied, "parked": parked,
-              "max_abs_err": case_err, "fwd_bitwise_repeat": True,
-              "tol": BIN_TOL})
+              "live_slots": _live_slots(p4), "max_abs_err": case_err,
+              "fwd_bitwise_repeat": True, "tol": BIN_TOL})
 
-    a4, p4, g, occupied, _ = _bin_inputs("binned", K, seed=99)
-    slots, cells = a4.numel(), g.numel()
-    calls = {"fwd": (lambda: bk.binsplat_fwd(a4, *p4),
-                     lambda: bk.window_fwd_plain(a4, *p4)),
-             "bwd": (lambda: bk.binsplat_bwd(a4, *p4, g),
-                     lambda: bk.window_bwd_plain(a4, *p4, g))}
-    # least bytes: each input the function needs read once, each output
-    # written once. K4's sum does not depend on an empty slot's (a == 0)
-    # positions, so it needs a of every slot but the positions only in
-    # the 32-byte sectors that hold an occupied slot; K5's da of an empty
-    # slot does depend on its positions, so it needs them all.
-    occ = (a4 != 0).reshape(-1).nonzero().squeeze(1)
-    pos_sectors = sum(_sectors(p, occ) for p in p4)
-    work = {"fwd": (4 * (slots + cells) + 32 * pos_sectors,
-                    OPS_PER_ELEMENT["binsplat_fwd"] * occupied),
-            "bwd": (4 * (8 * slots + cells),
-                    OPS_PER_ELEMENT["binsplat_bwd"] * slots)}
+    grid_c, K_c = coarse
+    coarse_in = _bin_inputs("binned", K_c, seed=98, grid=grid_c)
+    a4, p4, g = coarse_in[:3]
+    err = _max_err(bk.binsplat_bwd(a4, *p4, g),
+                   bk.window_bwd_plain(a4, *p4, g))
+    if not err <= BIN_TOL["bwd"]:
+        raise AssertionError(f"binsplat bwd disagrees with its plain "
+                             f"version at the coarsest octave: {err}")
+    errs["bwd"] = max(errs["bwd"], err)
+    emit({"phase": "kernels", "case": "binned, coarsest octave",
+          "grid": list(grid_c), "K": K_c, "occupied_slots": coarse_in[3],
+          "parked": coarse_in[4], "live_slots": _live_slots(p4),
+          "slots": a4.numel(), "max_abs_err": {"bwd": err}, "tol": BIN_TOL})
+
+    finest = _bin_inputs("binned", K, seed=99)
     records = []
     for key, name, replaces in BIN_KERNELS:
-        kern, plain = calls[key]
-        ms = _median_ms(kern)
-        plain_ms = _median_ms(plain)
-        device_ms = _device_ms(kern)
-        host_us = _host_us(kern)
-        bound_ms, bound_by = _bound(*work[key])
+        t = _time_bins(key, finest, card)
         records.append({"name": name, "route": "cuda",
                         "source": "nfs_tpu_torch/csrc/binsplat.cu",
                         "replaces": replaces, "launches": None,
-                        "max_abs_err": errs[key], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None,
-                        "device_ms": device_ms, "library_device_ms": None,
-                        "host_us": host_us, "library_host_us": None})
-        emit({"phase": "kernel_time", "kernel": name, "K": K,
-              "padded_grid": list(g.shape), "occupied_slots": occupied,
-              "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-              "host_us": host_us, "bound_ms": bound_ms,
-              "least_bytes": work[key][0], "card": card})
+                        "max_abs_err": errs[key], **t})
+    coarsest = _time_bins("bwd", coarse_in, card)
+    records[-1]["coarsest_octave"] = {
+        "grid": list(grid_c), "K": K_c,
+        **{k: coarsest[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "device_ms", "host_us")}}
     return records
+
+
+def _time_bins(key: str, inputs, card: str) -> dict:
+    """K4 (``key`` 'fwd') or K5 ('bwd') and its plain version on one
+    octave's bins, each timed with :func:`_median_ms`, the kernel also
+    with :func:`_device_ms` and :func:`_host_us`, and the least time;
+    emits a kernel_time line and returns the numbers. Least bytes: each
+    input the function needs read once, each output written once. K4's
+    sum does not depend on an empty slot's (a == 0) positions, so it
+    needs a of every slot but the positions only in the 32-byte sectors
+    that hold an occupied slot; K5's da of an empty slot does depend on
+    its positions, so it needs them all."""
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+
+    a4, p4, g, occupied, _ = inputs
+    slots, cells = a4.numel(), g.numel()
+    if key == "fwd":
+        kern = lambda: bk.binsplat_fwd(a4, *p4)     # noqa: E731
+        plain = lambda: bk.window_fwd_plain(a4, *p4)     # noqa: E731
+        occ = (a4 != 0).reshape(-1).nonzero().squeeze(1)
+        pos_sectors = sum(_sectors(p, occ) for p in p4)
+        work = (4 * (slots + cells) + 32 * pos_sectors,
+                OPS_PER_ELEMENT["binsplat_fwd"] * occupied)
+    else:
+        kern = lambda: bk.binsplat_bwd(a4, *p4, g)     # noqa: E731
+        plain = lambda: bk.window_bwd_plain(a4, *p4, g)     # noqa: E731
+        work = (4 * (8 * slots + cells),
+                OPS_PER_ELEMENT["binsplat_bwd"] * slots)
+    t = {"ms": _median_ms(kern), "plain_ms": _median_ms(plain),
+         "device_ms": _device_ms(kern), "host_us": _host_us(kern)}
+    t["bound_ms"], t["bound_by"] = _bound(*work)
+    t.update(library_ms=None, library_device_ms=None, library_host_us=None)
+    name = next(nm for k, nm, _ in BIN_KERNELS if k == key)
+    emit({"phase": "kernel_time", "kernel": name, "K": a4.shape[0],
+          "padded_grid": list(g.shape), "occupied_slots": occupied,
+          "live_slots": _live_slots(p4), **t, "least_bytes": work[0],
+          "card": card})
+    return t
 
 
 def _swirl_velocity(shape, t: int, cap: float = 1.5) -> np.ndarray:
@@ -781,11 +905,14 @@ def phase_density(card: str, frames_dir: str):
     return launches
 
 
-def phase_velocity(card: str, fused_bwd: bool = False, split_losses=None):
+def phase_velocity(card: str, fused_bwd: bool = False, split=None):
     """Velocity parameterization (config #4), one frame, W=1. Returns its
-    per-iteration losses. With ``fused_bwd`` the advection backward runs
-    K3b (``FUSED_BWD``) instead of K2 and K3: the launches are read from
-    this run alone and its losses are held against ``split_losses``."""
+    per-iteration losses and launches (read from this run alone). With
+    ``fused_bwd`` it runs under ``FUSED_BWD``: every advection of this
+    path needs one gradient (the density through the optimized velocity,
+    the window loss through the sim's), so the backward still runs K2 or
+    K3 alone, never K3b; the launches must equal those of the split run
+    ``split`` = (losses, launches), and its losses too."""
     import torch
 
     from nfs_tpu_torch.ops import advect_kernels as ak
@@ -800,8 +927,6 @@ def phase_velocity(card: str, fused_bwd: bool = False, split_losses=None):
     rng = np.random.default_rng(3)
     ds = _plume_density(SHAPE, 0, rng)[None]
     vs = _swirl_velocity(SHAPE, 0)[None]
-    if fused_bwd:
-        ak.reset_launches()
     before = dict(ak.LAUNCHES)
     ak.FUSED_BWD = fused_bwd
     try:
@@ -830,19 +955,20 @@ def phase_velocity(card: str, fused_bwd: bool = False, split_losses=None):
         if launches["bwd_vel"] <= 0:
             raise AssertionError(f"K3 not launched: {launches}")
         emit(record)
-        return losses
-    if not (launches["bwd_fused"] > 0 and launches["bwd_field"] == 0
-            and launches["bwd_vel"] == 0):
-        raise AssertionError(f"FUSED_BWD run launched {launches}")
-    # K3b's sums equal K2's and K3's term for term; what remains is the
-    # order in which the device sums the loss
+        return losses, launches
+    split_losses, split_launches = split
+    if launches != split_launches or launches["bwd_fused"] != 0:
+        raise AssertionError(f"FUSED_BWD run launched {launches}, the "
+                             f"split run {split_launches}")
+    # the same kernels on the same inputs; what may remain is the order
+    # in which the device sums the loss
     loss_rel = float(np.max(np.abs(losses - split_losses)
                             / np.abs(split_losses)))
     if not loss_rel <= 1e-5:
         raise AssertionError(f"FUSED_BWD losses depart from the split "
                              f"run's: {loss_rel}")
     emit(dict(record, loss_rel_vs_split=loss_rel, tol=1e-5))
-    return launches
+    return losses, launches
 
 
 def phase_fused_bwd_ab(card: str):
@@ -850,7 +976,9 @@ def phase_fused_bwd_ab(card: str):
     112x64x112, max_disp 2: 50 chained descent steps on sum(advect(f,
     v)^2), gradients in both f and v, with FUSED_BWD off (K2 + K3) and on
     (K3b), in turns off, on, on, off; ms per step is the median of each
-    setting's two runs."""
+    setting's two runs. The path of K3b: returns its launches in the two
+    runs with FUSED_BWD on (warm-ups included), read from this phase
+    alone."""
     import torch
 
     from nfs_tpu_torch.ops import advect_kernels as ak
@@ -874,17 +1002,28 @@ def phase_fused_bwd_ab(card: str):
 
     ms = {False: [], True: []}
     ends = {}
+    launches = {False: dict.fromkeys(ak.LAUNCHES, 0),
+                True: dict.fromkeys(ak.LAUNCHES, 0)}
     try:
         for fused in (False, True, True, False):
             ak.FUSED_BWD = fused
+            ak.reset_launches()
             chain(3)   # warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ends[fused] = chain(steps)
             torch.cuda.synchronize()
             ms[fused].append((time.perf_counter() - t0) * 1e3 / steps)
+            for k, n in ak.LAUNCHES.items():
+                launches[fused][k] += n
     finally:
         ak.FUSED_BWD = False
+    if not (launches[True]["bwd_fused"] > 0
+            and launches[True]["bwd_field"] == launches[True]["bwd_vel"] == 0
+            and launches[False]["bwd_fused"] == 0
+            and launches[False]["bwd_field"] > 0
+            and launches[False]["bwd_vel"] > 0):
+        raise AssertionError(f"fused/split runs launched {launches}")
     err = _max_err(ends[True], ends[False])
     if not err <= 1e-4:
         raise AssertionError(f"fused and split chains end apart: {err}")
@@ -893,7 +1032,59 @@ def phase_fused_bwd_ab(card: str):
           "ms_per_step_fused": ms[True],
           "fused_over_split": statistics.median(ms[True])
           / statistics.median(ms[False]),
-          "end_state_max_abs_diff": err, "card": card})
+          "end_state_max_abs_diff": err,
+          "launches": {"split": launches[False], "fused": launches[True]},
+          "card": card})
+    return launches[True]["bwd_fused"]
+
+
+def phase_far(card: str):
+    """The density slice's first frame at config #3 widths (W=1, 3
+    octaves x 2 iterations) with ``optim.max_disp`` 9: the window loss's
+    backward takes K2's untiled pull (R = 9). Then the same frame at
+    max_disp 2 (the tiled pull): the swirl's |v| <= 1.5 never reaches
+    either clamp, so both runs sum the same nonzero terms, and they are
+    held to the GPU-vs-CPU tolerances (the rest of the loss is not
+    bitwise repeatable). Returns the untiled pull's launches in the
+    max_disp 9 run, read from that run alone."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    rng = np.random.default_rng(4)
+    ds = _plume_density(SHAPE, 0, rng)[None]
+    vs = _swirl_velocity(SHAPE, 0)[None]
+    style = np.random.default_rng(1).random((256, 256, 3),
+                                            dtype=np.float32)
+    runs = {}
+    for md in (9.0, 2.0):
+        cfg = _northstar_cfg(**{"optim.iters": 2, "optim.max_disp": md})
+        styler = GridStyler(cfg, style_image=style, device="cuda")
+        ak.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [d.cpu().numpy() for _, d, _ in
+                styler.stylize_sequence(ds, vs, fused=0)]
+        seconds = time.perf_counter() - t0
+        runs[md] = (styler.frame_losses[0].cpu().numpy(), outs[0],
+                    dict(ak.LAUNCHES), seconds)
+    (l9, d9, n9, s9), (l2, d2, n2, s2) = runs[9.0], runs[2.0]
+    if not (n9["bwd_field_untiled"] > 0 and n9["bwd_field"] == 0
+            and n2["bwd_field"] > 0 and n2["bwd_field_untiled"] == 0):
+        raise AssertionError(f"max_disp 9 launched {n9}, 2 {n2}")
+    err = {"loss_rel": float(np.max(np.abs(l9 - l2) / np.abs(l2))),
+           "d_star_max_abs": float(np.abs(d9 - d2).max())}
+    if not (d9.shape == SHAPE and np.isfinite(d9).all()
+            and err["loss_rel"] <= 1e-4 and err["d_star_max_abs"] <= 1e-3):
+        raise AssertionError(f"max_disp 9 departs from max_disp 2: {err}")
+    emit({"phase": "far", "shape": list(SHAPE), "max_disp": 9.0,
+          "octave_n": 3, "iters": 2, "launches": n9,
+          "vs_max_disp_2": err, "tol": {"loss_rel": 1e-4,
+                                        "d_star_max_abs": 1e-3},
+          "seconds_incl_warmup": {"max_disp_9": s9, "max_disp_2": s2},
+          "card": card})
+    return n9["bwd_field_untiled"]
 
 
 def _all_frames_finite(store, frames: int, particles: bool) -> bool:
@@ -1114,9 +1305,10 @@ def _particle_cfg(**over):
     return replace(StyleConfig(), **base)
 
 
-def _finest_k() -> int:
-    """The bin capacity the styler plans for the finest octave of the
-    particle phase's first keyframe (its own `_octave_ks`, margin 2)."""
+def _octave_ks():
+    """((grid, K) of each octave): the bin capacities the styler plans
+    for the particle phase's first keyframe (its own `_octave_ks`, margin
+    2), coarsest first."""
     import torch
 
     from nfs_tpu_torch.ops.resize import octave_shapes
@@ -1126,7 +1318,7 @@ def _finest_k() -> int:
     styler = ParticleStyler(cfg, grid_shape=P_GRID, device="cuda")
     x = torch.from_numpy(_particle_frames(1)[0]).cuda()
     shapes = octave_shapes(P_GRID, cfg.optim.octave_n, cfg.optim.octave_scale)
-    return styler._octave_ks(x, None, shapes, margin=2)[-1]
+    return list(zip(shapes, styler._octave_ks(x, None, shapes, margin=2)))
 
 
 def phase_particle(card: str, profile: bool):
@@ -1354,21 +1546,25 @@ def main(argv=None) -> int:
 
     phase_build()
     records = phase_kernels(card)
-    bin_records = phase_bin_kernels(card, _finest_k())
+    far_record = phase_far_kernels(card)
+    octaves = _octave_ks()
+    bin_records = phase_bin_kernels(card, octaves[-1][1], octaves[0])
     phase_reference(card)
     phase_reference_particle(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
         phase_density(card, tmp)
-    split_losses = phase_velocity(card)
+    split = phase_velocity(card)
     # launches of the grid main path (density + velocity runs): the
     # counters were reset just before the density run
     from nfs_tpu_torch.ops import advect_kernels as ak
 
     launches = dict(ak.LAUNCHES)
-    phase_fused_bwd_ab(card)
-    # K3b's path: the velocity run with FUSED_BWD resets and reads its own
-    launches["bwd_fused"] = phase_velocity(
-        card, fused_bwd=True, split_losses=split_losses)["bwd_fused"]
+    # K3b's path, where both gradients are needed: the chain of the A/B,
+    # which resets and reads its own counters
+    launches["bwd_fused"] = phase_fused_bwd_ab(card)
+    phase_velocity(card, fused_bwd=True, split=split)
+    # the untiled pull's path: the density slice at max_disp 9
+    launches["bwd_field_untiled"] = phase_far(card)
     # the particle path resets and reads its own counters
     bin_launches = phase_particle(card, args.profile)
     if args.profile:
@@ -1378,6 +1574,7 @@ def main(argv=None) -> int:
         phase_northstar(card, tmp)
         phase_cli(card, tmp, smoke_dir)
     for recs, keys, counts in ((records, KERNELS, launches),
+                               ([far_record], (UNTILED,), launches),
                                (bin_records, BIN_KERNELS, bin_launches)):
         for rec, (key, _, _) in zip(recs, keys):
             rec["launches"] = counts[key]
@@ -1387,7 +1584,7 @@ def main(argv=None) -> int:
                         ("max_abs_err", "ms", "plain_ms", "device_ms",
                          "host_us", "bound_ms")):
                 raise AssertionError(f"bad numbers in {rec}")
-    emit({"kernels": records + bin_records})
+    emit({"kernels": records + [far_record] + bin_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,6 +4,7 @@
 // Replaces the Pallas TPU kernels of nfs_tpu/ops/pallas_advect.py:
 //   K1  advect_fwd_kernel       <- _fwd_kernel        (forward)
 //   K2  advect_bwd_field_kernel <- _bwd_field_kernel  (grad wrt the field)
+//       advect_bwd_field_untiled_kernel  (K2 past its tile plan, R > 8)
 //   K3  advect_bwd_vel_kernel   <- _bwd_vel_kernel    (grad wrt backtrace s)
 //   K3b advect_bwd_fused_kernel <- _bwd_fused_kernel  (K2 and K3 in one pass)
 //
@@ -23,20 +24,23 @@
 // is cheap, so K1 and K3 touch only the taps whose weight can be nonzero:
 // 8 corners for K1, 27 taps for K3 (s_a - 1 .. s_a + 1 around floor(s_a);
 // the tap at floor + 2 always has |u| > 1), neighbouring threads on
-// neighbouring x. K3 takes one thread per cell over the flat index and
-// is bound by memory on the H100 (one read of vel and g, 27 mostly-L1
-// reads of f, one write).
+// neighbouring x.
 //
-// K1 was first written that way too, and spent its issue slots on three
-// 64-bit divisions per cell and loop guards (PERF.md: 32% of its least
-// time). It now runs a 2D launch with 32-bit indices: a thread owns one
-// (y, x) and kFwdCellsZ cells along z, loads all their displacements
-// before it gathers, and clamps its upper corners instead of guarding
-// them. It
-// runs at ~40% of its least time, random and smooth displacements within
-// 10% of each other; staging f with its halo in shared memory lost to
-// the gather through L1 in every tile tried (PERF.md), so f is read
-// through L1.
+// K1 and K3 were first written with one thread per cell over the flat
+// index, and spent their issue slots on three 64-bit divisions per cell
+// and on loop guards (PERF.md: K1 at 32% of its least time, K3 at 25%).
+// Both now run a 2D launch with 32-bit indices: a thread owns one (y, x)
+// and a run of cells along z, and loads all their displacements (and, for
+// K3, cotangents) before it gathers. K1 clamps its upper corners instead
+// of guarding them (their weight is exactly 0 where they leave the grid).
+// K3 cannot: at a backtrace clamped to exactly 0 or n - 1 the tap outside
+// the grid has weight 0 but a tent derivative of -+0.5, so K3 zeroes
+// both along that axis instead, without a branch per tap. It also leaves
+// out the terms of weight +0 that every cell has (push_vel_grad): 36 of
+// its 81 products remain, from 20 of its 27 taps. K1 runs at ~40% of its
+// least time, random and smooth displacements within 10% of each other;
+// staging f with its halo in shared memory lost to the gather through L1
+// in every tile tried (PERF.md), so f is read through L1.
 //
 // K2 and K3b pull: cell j sums over the (2R+1)^3 source cells i within
 // R = ceil(max_disp) of it (a source further away backtraces to
@@ -64,9 +68,14 @@
 //
 // K3b also stages f over the tile with an (R+1)-halo, zero outside the
 // grid, which holds all 27 taps of every cell of the tile, and runs K3's
-// arithmetic on its staged s and f without a branch per tap (a tap
-// outside the grid adds +-0 instead of being skipped): its result equals
-// K2 + K3 to the bit.
+// arithmetic on its staged s and f: its result equals K2 + K3 to the bit.
+//
+// The tile of K2 plus its R-halo of sources outgrows the 227 KB a block
+// may stage past R = 8 (R = 7 for K3b, which also stages f). Past that
+// the wrapper launches advect_bwd_field_untiled_kernel: one thread per
+// cell, its (2R+1)^3 sources read and backtraced straight from device
+// memory (6 859 per cell at R = 9), in the same order and arithmetic, so
+// it gives the tiled pull's bits wherever both run.
 
 #include <cuda_runtime.h>
 
@@ -78,14 +87,6 @@ namespace {
 
 __device__ __forceinline__ float tent(float u) {
   return fmaxf(0.0f, 1.0f - fabsf(u));
-}
-
-// d/du max(0, 1 - |u|) with JAX's conventions (pallas_advect.py _dtent).
-__device__ __forceinline__ float dtent(float u) {
-  const float sgn = u >= 0.0f ? 1.0f : -1.0f;
-  const float au = fabsf(u);
-  const float mag = au < 1.0f ? 1.0f : (au == 1.0f ? 0.5f : 0.0f);
-  return -sgn * mag;
 }
 
 // Clamped backtrace coordinate along one axis.
@@ -177,44 +178,67 @@ struct Grad3 {
 };
 
 // K3's 27 taps at a cell with backtrace s, before the factor g of the
-// cell: sum_c d_a[prod tent](s - c) * f[c] for a = z, y, x. ``row(cz,
-// cy)[cx]`` is f at a tap, in global or shared memory. A tap outside the
-// grid reads a zero field value: it is skipped, or, with kZeroPadded
-// (``row`` reads 0 there), summed as its +-0 terms, which leave each sum
-// as it was (a sum that starts at +0 never becomes -0), so both give the
-// same bits and the padded form needs no branch.
-template <bool kZeroPadded, class Row>
-__device__ __forceinline__ Grad3 push_vel_grad(const float s[3], int D,
-                                               int H, int W, Row row) {
-  const int dims[3] = {D, H, W};
+// cell: sum_c d_a[prod tent](s - c) * f[c] for a = z, y, x, the taps in
+// (z, y, x) order, each term ((a * b) * c) * f with its pair product
+// a * b formed once per (tz, ty). ``tap(cz, cy, cx)`` reads f at a tap,
+// or anything finite at a tap outside the grid: there the tap's weight
+// and derivative along the axis it leaves by are taken as 0.
+//
+// Terms of weight +-0 are left out, which leaves each sum's bits as they
+// were for finite f (a sum that starts at +0 never becomes -0, and +-0
+// added to it changes nothing). The weight of the tap floor(s) - 1 is
+// always exactly +0 (|u| >= 1 there); only its derivative can be
+// nonzero (-0.5, at an integer s). So a term that multiplies that
+// weight is skipped at compile time: each sum keeps 12 of its 27 terms,
+// and the 7 taps with two axes at floor(s) - 1 are not read at all. A
+// tap outside the grid adds +-0 terms in place of the ones the sum would
+// skip, without a branch.
+//
+// s lies in [0, n - 1], so the three taps sit at u = s - c in [1, 2),
+// [0, 1) (the tap floor(s), always in the grid) and [-1, 0) (u computed
+// as the first version did; the rounding of s - c is monotone), where
+// the tent and its derivative with JAX's conventions (pallas_advect.py
+// _dtent) reduce to (+0, -0.5 at u == 1 else -0), (1 - u, -1) and
+// (1 + u, 0.5 at u == -1 else 1).
+template <class Tap>
+__device__ __forceinline__ Grad3 push_vel_grad(const float s[3],
+                                               const int n[3], Tap tap) {
   // Per axis: taps floor(s)-1 .. floor(s)+1, their tent weight and tent
-  // derivative; c < 0 marks a tap to skip.
-  int c[3][3];
+  // derivative, both 0 at a tap outside the grid.
+  int c[3];
   float w[3][3];
   float d[3][3];
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const int base = static_cast<int>(floorf(s[a])) - 1;
-    for (int t = 0; t < 3; ++t) {
-      const int ct = base + t;
-      const bool ok = kZeroPadded || (ct >= 0 && ct < dims[a]);
-      const float u = s[a] - static_cast<float>(ct);
-      c[a][t] = ok ? ct : -1;
-      w[a][t] = tent(u);
-      d[a][t] = dtent(u);
-    }
+    c[a] = static_cast<int>(floorf(s[a])) - 1;
+    const float u0 = s[a] - static_cast<float>(c[a]);
+    const float u1 = s[a] - static_cast<float>(c[a] + 1);
+    const float u2 = s[a] - static_cast<float>(c[a] + 2);
+    const bool in0 = c[a] >= 0;
+    const bool in2 = c[a] + 2 < n[a];
+    w[a][0] = 0.0f;
+    d[a][0] = in0 && u0 == 1.0f ? -0.5f : 0.0f;
+    w[a][1] = 1.0f - u1;
+    d[a][1] = -1.0f;
+    w[a][2] = in2 ? 1.0f + u2 : 0.0f;
+    d[a][2] = in2 ? (u2 == -1.0f ? 0.5f : 1.0f) : 0.0f;
   }
   float az = 0.0f, ay = 0.0f, ax = 0.0f;
+#pragma unroll
   for (int tz = 0; tz < 3; ++tz) {
-    if (!kZeroPadded && c[0][tz] < 0) continue;
+#pragma unroll
     for (int ty = 0; ty < 3; ++ty) {
-      if (!kZeroPadded && c[1][ty] < 0) continue;
-      const float* f_row = row(c[0][tz], c[1][ty]);
+      const float dw = d[0][tz] * w[1][ty];
+      const float wd = w[0][tz] * d[1][ty];
+      const float ww = w[0][tz] * w[1][ty];
+#pragma unroll
       for (int tx = 0; tx < 3; ++tx) {
-        if (!kZeroPadded && c[2][tx] < 0) continue;
-        const float f = f_row[c[2][tx]];
-        az += d[0][tz] * w[1][ty] * w[2][tx] * f;
-        ay += w[0][tz] * d[1][ty] * w[2][tx] * f;
-        ax += w[0][tz] * w[1][ty] * d[2][tx] * f;
+        // w[a][0] == +0: az needs ty, tx > 0; ay tz, tx > 0; ax tz, ty > 0
+        if ((tz == 0) + (ty == 0) + (tx == 0) > 1) continue;
+        const float f = tap(c[0] + tz, c[1] + ty, c[2] + tx);
+        if (ty > 0 && tx > 0) az += dw * w[2][tx] * f;
+        if (tz > 0 && tx > 0) ay += wd * w[2][tx] * f;
+        if (tz > 0 && ty > 0) ax += ww * d[2][tx] * f;
       }
     }
   }
@@ -229,25 +253,101 @@ __device__ __forceinline__ void store_grad_s(float* __restrict__ grad_s,
   grad_s[3 * idx + 2] = a.x * gi;
 }
 
-__global__ void advect_bwd_vel_kernel(const float* __restrict__ field,
-                                      const float* __restrict__ vel,
-                                      const float* __restrict__ g,
-                                      float* __restrict__ grad_s, int D,
-                                      int H, int W, float max_disp) {
-  const long long n = static_cast<long long>(D) * H * W;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % W);
-  const int y = static_cast<int>((idx / W) % H);
-  const int z = static_cast<int>(idx / (static_cast<long long>(W) * H));
-  const float s[3] = {backtrace(z, vel[3 * idx + 0], max_disp, D),
-                      backtrace(y, vel[3 * idx + 1], max_disp, H),
-                      backtrace(x, vel[3 * idx + 2], max_disp, W)};
-  const Grad3 a = push_vel_grad<false>(s, D, H, W, [=](int cz, int cy) {
-    return field + (static_cast<long long>(cz) * H + cy) * W;
-  });
-  store_grad_s(grad_s, idx, a, g[idx]);
+// K3's launch: blocks of kVelThreads threads along the (y, x) plane, each
+// thread taking kVelCellsZ cells along z (PERF.md gives the launches
+// tried).
+constexpr int kVelThreads = 256;
+constexpr int kVelCellsZ = 4;
+
+// K3: a thread owns one (y, x) of the plane and kVelCellsZ cells along z
+// at it, as K1's threads do, and loads the displacements and cotangents
+// of all its cells before it gathers. Indices are 32-bit within a plane;
+// the entry point refuses D * H or H * W past INT_MAX.
+__global__ void __launch_bounds__(kVelThreads)
+    advect_bwd_vel_kernel(const float* __restrict__ field,
+                          const float* __restrict__ vel,
+                          const float* __restrict__ g,
+                          float* __restrict__ grad_s, int D, int H, int W,
+                          float max_disp) {
+  const int plane = H * W;
+  const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (p >= plane) return;
+  const int y = p / W;
+  const int x = p - y * W;
+  const int z_begin = static_cast<int>(blockIdx.y) * kVelCellsZ;
+  float v[kVelCellsZ][3];
+  float gv[kVelCellsZ];
+#pragma unroll
+  for (int j = 0; j < kVelCellsZ; ++j) {
+    // a cell past the last plane loads the last plane's and stores nothing
+    const long long i =
+        static_cast<long long>(min(z_begin + j, D - 1)) * plane + p;
+    v[j][0] = vel[3 * i + 0];
+    v[j][1] = vel[3 * i + 1];
+    v[j][2] = vel[3 * i + 2];
+    gv[j] = g[i];
+  }
+  // a tap outside the grid reads its clamped neighbour
+  const int n[3] = {D, H, W};
+  const auto tap = [=](int cz, int cy, int cx) {
+    const int zc = min(max(cz, 0), D - 1);
+    const int yc = min(max(cy, 0), H - 1);
+    const int xc = min(max(cx, 0), W - 1);
+    return field[static_cast<long long>(zc * H + yc) * W + xc];
+  };
+#pragma unroll
+  for (int j = 0; j < kVelCellsZ; ++j) {
+    const int z = z_begin + j;
+    if (z >= D) break;
+    const float s[3] = {backtrace(z, v[j][0], max_disp, D),
+                        backtrace(y, v[j][1], max_disp, H),
+                        backtrace(x, v[j][2], max_disp, W)};
+    store_grad_s(grad_s, static_cast<long long>(z) * plane + p,
+                 push_vel_grad(s, n, tap), gv[j]);
+  }
+}
+
+// K2 past the tile plan: one thread per output cell (blockIdx.y its z),
+// its sources read and backtraced straight from device memory in
+// ascending (iz, iy, ix), each adding ((w_z * w_y) * w_x) * g, as the
+// tiled pull adds them: for finite g both give the same bits (the tiled
+// pull's extra terms of weight 0 add +-0). A source whose z or y weight
+// is 0 is skipped after its first load. Indices are 32-bit within a
+// plane.
+constexpr int kUntiledThreads = 256;
+
+__global__ void __launch_bounds__(kUntiledThreads)
+    advect_bwd_field_untiled_kernel(const float* __restrict__ vel,
+                                    const float* __restrict__ g,
+                                    float* __restrict__ grad_field, int D,
+                                    int H, int W, float max_disp, int R) {
+  const int plane = H * W;
+  const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (p >= plane) return;
+  const int y = p / W;
+  const int x = p - y * W;
+  const int z = static_cast<int>(blockIdx.y);
+  const float fz = static_cast<float>(z);
+  const float fy = static_cast<float>(y);
+  const float fx = static_cast<float>(x);
+  float acc = 0.0f;
+  for (int iz = max(z - R, 0); iz <= min(z + R, D - 1); ++iz) {
+    const float* vz = vel + 3 * static_cast<long long>(iz) * plane;
+    const float* gz = g + static_cast<long long>(iz) * plane;
+    for (int iy = max(y - R, 0); iy <= min(y + R, H - 1); ++iy) {
+      for (int ix = max(x - R, 0); ix <= min(x + R, W - 1); ++ix) {
+        const int k = iy * W + ix;
+        const float* vk = vz + 3 * static_cast<long long>(k);
+        const float wz = tent(backtrace(iz, vk[0], max_disp, D) - fz);
+        if (wz == 0.0f) continue;
+        const float wy = tent(backtrace(iy, vk[1], max_disp, H) - fy);
+        if (wy == 0.0f) continue;
+        const float wx = tent(backtrace(ix, vk[2], max_disp, W) - fx);
+        acc += wz * wy * wx * gz[k];
+      }
+    }
+  }
+  grad_field[static_cast<long long>(z) * plane + p] = acc;
 }
 
 // ---------------------------------------------------------------------
@@ -453,19 +553,19 @@ __global__ void advect_bwd_fused_kernel(const float* __restrict__ field,
     const float s[3] = {q.x, q.y, q.z};
     // every tap lies within R + 1 of the cell (|s - cell| <= max_disp <=
     // R), inside the staged f, which reads 0 outside the grid
-    const Grad3 a = push_vel_grad<true>(s, D, H, W, [=](int cz, int cy) {
-      return f0 + ((cz - z) * fb.ny + cy - y) * fb.nx - x;
+    const int n[3] = {D, H, W};
+    const Grad3 a = push_vel_grad(s, n, [=](int cz, int cy, int cx) {
+      return f0[((cz - z) * fb.ny + cy - y) * fb.nx + cx - x];
     });
     store_grad_s(grad_s, row + x + c, a, q.w);
   }
 }
 
-// K3: one thread per cell over the flat index.
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(int D, int H, int W) {
-  const long long n = static_cast<long long>(D) * H * W;
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+// The 2D launches of K1, K3 and the untiled K2 index a plane and a
+// column of planes with 32-bit integers.
+bool fits_32_bit(int D, int H, int W) {
+  return static_cast<long long>(H) * W <= INT_MAX &&
+         static_cast<long long>(D) * H <= INT_MAX;
 }
 
 // Dynamic shared memory a kernel may use without opting in, and the most
@@ -504,10 +604,7 @@ extern "C" {
 
 int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
                    int H, int W, float max_disp, int device, void* stream) {
-  if (static_cast<long long>(H) * W > INT_MAX ||
-      static_cast<long long>(D) * H > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!fits_32_bit(D, H, W)) return static_cast<int>(cudaErrorInvalidValue);
   return nfs::on_device(device, [&] {
     const dim3 grid((H * W + kFwdThreads - 1) / kFwdThreads,
                     (D + kFwdCellsZ - 1) / kFwdCellsZ);
@@ -540,11 +637,32 @@ int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
   });
 }
 
+// K2 past the tile plan, one thread per cell (any R >= 0).
+int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
+                                 void* grad_field, int D, int H, int W,
+                                 float max_disp, int R, int device,
+                                 void* stream) {
+  if (R < 0 || !fits_32_bit(D, H, W)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return nfs::on_device(device, [&] {
+    const dim3 grid((H * W + kUntiledThreads - 1) / kUntiledThreads, D);
+    advect_bwd_field_untiled_kernel<<<grid, kUntiledThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(vel), static_cast<const float*>(g),
+        static_cast<float*>(grad_field), D, H, W, max_disp, R);
+    return cudaGetLastError();
+  });
+}
+
 int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
                        void* grad_s, int D, int H, int W, float max_disp,
                        int device, void* stream) {
+  if (!fits_32_bit(D, H, W)) return static_cast<int>(cudaErrorInvalidValue);
   return nfs::on_device(device, [&] {
-    advect_bwd_vel_kernel<<<blocks_for(D, H, W), kThreads, 0,
+    const dim3 grid((H * W + kVelThreads - 1) / kVelThreads,
+                    (D + kVelCellsZ - 1) / kVelCellsZ);
+    advect_bwd_vel_kernel<<<grid, kVelThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(field), static_cast<const float*>(vel),
         static_cast<const float*>(g), static_cast<float*>(grad_s), D, H, W,

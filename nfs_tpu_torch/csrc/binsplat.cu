@@ -44,10 +44,22 @@
 //   reaches), not 27, a row of slots that is empty across the warp is
 //   skipped, and 40 registers a thread keep ~48 warps per SM in flight.
 //   Issued instructions and the latency of the loads of a then bound it.
-//   K5 gathers, as the TPU kernel does: one thread per slot (k, b)
-//   evaluates 3 weights and 3 derivatives per axis once and reads the 27
-//   cotangents g[b + off] (g is one (Z, Y, X) grid, small enough to stay
-//   in L2); memory-bound (4 bin arrays + g in, 4 bin arrays out).
+//   K5 gathers, as the TPU kernel does: each slot (k, b) evaluates 3
+//   weights and 3 derivatives per axis once and reads the 27 cotangents
+//   g[b + off] (g is one (Z, Y, X) grid, small enough to stay in L2). Its
+//   first version ran all 27 taps into four sums in every slot, with
+//   64-bit index arithmetic, at 29% of its least time (PERF.md). Yet a
+//   slot whose frac lies outside (-1.5, 3.5) along some axis has all three
+//   weights and derivatives 0 there: every term of its sums is +-0, so
+//   (for finite g) its sums are exactly +0, whatever its positions (empty
+//   and parked slots may hold any). ~93% of the slots are so at the
+//   particles_3d finest octave. So a warp takes a run of consecutive
+//   slots, streams their a and positions with coalesced loads, writes the
+//   dead slots' results at once, and lists the live ones in shared memory;
+//   then its lanes take the live slots 32 at a time, each computing one
+//   slot's sums in the first version's order and arithmetic. It stays
+//   deterministic (no atomics), its 32-bit indices come from a division
+//   by multiplication, and the eight bin arrays' bytes bound it.
 
 #include <cuda_runtime.h>
 
@@ -178,45 +190,112 @@ __global__ void __launch_bounds__(32 * kRows, kWarpsPerSm / kRows)
   }
 }
 
-__global__ void binsplat_bwd_kernel(
-    const float* __restrict__ a, const float* __restrict__ pz,
-    const float* __restrict__ py, const float* __restrict__ px,
-    const float* __restrict__ g, float* __restrict__ da,
-    float* __restrict__ dpz, float* __restrict__ dpy,
-    float* __restrict__ dpx, int K, int Z, int Y, int X) {
-  const long long cells = static_cast<long long>(Z) * Y * X;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= cells * K) return;
-  const long long b = i % cells;
-  const int bx = static_cast<int>(b % X);
-  const int by = static_cast<int>((b / X) % Y);
-  const int bz = static_cast<int>(b / (static_cast<long long>(X) * Y));
+// ---------------------------------------------------------------------
+// K5: a warp takes a run of kBwdRun consecutive slots of the flat slot
+// index (k, z, y, x); kBwdWarps warps a block.
+// ---------------------------------------------------------------------
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdSlotsPerLane = 4;
+constexpr int kBwdRun = 32 * kBwdSlotsPerLane;
+
+// Division of a dividend below 2^31 by a divisor fixed at launch, as a
+// multiplication (round-up method): n / d == umulhi(n, mul) >> shr, and
+// mul == 0 stands for d == 1. K5 runs 1% faster with it than with plain
+// unsigned / and % at the finest octave, 9% at the coarsest (PERF.md).
+struct FastDiv {
+  unsigned int d, mul, shr;
+};
+
+FastDiv fast_div(unsigned int d) {
+  if (d == 1) return {1u, 0u, 0u};
+  unsigned int l = 0;  // ceil(log2(d))
+  while ((1ull << l) < d) ++l;
+  const unsigned long long m = ((1ull << (31 + l)) + d - 1) / d;
+  return {d, static_cast<unsigned int>(m), l - 1};
+}
+
+__device__ __forceinline__ unsigned int div_by(FastDiv f, unsigned int n) {
+  return f.mul == 0u ? n : __umulhi(n, f.mul) >> f.shr;
+}
+
+// The slots' grid: divisions by Z * Y * X (one rank), X and Y.
+struct SlotGrid {
+  FastDiv cells, x, y;
+  int Z, Y, X, n_slots;
+};
+
+// The bin (bz, by, bx) of slot i.
+__device__ __forceinline__ void bin_of(const SlotGrid& sg, int i, int* bz,
+                                       int* by, int* bx) {
+  const unsigned int u = static_cast<unsigned int>(i);
+  const unsigned int b = u - div_by(sg.cells, u) * sg.cells.d;
+  const unsigned int q = div_by(sg.x, b);
+  const unsigned int z = div_by(sg.y, q);
+  *bx = static_cast<int>(b - q * sg.x.d);
+  *by = static_cast<int>(q - z * sg.y.d);
+  *bz = static_cast<int>(z);
+}
+
+// A slot is live when its frac lies in (-1.5, 3.5) along every axis; a
+// NaN frac is dead, as its weights are 0.
+__device__ __forceinline__ bool live_frac(float f) {
+  return f > -1.5f && f < 3.5f;
+}
+
+// The four sums of live slot i, in the order and arithmetic of the
+// one-thread-per-slot version this replaces: taps (oz, oy, ox) ascending,
+// each term ((a * b) * c) * g, its pair product a * b formed once per
+// (oz, oy). A tap beyond the grid reads g at a clamped address with its
+// weight and derivative along the axis it leaves by taken as 0: its +-0
+// terms leave each sum's bits as a loop that skips it would, for finite
+// g (a sum that starts at +0 never becomes -0).
+__device__ __forceinline__ void bwd_slot(
+    const SlotGrid& sg, int i, const float* __restrict__ a,
+    const float* __restrict__ pz, const float* __restrict__ py,
+    const float* __restrict__ px, const float* __restrict__ g,
+    float* __restrict__ da, float* __restrict__ dpz,
+    float* __restrict__ dpy, float* __restrict__ dpx) {
+  int bz, by, bx;
+  bin_of(sg, i, &bz, &by, &bx);
   const float fz = pz[i] + kPad - static_cast<float>(bz);
   const float fy = py[i] + kPad - static_cast<float>(by);
   const float fx = px[i] + kPad - static_cast<float>(bx);
   float wz[3], wy[3], wx[3], dz[3], dy[3], dx[3];
+  int rz[3], cy[3], cx[3];
+#pragma unroll
   for (int o = 0; o < 3; ++o) {
     const float of = static_cast<float>(o);
-    wz[o] = w1d(of - fz);
-    wy[o] = w1d(of - fy);
-    wx[o] = w1d(of - fx);
+    const bool in_z = bz + o < sg.Z;
+    const bool in_y = by + o < sg.Y;
+    const bool in_x = bx + o < sg.X;
+    wz[o] = in_z ? w1d(of - fz) : 0.0f;
+    wy[o] = in_y ? w1d(of - fy) : 0.0f;
+    wx[o] = in_x ? w1d(of - fx) : 0.0f;
     // du/dp = -1
-    dz[o] = -dw1d(of - fz);
-    dy[o] = -dw1d(of - fy);
-    dx[o] = -dw1d(of - fx);
+    dz[o] = in_z ? -dw1d(of - fz) : 0.0f;
+    dy[o] = in_y ? -dw1d(of - fy) : 0.0f;
+    dx[o] = in_x ? -dw1d(of - fx) : 0.0f;
+    rz[o] = min(bz + o, sg.Z - 1) * sg.Y;
+    cy[o] = min(by + o, sg.Y - 1);
+    cx[o] = min(bx + o, sg.X - 1);
   }
   float sa = 0.0f, sz = 0.0f, sy = 0.0f, sx = 0.0f;
-  for (int oz = 0; oz < 3 && bz + oz < Z; ++oz) {
-    for (int oy = 0; oy < 3 && by + oy < Y; ++oy) {
-      const float* grow =
-          g + (static_cast<long long>(bz + oz) * Y + (by + oy)) * X;
-      for (int ox = 0; ox < 3 && bx + ox < X; ++ox) {
-        const float gv = grow[bx + ox];
-        sa += wz[oz] * wy[oy] * wx[ox] * gv;
-        sz += dz[oz] * wy[oy] * wx[ox] * gv;
-        sy += wz[oz] * dy[oy] * wx[ox] * gv;
-        sx += wz[oz] * wy[oy] * dx[ox] * gv;
+#pragma unroll
+  for (int oz = 0; oz < 3; ++oz) {
+#pragma unroll
+    for (int oy = 0; oy < 3; ++oy) {
+      const float ww = wz[oz] * wy[oy];
+      const float dw = dz[oz] * wy[oy];
+      const float wd = wz[oz] * dy[oy];
+      const float* grow = g + (rz[oz] + cy[oy]) * sg.X;
+#pragma unroll
+      for (int ox = 0; ox < 3; ++ox) {
+        const float gv = grow[cx[ox]];
+        sa += ww * wx[ox] * gv;
+        sz += dw * wx[ox] * gv;
+        sy += wd * wx[ox] * gv;
+        sx += ww * dx[ox] * gv;
       }
     }
   }
@@ -227,11 +306,64 @@ __global__ void binsplat_bwd_kernel(
   dpx[i] = sx * av;
 }
 
-// K5: one thread per slot.
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+// K5. Each lane loads a and the positions of kBwdSlotsPerLane slots of the
+// warp's run (slot run + lane + 32 j, coalesced), all before it uses them;
+// a dead slot gets da = +0 and dp_d = (+0) * a (the first version's sums
+// of +-0 terms, -0 where a < 0) at once, and a live one goes on the
+// warp's list by ballot. The warp's lanes then take the listed slots in
+// turn, so a warp with a few live lanes per row does not pay 32 lanes'
+// taps for each row. Every slot's result is computed by one thread.
+__global__ void __launch_bounds__(32 * kBwdWarps)
+    binsplat_bwd_kernel(const float* __restrict__ a,
+                        const float* __restrict__ pz,
+                        const float* __restrict__ py,
+                        const float* __restrict__ px,
+                        const float* __restrict__ g, float* __restrict__ da,
+                        float* __restrict__ dpz, float* __restrict__ dpy,
+                        float* __restrict__ dpx, SlotGrid sg) {
+  __shared__ int live[kBwdWarps][kBwdRun];
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int run =
+      (static_cast<int>(blockIdx.x) * kBwdWarps + warp) * kBwdRun;
+  float av[kBwdSlotsPerLane], qz[kBwdSlotsPerLane], qy[kBwdSlotsPerLane],
+      qx[kBwdSlotsPerLane];
+#pragma unroll
+  for (int j = 0; j < kBwdSlotsPerLane; ++j) {
+    // a lane past the last slot loads the last slot and stores nothing
+    const int i = min(run + lane + 32 * j, sg.n_slots - 1);
+    av[j] = a[i];
+    qz[j] = pz[i];
+    qy[j] = py[i];
+    qx[j] = px[i];
+  }
+  int* list = live[warp];
+  int n_live = 0;
+#pragma unroll
+  for (int j = 0; j < kBwdSlotsPerLane; ++j) {
+    const int i = run + lane + 32 * j;
+    bool is_live = false;
+    if (i < sg.n_slots) {
+      int bz, by, bx;
+      bin_of(sg, i, &bz, &by, &bx);
+      is_live = live_frac(qz[j] + kPad - static_cast<float>(bz)) &&
+                live_frac(qy[j] + kPad - static_cast<float>(by)) &&
+                live_frac(qx[j] + kPad - static_cast<float>(bx));
+      if (!is_live) {
+        da[i] = 0.0f;
+        dpz[i] = 0.0f * av[j];
+        dpy[i] = 0.0f * av[j];
+        dpx[i] = 0.0f * av[j];
+      }
+    }
+    const unsigned int ballot = __ballot_sync(kFullWarp, is_live);
+    if (is_live) list[n_live + __popc(ballot & ((1u << lane) - 1u))] = i;
+    n_live += __popc(ballot);
+  }
+  __syncwarp();
+  for (int e = lane; e < n_live; e += 32) {
+    bwd_slot(sg, list[e], a, pz, py, px, g, da, dpz, dpy, dpx);
+  }
 }
 
 }  // namespace
@@ -261,19 +393,32 @@ int nfs_binsplat_fwd(const void* a, const void* pz, const void* py,
   });
 }
 
+// K5; refuses K * Z * Y * X past INT_MAX less a block's slots (32-bit
+// slot indices).
 int nfs_binsplat_bwd(const void* a, const void* pz, const void* py,
                      const void* px, const void* g, void* da, void* dpz,
                      void* dpy, void* dpx, int K, int Z, int Y, int X,
                      int device, void* stream) {
+  constexpr long long kBlockSlots = kBwdWarps * kBwdRun;
+  const long long slots = static_cast<long long>(K) * Z * Y * X;
+  if (slots > INT_MAX - kBlockSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (slots == 0) return static_cast<int>(cudaSuccess);
+  const SlotGrid sg = {fast_div(static_cast<unsigned int>(Z * Y * X)),
+                       fast_div(static_cast<unsigned int>(X)),
+                       fast_div(static_cast<unsigned int>(Y)),
+                       Z, Y, X, static_cast<int>(slots)};
   return nfs::on_device(device, [&] {
-    const long long slots = static_cast<long long>(K) * Z * Y * X;
-    binsplat_bwd_kernel<<<blocks_for(slots), kThreads, 0,
+    const unsigned int blocks =
+        static_cast<unsigned int>((slots + kBlockSlots - 1) / kBlockSlots);
+    binsplat_bwd_kernel<<<blocks, 32 * kBwdWarps, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(a), static_cast<const float*>(pz),
         static_cast<const float*>(py), static_cast<const float*>(px),
         static_cast<const float*>(g), static_cast<float*>(da),
         static_cast<float*>(dpz), static_cast<float*>(dpy),
-        static_cast<float*>(dpx), K, Z, Y, X);
+        static_cast<float*>(dpx), sg);
     return cudaGetLastError();
   });
 }

@@ -29,6 +29,10 @@ int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
                          int D, int H, int W, float max_disp, int R, int TZ,
                          int TY, int TX, int smem_bytes, int device,
                          void* stream);
+int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
+                                 void* grad_field, int D, int H, int W,
+                                 float max_disp, int R, int device,
+                                 void* stream);
 int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
                        void* grad_s, int D, int H, int W, float max_disp,
                        int device, void* stream);
@@ -123,6 +127,21 @@ Tensor advect_bwd_field(const Tensor& vel, const Tensor& g, double max_disp,
                                 static_cast<int>(smem_bytes), device.index(),
                                 current_stream(device)),
            "advect_bwd_field");
+  return out;
+}
+
+Tensor advect_bwd_field_untiled(const Tensor& vel, const Tensor& g,
+                                double max_disp, int64_t R) {
+  const Grid n = grid_of("g", g);
+  const at::Device device = g.device();
+  check("g", g, n.cells, device);
+  check("vel", vel, n.vec, device);
+  Tensor out = at::empty_like(g);
+  raise_on(nfs_advect_bwd_field_untiled(
+               vel.data_ptr(), g.data_ptr(), out.data_ptr(), n.D, n.H, n.W,
+               static_cast<float>(max_disp), static_cast<int>(R),
+               device.index(), current_stream(device)),
+           "advect_bwd_field_untiled");
   return out;
 }
 
@@ -221,6 +240,9 @@ TORCH_LIBRARY(nfs_tpu_torch, m) {
       "advect_bwd_field(Tensor vel, Tensor g, float max_disp, int R, int TZ, "
       "int TY, int TX, int smem_bytes) -> Tensor");
   m.def(
+      "advect_bwd_field_untiled(Tensor vel, Tensor g, float max_disp, int R) "
+      "-> Tensor");
+  m.def(
       "advect_bwd_vel(Tensor field, Tensor vel, Tensor g, float max_disp) "
       "-> Tensor");
   m.def(
@@ -235,6 +257,7 @@ TORCH_LIBRARY(nfs_tpu_torch, m) {
 TORCH_LIBRARY_IMPL(nfs_tpu_torch, CUDA, m) {
   m.impl("advect_fwd", &advect_fwd);
   m.impl("advect_bwd_field", &advect_bwd_field);
+  m.impl("advect_bwd_field_untiled", &advect_bwd_field_untiled);
   m.impl("advect_bwd_vel", &advect_bwd_vel);
   m.impl("advect_bwd_fused", &advect_bwd_fused);
   m.impl("binsplat_fwd", &binsplat_fwd);

@@ -1,16 +1,18 @@
 """Bounded-displacement advection kernels K1-K3b and their plain twins.
 
-Counterpart of ``nfs_tpu/ops/pallas_advect.py``. Four CUDA kernels in
-``nfs_tpu_torch/csrc/advect.cu`` replace its four Pallas kernels:
+Counterpart of ``nfs_tpu/ops/pallas_advect.py``. Five CUDA kernels in
+``nfs_tpu_torch/csrc/advect.cu`` replace its four Pallas kernels (K2 has
+two, by radius):
 
-=========  ==========================================  ===================
-launch     CUDA kernel (advect.cu)                     replaces
-=========  ==========================================  ===================
-fwd        ``advect_fwd_kernel``        (K1)           ``_fwd_kernel``
-bwd_field  ``advect_bwd_field_kernel``  (K2)           ``_bwd_field_kernel``
-bwd_vel    ``advect_bwd_vel_kernel``    (K3)           ``_bwd_vel_kernel``
-bwd_fused  ``advect_bwd_fused_kernel``  (K3b)          ``_bwd_fused_kernel``
-=========  ==========================================  ===================
+=================  ==========================================  ===================
+launch             CUDA kernel (advect.cu)                     replaces
+=================  ==========================================  ===================
+fwd                ``advect_fwd_kernel``        (K1)           ``_fwd_kernel``
+bwd_field          ``advect_bwd_field_kernel``  (K2)           ``_bwd_field_kernel``
+bwd_field_untiled  ``advect_bwd_field_untiled_kernel`` (K2)    ``_bwd_field_kernel``
+bwd_vel            ``advect_bwd_vel_kernel``    (K3)           ``_bwd_vel_kernel``
+bwd_fused          ``advect_bwd_fused_kernel``  (K3b)          ``_bwd_fused_kernel``
+=================  ==========================================  ===================
 
 Each wrapper (:func:`advect_fwd`, :func:`advect_bwd_field`,
 :func:`advect_bwd_vel`, :func:`advect_bwd_fused`) takes f32 contiguous
@@ -21,22 +23,26 @@ runs its plain PyTorch twin (``*_plain``); on a CUDA tensor it launches
 the kernel and counts the launch in :data:`LAUNCHES`, or raises. There
 is no fallback from CUDA to the plain twin.
 
-:class:`AdvectWindow`'s backward runs K2 and K3 (split, the default) or,
-with the module flag :data:`FUSED_BWD` set, K3b once for both gradients,
-as the JAX package's ``FUSED_BWD`` does. The flag is read at backward
-time.
+:class:`AdvectWindow`'s backward runs K2 for the field's gradient and K3
+for the displacement's, each only when it is asked for. With the module
+flag :data:`FUSED_BWD` set, a backward that needs both runs K3b once for
+the two, as the JAX package's ``FUSED_BWD`` does. The flag is read at
+backward time.
 
 The TPU kernels evaluate every tap of the (2K+1)^3 window from VMEM
 because a gather is slow on the TPU. On Hopper a gather through L1 is
 cheap, so the kernels visit only the taps whose weight can be nonzero
-(8 for K1, 27 for K3, (2R+1)^3 source cells for K2 and K3b with
-R = ceil(max_disp)); the result equals the window sum. K1 gives each
-thread one (y, x) and a run of cells along z; it stages nothing, so any
-shape and max_disp launches. K2 and K3b give each block a tile of
-output cells and stage its sources, with an R-cell halo, in shared
-memory; :func:`_pull_plan` picks the tile and its bytes from R. What
-bounds each kernel on the H100 and what the design does about it is
-noted in ``advect.cu``.
+(8 for K1, 20 of 27 for K3, (2R+1)^3 source cells for K2 and K3b with
+R = ceil(max_disp)); the result equals the window sum. K1 and K3 give
+each thread one (y, x) and a run of cells along z; they stage nothing,
+so any shape and max_disp launches. K2 and K3b give each block a tile
+of output cells and stage its sources, with an R-cell halo, in shared
+memory; :func:`_pull_plan` picks the tile and its bytes from R. Past
+R = 8 (R = 7 for K3b) no tile fits: K2 then launches its untiled pull
+(one thread per cell, sources read from device memory; the same bits),
+and K3b's wrapper runs K2 and K3. The route is chosen from R alone,
+before any launch. What bounds each kernel on the H100 and what the
+design does about it is noted in ``advect.cu``.
 
 The library is built with ``nvcc`` for ``sm_90a`` from the repository's
 own source at first use into ``build/nfs_tpu_torch/`` next to the
@@ -60,11 +66,12 @@ from nfs_tpu_torch.ops import _cuda_build
 
 # Launch counts of the CUDA kernels; each wrapper adds one where it
 # launches, and nowhere else.
-LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_field": 0, "bwd_vel": 0,
+LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_field": 0,
+                            "bwd_field_untiled": 0, "bwd_vel": 0,
                             "bwd_fused": 0}
 
-# Backward of AdvectWindow: False runs K2 and K3 (each only when its
-# gradient is asked for), True runs K3b once for both (pallas_advect.py
+# Backward of AdvectWindow: K2 and K3, each only when its gradient is
+# asked for; with True, K3b once where both are (pallas_advect.py
 # FUSED_BWD). Read at backward time, so an A/B flips it between steps.
 FUSED_BWD = False
 
@@ -282,9 +289,9 @@ def _pull_plan(R: int, fused: bool = False):
     """(TZ, TY, TX, shared-memory bytes) of K2's or K3b's tile at radius
     R: :data:`PULL_TILE`, with TZ and then TY halved until the staged
     bytes fit in :data:`SMEM_LIMIT`. TX stays 24 (8 threads of
-    :data:`CELLS_X` cells). Raises ValueError where even a 1 x 1 x 24 tile
-    does not fit: R > 8 for K2, R > 7 for K3b (max_disp above 8 or 7
-    cells)."""
+    :data:`CELLS_X` cells). None where even a 1 x 1 x 24 tile does not
+    fit: R > 8 for K2, R > 7 for K3b (max_disp above 8 or 7 cells), where
+    the wrappers take the untiled route. Raises ValueError for R < 0."""
     if R < 0:
         raise ValueError(f"advection radius must be >= 0, got {R}")
     tz, ty, tx = PULL_TILE
@@ -297,11 +304,7 @@ def _pull_plan(R: int, fused: bool = False):
         elif ty > 1:
             ty //= 2
         else:
-            raise ValueError(
-                f"{'K3b' if fused else 'K2'} at radius R = {R} (max_disp "
-                f"> {R - 1}) stages {nbytes} B of shared memory even for a "
-                f"1 x 1 x {tx} tile, more than the {SMEM_LIMIT} B a block "
-                f"may use")
+            return None
 
 
 def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
@@ -319,12 +322,19 @@ def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
 
 def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
                      max_disp: float) -> torch.Tensor:
-    """K2: gradient wrt the advected field, (D, H, W). On CUDA, raises
-    ValueError for max_disp > 8 (:func:`_pull_plan`)."""
+    """K2: gradient wrt the advected field, (D, H, W). On CUDA, the tiled
+    pull up to R = ceil(max_disp) = 8 and the untiled pull beyond
+    (:func:`_pull_plan`), any max_disp >= 0."""
     if g.is_cuda:
         R = _radius(max_disp)
+        plan = _pull_plan(R)
+        if plan is None:
+            out = load_library().advect_bwd_field_untiled.default(
+                vel, g, float(max_disp), R)
+            LAUNCHES["bwd_field_untiled"] += 1
+            return out
         out = load_library().advect_bwd_field.default(
-            vel, g, float(max_disp), R, *_pull_plan(R))
+            vel, g, float(max_disp), R, *plan)
         LAUNCHES["bwd_field"] += 1
         return out
     D, H, W = g.shape
@@ -350,12 +360,17 @@ def advect_bwd_vel(field: torch.Tensor, vel: torch.Tensor,
 def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
                      g: torch.Tensor, max_disp: float):
     """K3b: (gradient wrt the field (D, H, W), gradient wrt s
-    (D, H, W, 3)) in one launch. On CUDA, raises ValueError for
-    max_disp > 7 (:func:`_pull_plan`)."""
+    (D, H, W, 3)) in one launch. On CUDA past K3b's tile plan (R =
+    ceil(max_disp) > 7) it runs K2 and K3 instead, which give K3b's
+    bits, and counts their launches."""
     if field.is_cuda:
         R = _radius(max_disp)
+        plan = _pull_plan(R, fused=True)
+        if plan is None:
+            return (advect_bwd_field(vel, g, max_disp),
+                    advect_bwd_vel(field, vel, g, max_disp))
         grads = load_library().advect_bwd_fused.default(
-            field, vel, g, float(max_disp), R, *_pull_plan(R, fused=True))
+            field, vel, g, float(max_disp), R, *plan)
         LAUNCHES["bwd_fused"] += 1
         return grads
     D, H, W = field.shape
@@ -367,10 +382,10 @@ def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
 class AdvectWindow(torch.autograd.Function):
     """Differentiable bounded-displacement advection of a 3D scalar field
     with a clamp boundary: ``AdvectWindow.apply(field, vel_times_dt,
-    max_disp)``. Counterpart of ``advect_pallas``' custom VJP. The split
+    max_disp)``. Counterpart of ``advect_pallas``' custom VJP. The
     backward runs K2 only when the field needs a gradient and K3 only
-    when the displacement does; with :data:`FUSED_BWD` it runs K3b once
-    whenever either does, and returns only the gradients asked for."""
+    when the displacement does; with :data:`FUSED_BWD` a backward that
+    needs both runs K3b once instead (the same values)."""
 
     @staticmethod
     def forward(ctx, field, vel, max_disp):
@@ -386,10 +401,9 @@ class AdvectWindow(torch.autograd.Function):
         g = g.contiguous()
         need_field, need_vel = ctx.needs_input_grad[:2]
         grad_field = grad_vel = grad_s = None
-        if FUSED_BWD and (need_field or need_vel):
-            gf, gs = advect_bwd_fused(field, vel, g, ctx.max_disp)
-            grad_field = gf if need_field else None
-            grad_s = gs if need_vel else None
+        if FUSED_BWD and need_field and need_vel:
+            grad_field, grad_s = advect_bwd_fused(field, vel, g,
+                                                  ctx.max_disp)
         else:
             if need_field:
                 grad_field = advect_bwd_field(vel, g, ctx.max_disp)

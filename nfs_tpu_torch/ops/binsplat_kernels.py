@@ -31,8 +31,11 @@ slot layout is rank-major, so ``attr_b[:n_slots]`` already views as
 K4 gives each warp a row of output cells along x and each lane a column
 of cells along z; a lane computes its own slot's weights once per row of
 slots and passes them to the lanes beside it. It stages nothing in
-shared memory, so its launch does not depend on K.
-``binsplat.cu`` notes what bounds each kernel on the H100 and what the
+shared memory, so its launch does not depend on K. K5 gives each warp a
+run of consecutive slots: it writes the slots that no tap reaches (frac
+outside (-1.5, 3.5) along some axis, whatever their positions) at once
+and computes the others' sums, one slot a lane, from a list in shared
+memory. ``binsplat.cu`` notes what bounds each kernel on the H100 and what the
 design does about it.
 
 The library is built with ``nvcc`` for ``sm_90a`` at first use. On

@@ -262,8 +262,9 @@ def test_operators_match_the_wrappers():
     wrappers = "".join(Path(m.__file__).read_text() for m in (ak, bk))
     called = set(re.findall(r"load_library\(\)\.(\w+)\.default", wrappers))
     assert defined == registered == called == {
-        "advect_fwd", "advect_bwd_field", "advect_bwd_vel",
-        "advect_bwd_fused", "binsplat_fwd", "binsplat_bwd"}
+        "advect_fwd", "advect_bwd_field", "advect_bwd_field_untiled",
+        "advect_bwd_vel", "advect_bwd_fused", "binsplat_fwd",
+        "binsplat_bwd"}
     sources = "".join((_cuda_build.CSRC / src).read_text()
                       for src, _ in _cuda_build.KERNEL_SOURCES)
     entry = set(re.findall(r"^int (nfs_\w+)\(", sources, re.M))
@@ -315,9 +316,9 @@ def test_fused_backward_equals_split(monkeypatch, kind):
 
 
 def test_fused_backward_runs_one_kernel_for_what_is_asked(monkeypatch):
-    """With FUSED_BWD the backward calls K3b once whether one or both
-    inputs need a gradient, never K2 or K3, and returns only the
-    gradients asked for."""
+    """With FUSED_BWD the backward calls K3b once where both inputs need a
+    gradient, and K2 alone or K3 alone where only one does, never K3b
+    then; it returns only the gradients asked for."""
     calls = []
     for name in ("advect_bwd_field", "advect_bwd_vel", "advect_bwd_fused"):
         orig = getattr(ak, name)
@@ -325,11 +326,14 @@ def test_fused_backward_runs_one_kernel_for_what_is_asked(monkeypatch):
             ak, name, lambda *a, _o=orig, _n=name: calls.append(_n) or _o(*a))
     monkeypatch.setattr(ak, "FUSED_BWD", True)
     f, v, _ = _case("random", shape=(5, 6, 7))
-    for need_f, need_v in ((True, False), (False, True), (True, True)):
+    for need_f, need_v, called in (
+            (True, False, ["advect_bwd_field"]),
+            (False, True, ["advect_bwd_vel"]),
+            (True, True, ["advect_bwd_fused"])):
         ft = torch.tensor(f, requires_grad=need_f)
         vt = torch.tensor(v, requires_grad=need_v)
         ak.AdvectWindow.apply(ft, vt, 2.0).sum().backward()
-        assert calls == ["advect_bwd_fused"]
+        assert calls == called
         assert (ft.grad is not None, vt.grad is not None) == (need_f, need_v)
         calls.clear()
 
@@ -379,10 +383,39 @@ def test_pull_plan_fits_shared_memory(R):
 
 
 def test_pull_plan_raises_past_its_limit():
-    """K2 takes R up to 8 and K3b up to 7; past that even a 1 x 1 x 24
-    tile does not fit, and the plan raises instead of falling back."""
+    """K2 takes a tile up to R = 8 and K3b up to 7; past that even a
+    1 x 1 x 24 tile does not fit, and the plan returns None (the
+    wrappers' untiled route) instead of a tile; a negative radius still
+    raises."""
     assert ak._pull_plan(8)[:3] == (1, 4, 24)
     assert ak._pull_plan(7, fused=True)[:3] == (1, 4, 24)
-    for R, fused in ((9, False), (8, True), (12, False), (-1, False)):
+    for R, fused in ((9, False), (8, True), (12, False), (40, True)):
+        assert ak._pull_plan(R, fused) is None
+    for fused in (False, True):
         with pytest.raises(ValueError):
-            ak._pull_plan(R, fused)
+            ak._pull_plan(-1, fused)
+
+
+def test_matches_jax_past_the_tile_plan():
+    """At max_disp 9.5 (R = 10, past both tile plans, where the CUDA
+    wrappers take the untiled pull and K2 + K3) the port's value and both
+    gradients through ``advect`` match the JAX package's XLA window, with
+    displacements reaching across most of the grid and the largest
+    clamped."""
+    rng = np.random.default_rng(21)
+    shape = (12, 14, 20)
+    f = rng.random(shape, dtype=np.float32)
+    v = 4.0 * rng.standard_normal(shape + (3,), dtype=np.float32)
+    w = rng.standard_normal(shape, dtype=np.float32)
+    assert (np.abs(v) > 9.5).any() and (np.abs(v) > 3.0).mean() > 0.4
+
+    def loss(f, v):
+        out = jax_advect(f, v, max_disp=9.5, impl="xla")
+        return jnp.sum(out * w), out
+
+    # value and both gradients from one compile of the 23-tap window
+    (_, out), (gf, gv) = jax.value_and_grad(loss, argnums=(0, 1),
+                                            has_aux=True)(
+        jnp.asarray(f), jnp.asarray(v))
+    want = (np.asarray(out), np.asarray(gf), np.asarray(gv))
+    _assert_match(_torch_value_and_grads(f, v, w, 9.5), want)

@@ -12,6 +12,7 @@ order (measured <= 3.0e-7 in values and <= 7.2e-7 in gradients).
 """
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -263,6 +264,51 @@ def test_window_plain_versions_match_generic():
         torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
     empty = (a4 == 0)
     assert float(dpz[empty].abs().max()) == 0.0
+
+
+def _slot_bins(frac_z, a, pshape=(6, 5, 7), K=2, seed=9):
+    """(a4, [p_z, p_y, p_x], g) of K ranks on the padded grid ``pshape``
+    where every slot has frac_z (p_z + PAD - b_z) and attribute ``a``
+    broadcast over the slots, and frac 1.3 along y and x; g is seeded."""
+    Z, Y, X = pshape
+    shape = (K,) + pshape
+    b = [torch.arange(n, dtype=torch.float32) for n in pshape]
+    pz = (torch.as_tensor(frac_z, dtype=torch.float32) - TB.PAD
+          + b[0].view(Z, 1, 1)).expand(shape).contiguous()
+    py = (1.3 - TB.PAD + b[1].view(Y, 1)).expand(shape).contiguous()
+    px = (1.3 - TB.PAD + b[2]).expand(shape).contiguous()
+    a4 = torch.as_tensor(a, dtype=torch.float32).expand(shape).contiguous()
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        pshape).astype(np.float32))
+    return a4, [pz, py, px], g
+
+
+@pytest.mark.parametrize("frac_z", [-1.5, 3.5, -40.0, 1.0e4, float("inf"),
+                                    float("nan")])
+def test_window_bwd_dead_slot_contract(frac_z):
+    """The contract K5's dead-slot route relies on, on its plain version:
+    a slot whose frac lies outside (-1.5, 3.5) along an axis (here z;
+    empty and parked slots may hold any position, NaN too) gets da == +0
+    and dp_d == (+0) * a, so -0 where a < 0, for every a. Just inside the
+    interval, and with a == 0, da is not 0: deadness is a matter of the
+    positions, never of a."""
+    a = torch.tensor([-1.5, -0.0, 0.0, 2.0]).view(4, 1, 1, 1, 1)
+    for sign_a in a:
+        a4, p4, g = _slot_bins(frac_z, sign_a)
+        da, *dps = BK.window_bwd_plain(a4, *p4, g)
+        assert bool((da == 0).all()) and not bool(da.signbit().any())
+        for dp in dps:
+            assert bool((dp == 0).all())
+            assert torch.equal(dp.signbit(),
+                               (torch.zeros(()) * a4).signbit())
+    if math.isfinite(frac_z) and abs(frac_z) < 10:
+        inside = frac_z + (0.01 if frac_z < 0 else -0.01)
+        a4, p4, g = _slot_bins(inside, 0.0)
+        da, *dps = BK.window_bwd_plain(a4, *p4, g)
+        # at frac_z 3.49 only the tap oz = 2 reaches: the last two planes
+        # of bins reach beyond the grid
+        assert bool((da[:, :-2] != 0).all())
+        assert all(bool((dp == 0).all()) for dp in dps)
 
 
 def _generic_padded(ts, K, pshape):

@@ -212,32 +212,163 @@ def test_pull_kernels_on_ragged_tiles(cuda_device, shape, max_disp, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", range(10))
 def test_pull_kernels_every_radius_of_the_plan(cuda_device, R):
-    """Every radius the tile plan takes runs on the card (K2 to R = 8,
-    K3b to R = 7, the largest on a shrunk tile); one more raises
-    ValueError and launches nothing."""
+    """Every radius runs on the card: K2 on its tile to R = 8 (the largest
+    on a shrunk tile) and untiled past it; K3b on its tile to R = 7 and
+    as K2 + K3 past it (counting their launches, not K3b's)."""
     f, g, v = (torch.from_numpy(a).to(cuda_device)
                for a in _inputs("random", max(R, 0.5), (13, 7, 37), seed=R))
     md = float(R)
     before = dict(ak.LAUNCHES)
-    if R <= 8:
-        torch.testing.assert_close(ak.advect_bwd_field(v, g, md),
-                                   ak.advect_bwd_field_plain(v, g, md),
-                                   atol=GRAD_ATOL, rtol=0)
-        assert ak.LAUNCHES["bwd_field"] == before["bwd_field"] + 1
-    else:
-        with pytest.raises(ValueError):
-            ak.advect_bwd_field(v, g, md)
-        assert ak.LAUNCHES == before
+    torch.testing.assert_close(ak.advect_bwd_field(v, g, md),
+                               ak.advect_bwd_field_plain(v, g, md),
+                               atol=GRAD_ATOL, rtol=0)
+    k2 = "bwd_field" if R <= 8 else "bwd_field_untiled"
+    assert ak.LAUNCHES == dict(before, **{k2: before[k2] + 1})
     before = dict(ak.LAUNCHES)
+    for got, want in zip(ak.advect_bwd_fused(f, v, g, md),
+                         ak.advect_bwd_fused_plain(f, v, g, md)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
     if R <= 7:
-        for got, want in zip(ak.advect_bwd_fused(f, v, g, md),
-                             ak.advect_bwd_fused_plain(f, v, g, md)):
-            torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
-        assert ak.LAUNCHES["bwd_fused"] == before["bwd_fused"] + 1
+        launched = {"bwd_fused": before["bwd_fused"] + 1}
     else:
-        with pytest.raises(ValueError):
-            ak.advect_bwd_fused(f, v, g, md)
-        assert ak.LAUNCHES == before
+        launched = {k2: before[k2] + 1, "bwd_vel": before["bwd_vel"] + 1}
+    assert ak.LAUNCHES == dict(before, **launched)
+
+
+def _untiled(v, g, max_disp):
+    """K2's untiled pull launched through its operator at any radius."""
+    return ak.load_library().advect_bwd_field_untiled(
+        v, g, max_disp, ak._radius(max_disp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_disp", [9.0, 12.0])
+@pytest.mark.parametrize("shape", [(24, 16, 40), (5, 1, 3), (1, 7, 9)])
+def test_k2_untiled_past_the_plan(cuda_device, shape, max_disp):
+    """Past the tile plan K2 takes its untiled pull: against its plain
+    twin, on axes shorter than the radius too, and two launches bitwise
+    equal; K3b's wrapper there equals K2 + K3 exactly."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs("random", max_disp, shape, seed=11))
+    before = dict(ak.LAUNCHES)
+    gf = ak.advect_bwd_field(v, g, max_disp)
+    assert ak.LAUNCHES["bwd_field_untiled"] == \
+        before["bwd_field_untiled"] + 1
+    torch.testing.assert_close(gf, ak.advect_bwd_field_plain(v, g, max_disp),
+                               atol=GRAD_ATOL, rtol=0)
+    assert torch.equal(gf, ak.advect_bwd_field(v, g, max_disp))
+    fused = ak.advect_bwd_fused(f, v, g, max_disp)
+    assert torch.equal(fused[0], gf)
+    assert torch.equal(fused[1], ak.advect_bwd_vel(f, v, g, max_disp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "integer", "zero"])
+@pytest.mark.parametrize("max_disp", [0.5, 2.0, 3.0, 5.0, 8.0])
+def test_k2_untiled_same_bits_as_tiled(cuda_device, max_disp, kind):
+    """Wherever the tile plan reaches (R <= 8), the untiled pull called
+    through its operator gives the tiled pull's bits: the same terms in
+    the same order, the tiled pull's zero-weight ones adding +-0."""
+    f, g, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(kind, max_disp, (13, 7, 37), seed=12))
+    assert torch.equal(_untiled(v, g, max_disp),
+                       ak.advect_bwd_field(v, g, max_disp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("max_disp", [9.0, 12.0])
+def test_advect_past_the_plan_on_gpu_matches_cpu(cuda_device, monkeypatch,
+                                                 max_disp, fused):
+    """advect at max_disp 9 and 12, with and without FUSED_BWD, returns on
+    the GPU the value and both gradients of the same call on the CPU
+    (plain twins) instead of raising; K3b is not launched past its plan."""
+    monkeypatch.setattr(ak, "FUSED_BWD", fused)
+    f, g, v = _inputs("random", max_disp, (20, 12, 28), seed=13)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        ft = torch.tensor(f, device=dev, requires_grad=True)
+        vt = torch.tensor(v, device=dev, requires_grad=True)
+        before = dict(ak.LAUNCHES)
+        out = advect(ft, vt, max_disp=max_disp)
+        (out * torch.tensor(g, device=dev)).sum().backward()
+        launched = {k: ak.LAUNCHES[k] - before[k] for k in before}
+        outs[str(dev)] = [t.detach().cpu() for t in (out, ft.grad, vt.grad)]
+    assert launched == {"fwd": 1, "bwd_field": 0, "bwd_field_untiled": 1,
+                        "bwd_vel": 1, "bwd_fused": 0}
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
+    torch.testing.assert_close(gpu[1], cpu[1], atol=GRAD_ATOL, rtol=0)
+    torch.testing.assert_close(gpu[2], cpu[2], atol=GRAD_ATOL, rtol=0)
+
+
+def _walls(shape, seed):
+    """Displacements that clamp most backtraces to exactly 0 or n - 1 (a
+    component of +-(n + 3) cells), the others random."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(tuple(shape) + (3,)).astype(np.float32)
+    push = rng.random(v.shape) < 0.7
+    size = np.array(shape, np.float32) + 3.0
+    v = np.where(push, np.sign(v) * size, v).astype(np.float32)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["walls", "random", "integer"])
+@pytest.mark.parametrize("shape", [(24, 16, 40), (35, 20, 35), (1, 7, 9),
+                                   (5, 1, 3), (4, 6, 1), (1, 1, 1)]
+                         + [(3, 4, w) for w in range(1, 10)])
+def test_k3_clamped_and_ragged(cuda_device, shape, kind):
+    """K3 (a run of cells along z per thread, taps outside the grid read
+    as 0) against its plain twin where backtraces clamp to exactly 0 and
+    n - 1 (the out-of-grid tap's derivative there is -+0.5), on one-cell
+    axes and every W from 1 to 9; two launches bitwise equal, and equal
+    to K3b's gradient wrt s."""
+    md = max(shape) + 3.0 if kind == "walls" else 2.0
+    f, g, v = _inputs("random", md, shape, seed=14)
+    if kind == "walls":
+        v = _walls(shape, seed=15)
+    elif kind == "integer":
+        v = np.round(v)
+    f, g, v = (torch.from_numpy(a).to(cuda_device) for a in (f, g, v))
+    if kind == "walls":
+        s = ak.backtrace(v, md)
+        n = torch.tensor(shape, device=cuda_device, dtype=torch.float32)
+        at_wall = sum(((s[a] == 0) | (s[a] == n[a] - 1)).float().mean()
+                      for a in range(3)) / 3
+        assert float(at_wall) > 0.5
+    gs = ak.advect_bwd_vel(f, v, g, md)
+    torch.testing.assert_close(gs, ak.advect_bwd_vel_plain(f, v, g, md),
+                               atol=GRAD_ATOL, rtol=0)
+    assert torch.equal(gs, ak.advect_bwd_vel(f, v, g, md))
+    if ak._pull_plan(ak._radius(md), fused=True) is not None:
+        assert torch.equal(gs, ak.load_library().advect_bwd_fused(
+            f, v, g, md, ak._radius(md),
+            *ak._pull_plan(ak._radius(md), fused=True))[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,argtypes,args", [
+    ("nfs_advect_bwd_vel", "pppp iii f i p",
+     (None,) * 4 + (1, 1 << 16, 1 << 16, 2.0, 0, None)),
+    ("nfs_advect_bwd_field_untiled", "ppp iii f i i p",
+     (None,) * 3 + (1 << 16, 1 << 16, 1, 9.0, 9, 0, None)),
+    ("nfs_advect_bwd_field_untiled", "ppp iii f i i p",
+     (None,) * 3 + (2, 3, 4, 9.0, -1, 0, None)),
+    ("nfs_binsplat_bwd", "ppppppppp iiii i p",
+     (None,) * 9 + (1 << 10, 1 << 10, 1 << 10, 2, 0, None)),
+])
+def test_entry_points_refuse_past_32_bit_indices(cuda_device, entry,
+                                                 argtypes, args):
+    """K3, the untiled K2 and K5 index with 32-bit integers: their entry
+    points refuse a shape past that (and the untiled K2 a negative
+    radius) before they launch; the pointers are never read."""
+    lib = ctypes.CDLL(str((bk if "binsplat" in entry else ak)
+                          .build_library()))
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn = getattr(lib, entry)
+    fn.argtypes = [types[c] for c in argtypes.replace(" ", "")]
+    assert fn(*args) != 0
 
 
 def _pull_on_tile(f, g, v, max_disp, tile, fused):
@@ -482,3 +613,78 @@ def test_binsplat_wrappers_refuse_bad_inputs(cuda_device, bad, error):
         with pytest.raises(error):
             bk.binsplat_fwd(a, *p)
     assert bk.LAUNCHES == before
+
+
+def _check_k5(a4, p4, g, device):
+    """K5 against its plain version: values within GRAD_ATOL, the sign of
+    every zero the plain version gives (+0, or -0 in dp where a < 0), and
+    two launches bitwise equal."""
+    a4, p4, g = a4.to(device), [p.to(device) for p in p4], g.to(device)
+    got = bk.binsplat_bwd(a4, *p4, g)
+    want = bk.window_bwd_plain(a4, *p4, g)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=GRAD_ATOL, rtol=0)
+        zero = y == 0
+        assert torch.equal(x[zero].signbit(), y[zero].signbit())
+    for x, y in zip(got, bk.binsplat_bwd(a4, *p4, g)):
+        assert torch.equal(x, y) and torch.equal(x.signbit(), y.signbit())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 7, 8, 15, 16])
+def test_k5_ranks(cuda_device, K):
+    """K5 at K = 1 to 16 with crowded cells, so that many ranks hold
+    particles, and drifted positions."""
+    shape = (13, 9, 21)
+    rng = np.random.default_rng(20 + K)
+    n = 3 * int(np.prod(shape))
+    x = (rng.random((n, 3)) * (np.array(shape) - 1)).astype(np.float32)
+    a4, p4 = _bin_window(x, shape, K, seed=K)
+    p4 = [p + torch.from_numpy(rng.uniform(-0.5, 0.5, p.shape).astype(
+        np.float32)) * (a4 != 0) for p in p4]
+    g = torch.from_numpy(rng.standard_normal(a4.shape[1:]).astype(
+        np.float32))
+    _check_k5(a4, p4, g, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["garbage", "all live", "negative a"])
+def test_k5_empty_live_and_signed(cuda_device, case):
+    """K5 where empty slots hold arbitrary positions (uniform far around
+    the grid, huge, NaN and inf), where every slot is live (each empty
+    slot's position within reach of its bin, a == 0 there), and with
+    negative attributes in slots no tap reaches (dp must be -0)."""
+    shape, K = (12, 9, 30), 4
+    rng = np.random.default_rng(30)
+    x = (rng.random((2500, 3)) * (np.array(shape) - 1)).astype(np.float32)
+    a4, p4 = _bin_window(x, shape, K, seed=31)
+    empty = a4 == 0
+    pshape = a4.shape[1:]
+    bins = [torch.arange(n, dtype=torch.float32).view(
+        [-1 if d == i else 1 for d in range(3)]) for i, n in enumerate(
+        pshape)]
+    if case == "garbage":
+        for p in p4:
+            junk = torch.from_numpy(rng.uniform(-60.0, 120.0, p.shape)
+                                    .astype(np.float32))
+            junk.view(-1)[::97] = float("nan")
+            junk.view(-1)[5::101] = float("inf")
+            junk.view(-1)[7::89] = -3.0e38
+            p[empty] = junk[empty]
+    elif case == "all live":
+        for p, b in zip(p4, bins):
+            p[empty] = (b + 1.0 - B.PAD).expand(p.shape)[empty]
+        fr = [p + B.PAD - b for p, b in zip(p4, bins)]
+        assert all(bool(((f > -1.5) & (f < 3.5)).all()) for f in fr)
+    else:
+        a4 = torch.where(empty, -torch.rand(a4.shape) - 0.5, a4)
+        for p in p4:
+            p[empty] = 1.0e4
+    g = torch.from_numpy(rng.standard_normal(pshape).astype(np.float32))
+    da, *dps = _check_k5(a4, p4, g, cuda_device)
+    if case == "negative a":
+        dead = empty.to(cuda_device)
+        assert bool((da[dead] == 0).all())
+        assert not bool(da[dead].signbit().any())
+        assert all(bool(dp[dead].signbit().all()) for dp in dps)

@@ -7,15 +7,19 @@ against PyTorch's, on one GPU.
 
 ``kernels`` prints, on ``chip_smoke.py``'s kernel inputs, the largest
 difference between this checkout's six kernels and the parent commit's
-and whether they are bitwise equal; for K1 and K4 also both of
-``chip_smoke.py``'s timers (``ms``: one call between CUDA events, host
+and whether they are bitwise equal (K5 also on the coarsest octave's
+bins, and this checkout's untiled K2 pull against the parent's tiled
+one at max_disp 1-3 and 8); then every kernel's two timers from
+``chip_smoke.py`` (``ms``: one call between CUDA events, host
 included; ``device_ms``: queued calls) in turns this, parent, parent,
-this, each launched through its C interface, beside this checkout's
-wrapper and, for K1, ``F.grid_sample``. ``PARENT_CSRC`` is a directory
-holding the parent's ``advect.cu`` and ``binsplat.cu`` (``git show
-9b9779b:nfs_tpu_torch/csrc/advect.cu > build/parent_csrc/advect.cu``
-before the call: the GPU machine has no git); both are built with nvcc
-beside this checkout's and launched through the parent's C interface
+this, this checkout's through its wrapper, the parent's through its C
+interface (K5 at the finest and the coarsest octave), and K1's
+``F.grid_sample``. ``PARENT_CSRC`` is a directory holding the parent's
+``advect.cu``, ``binsplat.cu`` and ``launch.cuh`` (``git show
+REV:nfs_tpu_torch/csrc/advect.cu > build/parent_csrc/advect.cu`` and so
+on before the call: the GPU machine has no git); both sources are built
+with nvcc beside
+this checkout's and launched through the parent's C interface
 (``_Parent``). Then K1 with four cells along x per thread and float4
 displacement loads (``tools/k1_cells_x.cu``) against the shipped K1:
 bits on the same inputs and on three ragged shapes, and times in
@@ -54,8 +58,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
-# K4's bin capacity at the particle path's finest octave (chip_smoke.py
-# _finest_k on its first keyframe)
+# K4's and K5's bin capacity at the particle path's finest octave
 BIN_K = 4
 CALLS, BATCHES = 400, 7
 
@@ -73,20 +76,21 @@ def _nvcc(source: Path, so: Path) -> Path:
 
 
 def _parent_libs(parent: Path):
-    """The parent's two libraries with the parent's argtypes."""
+    """The parent's two libraries with the parent's argtypes (each entry
+    point ends in the device index and the stream)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     adv = ctypes.CDLL(str(_nvcc(parent / "advect.cu",
                                 OUT / "libparent_advect.so")))
-    adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, p]
-    adv.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f, i, i, i, i, i,
-                                         p]
-    adv.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, f, p]
-    adv.nfs_advect_bwd_fused.argtypes = [p, p, p, p, p, i, i, i, f, i, i, i,
-                                         i, i, p]
+    adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, i, p]
+    adv.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f] + [i] * 5 + [
+        i, p]
+    adv.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, f, i, p]
+    adv.nfs_advect_bwd_fused.argtypes = [p] * 5 + [i, i, i, f] + [i] * 5 + [
+        i, p]
     bins = ctypes.CDLL(str(_nvcc(parent / "binsplat.cu",
                                  OUT / "libparent_binsplat.so")))
-    bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
-    bins.nfs_binsplat_bwd.argtypes = [p] * 9 + [i] * 4 + [p]
+    bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [i, p]
+    bins.nfs_binsplat_bwd.argtypes = [p] * 9 + [i] * 4 + [i, p]
     return adv, bins
 
 
@@ -260,18 +264,19 @@ def _emit_turns(kernel: str, calls: dict, card: str) -> None:
 
 class _Parent:
     """The parent's six kernels, launched through its C interface (the
-    stream last, no device index) with this checkout's tile plans, which
-    the parent's K2 / K3b share. A change to the parent's C interface
-    changes this class and :func:`_parent_libs`."""
+    device index and the stream last) with this checkout's tile plans,
+    which the parent's K2 / K3b share. A change to the parent's C
+    interface changes this class and :func:`_parent_libs`."""
 
     def __init__(self, parent: Path):
         import torch
 
         self.adv, self.bins = _parent_libs(parent)
+        self.device = torch.cuda.current_device()
         self.stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
     def _run(self, fn, what, *args):
-        rc = fn(*args, self.stream)
+        rc = fn(*args, self.device, self.stream)
         if rc != 0:
             raise RuntimeError(f"parent {what}: CUDA error {rc}")
 
@@ -365,31 +370,43 @@ def kernels(parent_dir: Path, card: str) -> None:
 
     parent = _Parent(parent_dir)
     pairs = cs._advect_pairs()
+    # the coarsest octave's grid and the K the styler plans for it
+    coarse_grid, coarse_k = cs._octave_ks()[0]
     # bits of all four advection kernels on chip_smoke.py's kernel cases
-    # (seeds 0-5) and its timing inputs (seed 99)
+    # (seeds 0-5) and its timing inputs (seed 99), and of the untiled K2
+    # pull (called through its operator) against the parent's tiled one
     cases = [("random", 2.0, 0), ("random", 1.0, 1), ("integer", 2.0, 2),
              ("zero", 1.0, 3), ("random", 3.0, 4), ("swirl", 2.0, 5),
-             ("random", 2.0, 99)]
+             ("random", 2.0, 99), ("random", 8.0, 7)]
     for case, md, seed in cases:
         f, g, v = cs._cuda_inputs(case, md, seed=seed)
-        diff = {key: (cs._max_err(kern(f, g, v, md),
-                                  getattr(parent, key)(f, g, v, md)),
-                      cs._equal(kern(f, g, v, md),
-                                getattr(parent, key)(f, g, v, md)))
-                for key, (kern, _) in pairs.items()}
+        calls = {key: kern for key, (kern, _) in pairs.items()}
+        calls["bwd_field_untiled"] = lambda f, g, v, d: cs._untiled(v, g, d)
+        diff = {}
+        for key, kern in calls.items():
+            if md > 3.0 and key != "bwd_field_untiled":
+                continue
+            old = getattr(parent, key.replace("_untiled", ""))(f, g, v, md)
+            new = kern(f, g, v, md)
+            diff[key] = (cs._max_err(new, old), cs._equal(new, old))
         cs.emit({"phase": "bits", "inputs": case, "max_disp": md,
                  "seed": seed, "max_abs_diff": {k: d[0] for k, d in
                                                 diff.items()},
                  "bitwise_equal": {k: d[1] for k, d in diff.items()},
                  "card": card})
-    for n, case in enumerate(("binned", "drifted", "crowded", "integer",
-                              "binned")):
-        K = 2 if case == "crowded" else BIN_K
-        seed = 99 if n == 4 else n
-        a4, p4, g, _, _ = cs._bin_inputs(case, K, seed=seed)
+    bins = {}
+    for label, case, K, seed, grid in (
+            ("binned", "binned", BIN_K, 0, cs.P_GRID),
+            ("drifted", "drifted", BIN_K, 1, cs.P_GRID),
+            ("crowded", "crowded", 2, 2, cs.P_GRID),
+            ("integer", "integer", BIN_K, 3, cs.P_GRID),
+            ("finest", "binned", BIN_K, 99, cs.P_GRID),
+            ("coarsest", "binned", coarse_k, 98, coarse_grid)):
+        bins[label] = cs._bin_inputs(case, K, seed=seed, grid=grid)
+        a4, p4, g = bins[label][:3]
         this = (bk.binsplat_fwd(a4, *p4), bk.binsplat_bwd(a4, *p4, g))
         old = (parent.binsplat_fwd(a4, p4), parent.binsplat_bwd(a4, p4, g))
-        cs.emit({"phase": "bits", "inputs": case, "K": K, "seed": seed,
+        cs.emit({"phase": "bits", "inputs": label, "K": K, "seed": seed,
                  "max_abs_diff": {"binsplat_fwd": cs._max_err(this[0],
                                                               old[0]),
                                   "binsplat_bwd": cs._max_err(this[1],
@@ -399,22 +416,35 @@ def kernels(parent_dir: Path, card: str) -> None:
                                                              old[1])},
                  "card": card})
 
-    # K1 and K4 in turns against the parent's
-    for case in ("random", "swirl"):
-        f, g, v = cs._cuda_inputs(case, 2.0, seed=99)
-        cs.emit({"phase": "kernel_ab", "kernel": "advect_fwd (K1)",
-                 "inputs": case, "max_disp": 2.0,
-                 **_turns(lambda: ak.advect_fwd(f, v, 2.0),
-                          lambda: parent.fwd(f, g, v, 2.0)),
-                 "library": _times(cs._advect_library_call("fwd", f, g, v,
-                                                           2.0)),
-                 "card": card})
-    a4, p4, g, _, _ = cs._bin_inputs("binned", BIN_K, seed=99)
-    cs.emit({"phase": "kernel_ab", "kernel": "binsplat_fwd (K4)",
-             "inputs": "binned", "K": BIN_K,
-             **_turns(lambda: bk.binsplat_fwd(a4, *p4),
-                      lambda: parent.binsplat_fwd(a4, p4)),
-             "card": card})
+    # every kernel in turns against the parent's: the advection kernels
+    # at chip_smoke.py's timing inputs (K3 at max_disp 1), K1 and the
+    # pull kernels also on the swirl
+    for key, case in (("fwd", "random"), ("fwd", "swirl"),
+                      ("bwd_field", "random"), ("bwd_field", "swirl"),
+                      ("bwd_vel", "random"), ("bwd_fused", "random")):
+        md = 1.0 if key == "bwd_vel" else 2.0
+        f, g, v = cs._cuda_inputs(case, md, seed=99)
+        kern = pairs[key][0]
+        rec = {"phase": "kernel_ab", "kernel": key, "inputs": case,
+               "max_disp": md,
+               **_turns(lambda: kern(f, g, v, md),
+                        lambda: getattr(parent, key)(f, g, v, md))}
+        if key == "fwd":
+            rec["library"] = _times(cs._advect_library_call("fwd", f, g, v,
+                                                            md))
+        cs.emit(dict(rec, card=card))
+    for octave in ("finest", "coarsest"):
+        a4, p4, g = bins[octave][:3]
+        for key in (("binsplat_fwd", "binsplat_bwd") if octave == "finest"
+                    else ("binsplat_bwd",)):
+            if key == "binsplat_fwd":
+                this = lambda: bk.binsplat_fwd(a4, *p4)     # noqa: E731
+                that = lambda: parent.binsplat_fwd(a4, p4)     # noqa: E731
+            else:
+                this = lambda: bk.binsplat_bwd(a4, *p4, g)     # noqa: E731
+                that = lambda: parent.binsplat_bwd(a4, p4, g)  # noqa: E731
+            cs.emit({"phase": "kernel_ab", "kernel": key, "inputs": octave,
+                     "K": a4.shape[0], **_turns(this, that), "card": card})
 
     # K1 with cells along x and float4 loads against the shipped K1
     lib = _cells_x_lib()
