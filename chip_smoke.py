@@ -72,6 +72,20 @@ Phases, each printing one JSON line:
     the streaming path.
 12. cli — ``cli.stylize --fused 2`` over 4 of the scene's frames, then a
     rerun that the complete manifest turns into a no-op.
+13. 2d — BASELINE config #1 (a 256x192 frame, bf16, 3 octaves x 30
+    iterations), the 512^2 headline shape (3 x 10) and config #2 (a
+    256x192 smoke_sequence, W=1, 2 x 20, 6 frames) through GridStyler,
+    s/iter and s/frame; a small 2D GPU-against-CPU comparison.
+14. transfer_gather — the density slice's first frame coloured by a
+    trained 'fire' transfer function, with the shear rotation and then
+    with rotation='gather'.
+15. color — LNST colour at the particles_3d width on one keyframe (3 x 4
+    iterations), the binned 5-channel colour pass timed alone, and a 2D
+    particle run on the scene CLI's liquid2d frames.
+16. checkpoint — the velocity slice's first frame interrupted after a
+    chunk of octave 1 and resumed from its in-frame checkpoint, held
+    against two uninterrupted runs; a ``--checkpoint_in_frame`` CLI job
+    that completes and leaves no checkpoint.
 
 Then one JSON line with every kernel's route, error, launches on its main
 path, times and least time on the card, and as the last line
@@ -83,6 +97,8 @@ Weights (VGG), style image and data are random, made from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -1237,9 +1253,6 @@ def phase_cli(card: str, root: str, data_dir: str):
     """``cli.stylize --fused 2`` over 4 scene frames (2 octaves x 2
     iterations, W=1), then once more: the manifest is complete, so the
     rerun stylizes nothing."""
-    import contextlib
-    import io
-
     from nfs_tpu_torch.cli.stylize import main as stylize
     from nfs_tpu_torch.io.npz import FrameStore
 
@@ -1525,6 +1538,565 @@ def _profile_particle(card: str, styler, pset, init_param):
               **_trace_summary(prof, n_iter, traced_wall), card=card))
 
 
+# BASELINE config #1 and #2's 2D grid and the BASELINE metric's 2D 512^2
+# headline shape (bench/full_bench.py:56-111); config #5's 2D particle
+# grid (bench/full_bench.py:162-190)
+TWO_D = (256, 192)
+TWO_D_HEADLINE = (512, 512)
+LIQUID2D_GRID = (128, 128)
+
+
+def _blob2d(shape) -> np.ndarray:
+    """bench/full_bench.py's _blob: a Gaussian of peak 2."""
+    g = np.meshgrid(*[np.linspace(-1, 1, s) for s in shape], indexing="ij")
+    return (2.0 * np.exp(-4 * sum(x ** 2 for x in g))).astype(np.float32)
+
+
+def _check_grid_out(name, out, d_in):
+    if not (out.shape == d_in.shape and np.isfinite(out).all()
+            and out.min() >= 0.0 and np.abs(out - d_in).max() > 0.0):
+        raise AssertionError(f"{name}: bad output {out.shape}")
+
+
+def _octave_s_per_iter(marks, octave: int, iters: int) -> float:
+    """Seconds per iteration of an octave (> 0) from the host clock at the
+    loss readbacks (octave, done, time): from the last readback of the
+    octave before to the last of this one, which ends it."""
+    t_in = max(t for o, _, t in marks if o == octave - 1)
+    t_out = max(t for o, _, t in marks if o == octave)
+    return (t_out - t_in) / iters
+
+
+def _reference_2d(card: str):
+    """A 2D frame and a 2D W=1 sequence at a small size on the GPU
+    against the same runs on the CPU (held against the JAX package by
+    tests/test_torch_grid2d.py, whose style weight 1000 this takes: the
+    gradients stand above Adam's eps, where f32 rounding is not turned
+    into whole steps)."""
+    from nfs_tpu_torch.core.config import StyleConfig, replace
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    shape = (24, 18)
+    rng = np.random.default_rng(7)
+    ds = np.stack([_blob2d(shape) * (1 + 0.2 * rng.random(shape))
+                   for _ in range(2)]).astype(np.float32)
+    vs = (0.7 * rng.standard_normal((2,) + shape + (2,))).astype(np.float32)
+    style = rng.random((32, 32, 3), dtype=np.float32)
+    cfg = replace(StyleConfig(), **{
+        "render.render_size": (32, 32), "render.min_render_size": 16,
+        "loss.style_layers": ("relu1_1", "relu2_1"),
+        "loss.style_layer_weights": (1.0, 1.0), "loss.w_style": 1000.0,
+        "loss.w_tv": 0.1, "optim.octave_n": 2, "optim.octave_scale": 2.0,
+        "optim.iters": 3, "optim.lr": 0.02, "optim.window": 1,
+        "optim.log_every": 1})
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        styler = GridStyler(cfg, style_image=style, device=dev)
+        losses = []
+        cb = lambda done, loss, octave: losses.append(loss)  # noqa: E731
+        d0, _, _ = styler.stylize_frame(ds[0], callback=cb)
+        outs = [d0.cpu().numpy()] + [
+            d.cpu().numpy() for _, d, _ in styler.stylize_sequence(
+                ds, vs, fused=0, callback=cb)]
+        runs[dev] = (np.array(losses), np.stack(outs))
+    (lc, dc), (lg, dg) = runs["cpu"], runs["cuda"]
+    err = {"loss_rel": float(np.max(np.abs(lg - lc) / np.abs(lc))),
+           "d_star_max_abs": float(np.abs(dg - dc).max())}
+    if not (np.isfinite(dg).all() and err["loss_rel"] <= 1e-4
+            and err["d_star_max_abs"] <= 1e-3):
+        raise AssertionError(f"2D GPU run departs from the CPU: {err}")
+    return {"shape": list(shape), "vs": "cpu port", "err": err,
+            "tol": {"loss_rel": 1e-4, "d_star_max_abs": 1e-3}}
+
+
+def phase_2d(card: str):
+    """BASELINE config #1 (a 256x192 frame, bf16 features, 3 octaves x 30
+    iterations), the 512^2 headline shape (3 x 10 iterations) and config
+    #2 (a 256x192 smoke_sequence, W=1, 2 octaves x 20 iterations, 6
+    frames), each through GridStyler on the card; a frame runs twice and
+    the second run is timed. The 2D path advects by the window-tap sum
+    and renders the grid itself: it launches none of the hand kernels
+    (the launches are read from this phase alone to show it). Then the
+    small 2D GPU-against-CPU comparison."""
+    import torch
+
+    from nfs_tpu_torch.core.config import StyleConfig, replace
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    from nfs_tpu_torch.sim.smoke import SmokeConfig, smoke_sequence
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    rng = np.random.default_rng(11)
+    ak.reset_launches()
+    bk.reset_launches()
+    record = {"phase": "2d", "card": card}
+    for name, shape, iters in (("config1", TWO_D, 30),
+                               ("config1b_512", TWO_D_HEADLINE, 10)):
+        cfg = replace(StyleConfig(), **{
+            "render.render_size": shape, "loss.features_dtype": "bfloat16",
+            "optim.octave_n": 3, "optim.iters": iters})
+        styler = GridStyler(cfg, style_image=rng.random(
+            shape + (3,), dtype=np.float32), device="cuda")
+        d = _blob2d(shape)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d_star, _, info = styler.stylize_frame(d)
+            out = d_star.cpu().numpy()
+            walls.append(time.perf_counter() - t0)
+        _check_grid_out(name, out, d)
+        finest = info["octave_losses"][-1].cpu().numpy()
+        if not finest[-1] < finest[0]:
+            raise AssertionError(f"{name}: finest loss did not drop")
+        record[name] = {"grid": list(shape), "iters": 3 * iters,
+                        "s_per_frame": walls[1],
+                        "s_per_iter": walls[1] / (3 * iters),
+                        "first_run_s": walls[0]}
+    record["config1b_512"]["reduced"] = "10 iterations per octave (30)"
+
+    T, iters = 6, 20
+    t0 = time.perf_counter()
+    ds, vs = smoke_sequence(SmokeConfig(shape=TWO_D, jacobi_iters=20), T,
+                            device="cuda")
+    sim_s = time.perf_counter() - t0
+    cfg = replace(StyleConfig(), **{
+        "render.render_size": TWO_D, "loss.features_dtype": "bfloat16",
+        "optim.octave_n": 2, "optim.iters": iters, "optim.window": 1})
+    styler = GridStyler(cfg, style_image=rng.random(
+        TWO_D + (3,), dtype=np.float32), device="cuda")
+    frame_s = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, d_star, param in styler.stylize_sequence(ds, vs, fused=0):
+        out = d_star.cpu().numpy()
+        frame_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _check_grid_out(f"config2 frame {t}", out, ds[t])
+    steady = statistics.median(frame_s[1:])
+    record["config2"] = {
+        "grid": list(TWO_D), "frames": T, "window": 1,
+        "iters_per_frame": 2 * iters, "frame_s": frame_s,
+        "s_per_frame_steady": steady, "s_per_iter": steady / (2 * iters),
+        "sim_s": sim_s, "reduced": f"{T} frames (BASELINE: 120, "
+                                   "bench/full_bench.py: 24)"}
+    launches = {**dict(ak.LAUNCHES), **{"splat_" + k: n
+                                         for k, n in bk.LAUNCHES.items()}}
+    if any(launches.values()):
+        raise AssertionError(f"the 2D path launched {launches}")
+    record["launches"] = launches
+    record["reference"] = _reference_2d(card)
+    emit(record)
+
+
+def _color_pass_ms(x, dens, color, K: int):
+    """Times, at the finest octave of the colour keyframe (its grid and
+    bin capacity K), of the one 5-channel binned pass [density,
+    colour(3), ones] that the colour path runs every iteration, forward
+    and forward + backward, and of the density-only K4/K5 window pass of
+    the same bins for comparison (``_median_ms``: one call between two
+    CUDA events)."""
+    import torch
+
+    from nfs_tpu_torch.ops.binsplat import bin_particles, splat_binned, \
+        to_binned
+    from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
+
+    bn = bin_particles(x, P_GRID, K)
+    pb = to_binned(bn, x)
+    attr = torch.cat([to_binned(bn, dens)[None], to_binned(bn, color),
+                      torch.ones_like(pb[:1])])
+    g5 = torch.randn(P_GRID + (5,), device=x.device)
+    g1 = g5[..., 0].contiguous()
+
+    def fwd():
+        return splat_binned(pb, attr, bn.valid, P_GRID, K)
+
+    def fwd_bwd(window=False):
+        p = pb.detach().requires_grad_(True)
+        if window:
+            a = attr[0].detach().requires_grad_(True)
+            out, g = splat_binned_window(p, a, bn.valid, P_GRID, K), g1
+        else:
+            a = attr.detach().requires_grad_(True)
+            out, g = splat_binned(p, a, bn.valid, P_GRID, K), g5
+        return torch.autograd.grad(out, (p, a), g)
+
+    return {"fwd_ms": _median_ms(fwd, runs=10),
+            "fwd_bwd_ms": _median_ms(fwd_bwd, runs=10),
+            "density_window_k4_k5_fwd_bwd_ms": _median_ms(
+                lambda: fwd_bwd(True), runs=10)}
+
+
+def _color_reference_run(dev: str, grid, eps: float = 0.0):
+    """Colour keyframes at a small size (position + density + colour, a
+    flat coarse octave and a binned finer one, keyframes 0 and 2 with
+    frame 1 interpolated) on one device: (losses, [(x, dens, color)]).
+    ``eps`` scales the positions by 1 + eps, to see how far the run
+    carries a rounding-sized change."""
+    import torch
+
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    rng = np.random.default_rng(6)
+    x0 = (rng.random((1500, len(grid))) * (np.array(grid) - 4) + 2).astype(
+        np.float32)
+    col = rng.random((1500, 3), dtype=np.float32)
+    col[:40, 0], col[40:80, 2] = 0.0, 1.0    # the clip's ties
+    x0 = (x0 * np.float32(1 + eps)).astype(np.float32)
+    frames = [ParticleSet(x=x0 + np.float32(0.1 * t),
+                          dens=np.ones(1500, np.float32), color=col)
+              for t in range(3)]
+    cfg = _northstar_cfg(**{
+        "render.render_size": (32, 32), "render.min_render_size": 16,
+        "render.n_views": 2, "render.view_pool": 1, "render.transmit": 0.5,
+        "loss.style_layers": ("relu1_1", "relu2_1"),
+        "loss.style_layer_weights": (1.0, 1.0), "loss.w_style": 1000.0,
+        "loss.features_dtype": "float32", "optim.octave_n": 2,
+        "optim.octave_scale": 2.0, "optim.iters": 3, "optim.lr": 0.05,
+        "particle.optimize_density": True, "particle.optimize_color": True,
+        "particle.keyframe_stride": 2})
+    styler = ParticleStyler(cfg, grid_shape=grid, style_image=rng.random(
+        (32, 32, 3), dtype=np.float32), device=dev)
+    outs = [(p.x.cpu().numpy(), p.dens.cpu().numpy(), p.color.cpu().numpy())
+            for _, p in styler.stylize_keyframes(frames)]
+    losses = torch.cat([torch.cat(i["octave_losses"]).cpu() for _, i in
+                        sorted(styler.last_keyframe_infos.items())])
+    return losses.numpy(), outs
+
+
+def _reference_color(card: str):
+    """Colour keyframes in 3D and 2D at a small size on the GPU (the
+    5-channel generic binned pass, splat_normalized, the per-view colour
+    render) against the same runs on the CPU, which
+    tests/test_torch_particle_color.py holds against the JAX package; the
+    style weight is 1000, as there."""
+    err = {}
+    for grid in ((16, 12, 16), (24, 18)):
+        (lc, oc), (lg, og) = (_color_reference_run(dev, grid)
+                              for dev in ("cpu", "cuda"))
+        e = {"loss_rel": float(np.max(np.abs(lg - lc) / np.abs(lc)))}
+        for i, k in enumerate(("x", "dens", "color")):
+            e[k + "_max_abs"] = max(float(np.abs(g[i] - c[i]).max())
+                                    for g, c in zip(og, oc))
+        err["x".join(map(str, grid))] = e
+        if not (all(np.isfinite(a).all() for o in og for a in o)
+                and e["loss_rel"] <= 1e-4
+                and max(v for k, v in e.items() if k != "loss_rel")
+                <= 1e-3):
+            raise AssertionError(f"colour GPU run departs from the CPU: "
+                                 f"{grid} {e}")
+    return {"vs": "cpu port", "err": err,
+            "tol": {"loss_rel": 1e-4, "max_abs": 1e-3}}
+
+
+def phase_color(card: str, root: str):
+    """LNST colour at the particles_3d width (200 000 particles, 96x64x96,
+    9 views, 256^2 renders, position + density + colour) on one keyframe,
+    3 octaves x 4 iterations, run twice (the second timed); the binned
+    colour pass alone at the finest octave; then a 2D particle run on the
+    scene CLI's liquid2d frames (128x128, config #5's 2D grid, 3 frames,
+    keyframes 0 and 2, 2 octaves x 5 iterations). The colour pass runs
+    the generic binned splat, as the JAX package runs its XLA window
+    there; the density-only coarse octaves' one splat runs K4."""
+    import torch
+
+    from nfs_tpu_torch.cli import scene
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    iters = 4
+    cfg = _particle_cfg(**{"particle.optimize_color": True,
+                           "optim.iters": iters, "optim.log_every": 1})
+    rng = np.random.default_rng(12)
+    x = _particle_frames(1)[0]
+    color = rng.random((P_COUNT, 3), dtype=np.float32)
+    pset = ParticleSet(x=x, dens=np.ones(P_COUNT, np.float32), color=color)
+    styler = ParticleStyler(cfg, grid_shape=P_GRID, style_image=rng.random(
+        (256, 256, 3), dtype=np.float32), device="cuda")
+    bk.reset_launches()
+    walls, marks = [], []
+    for _ in range(2):
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        styled, param, info = styler.stylize_frame(
+            pset, callback=lambda done, loss, octave: marks.append(
+                (octave, done, time.perf_counter())))
+        col = styled.color.cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(bk.LAUNCHES)
+    finest = info["octave_losses"][-1].cpu().numpy()
+    if not (col.shape == (P_COUNT, 3) and np.isfinite(col).all()
+            and np.abs(col - color).max() > 0.0
+            and np.isfinite(styled.x.cpu().numpy()).all()):
+        raise AssertionError("colour keyframe: bad output")
+    if not finest[-1] < finest[0]:
+        raise AssertionError(f"colour: finest loss did not drop: {finest}")
+    if launches["fwd"] <= 0:
+        raise AssertionError(f"colour keyframe launched {launches}")
+    K = next(iter(styler._k_cache.values()))[-1]
+    if K is None:
+        raise AssertionError("the colour keyframe's finest octave ran flat")
+    dev = styler.device
+    cpass = _color_pass_ms(torch.from_numpy(x).to(dev),
+                           torch.ones(P_COUNT, device=dev),
+                           torch.from_numpy(color).to(dev), K)
+    s_iter = _octave_s_per_iter(marks, cfg.optim.octave_n - 1, iters)
+    record = {"phase": "color", "particles": P_COUNT, "grid": list(P_GRID),
+              "views": 9, "render": [256, 256],
+              "attrs": sorted(param), "iters_per_octave": iters,
+              "keyframe_s": walls[1], "first_run_s": walls[0],
+              "finest_s_per_iter": s_iter, "finest_K": K,
+              "color_pass": cpass,
+              "color_pass_fwd_bwd_share_of_finest_iter":
+                  cpass["fwd_bwd_ms"] / 1e3 / s_iter,
+              "launches": launches,
+              "reduced": f"one keyframe, {iters} iterations per octave "
+                         "(particles_3d: 20)"}
+
+    data = os.path.join(root, "liquid2d")
+    with contextlib.redirect_stdout(io.StringIO()):
+        scene.main(["--scene", "liquid2d", "--out", data, "--res",
+                    *map(str, LIQUID2D_GRID), "--frames", "3"])
+    store = FrameStore(data)
+    frames = [store.load_particles(t) for t in range(3)]
+    cfg2 = _particle_cfg(**{"particle.optimize_color": True,
+                            "particle.keyframe_stride": 2,
+                            "optim.octave_n": 2, "optim.iters": 5})
+    styler2 = ParticleStyler(cfg2, grid_shape=LIQUID2D_GRID,
+                             style_image=rng.random((256, 256, 3),
+                                                    dtype=np.float32),
+                             device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [(t, p.x.cpu().numpy(), p.color.cpu().numpy()) for t, p in
+            styler2.stylize_keyframes([ParticleSet(x=f["x"], dens=f["dens"])
+                                       for f in frames])]
+    wall2 = time.perf_counter() - t0
+    n2 = frames[0]["x"].shape[0]
+    for t, xo, co in outs:
+        if not (xo.shape == (n2, 2) and co.shape == (n2, 3)
+                and np.isfinite(xo).all() and np.isfinite(co).all()):
+            raise AssertionError(f"2D particle frame {t}: bad output")
+    if [t for t, _, _ in outs] != [0, 1, 2]:
+        raise AssertionError("2D particle frames out of order")
+    record["liquid2d"] = {
+        "grid": list(LIQUID2D_GRID), "particles": n2, "frames": 3,
+        "keyframes": sorted(styler2.last_keyframe_infos),
+        "wall_s": wall2, "s_per_iter_incl_warmup": wall2 / (2 * 2 * 5),
+        "reduced": "3 frames, 2 octaves x 5 iterations (config #5's 2D "
+                   "bench: 30)"}
+    record["reference"] = _reference_color(card)
+    record["card"] = card
+    emit(record)
+
+
+def _transfer_gather_reference_run(dev: str, eps: float = 0.0):
+    """A 3D W=1 frame at a small size with rotation='gather' and the
+    'fire' transfer function trained, on one device: (losses, d_star,
+    field, nodes). ``eps`` scales the density by 1 + eps."""
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    shape = (16, 12, 16)
+    rng = np.random.default_rng(8)
+    d = (_plume_density(shape, 0, rng) * np.float32(1 + eps))[None]
+    v = (0.7 * rng.standard_normal((1,) + shape + (3,))).astype(np.float32)
+    cfg = _northstar_cfg(**{
+        "render.render_size": (32, 32), "render.min_render_size": 16,
+        "render.n_views": 2, "render.view_pool": 1, "render.transmit": 0.5,
+        "render.rotation": "gather", "render.transfer_fn": "fire",
+        "render.train_transfer": True,
+        "loss.style_layers": ("relu1_1", "relu2_1"),
+        "loss.style_layer_weights": (1.0, 1.0), "loss.w_style": 1000.0,
+        "loss.features_dtype": "float32", "optim.octave_n": 2,
+        "optim.octave_scale": 2.0, "optim.iters": 3})
+    styler = GridStyler(cfg, style_image=rng.random(
+        (32, 32, 3), dtype=np.float32), device=dev)
+    (_, d_star, param), = styler.stylize_sequence(d, v, fused=0)
+    return (styler.frame_losses[0].cpu().numpy().ravel(),
+            d_star.cpu().numpy(), param["field"].cpu().numpy(),
+            param["tf"].cpu().numpy())
+
+
+def _reference_transfer_gather(card: str):
+    """The gather rotation and the trained transfer function at a small
+    size on the GPU (K1 and K2 in the window loss) against the same run on
+    the CPU, which tests/test_torch_grid2d.py holds against the JAX
+    package; the style weight is 1000, as there."""
+    (lc, *oc), (lg, *og) = (_transfer_gather_reference_run(dev)
+                            for dev in ("cpu", "cuda"))
+    err = {"loss_rel": float(np.max(np.abs(lg - lc) / np.abs(lc)))}
+    for k, g, c in zip(("d_star", "field", "tf"), og, oc):
+        err[k + "_max_abs"] = float(np.abs(g - c).max())
+    if not (all(np.isfinite(a).all() for a in og)
+            and err["loss_rel"] <= 1e-4
+            and max(v for k, v in err.items() if k != "loss_rel") <= 1e-3):
+        raise AssertionError(f"gather + transfer GPU run departs from the "
+                             f"CPU: {err}")
+    return {"shape": [16, 12, 16], "vs": "cpu port", "err": err,
+            "tol": {"loss_rel": 1e-4, "max_abs": 1e-3}}
+
+
+def phase_transfer_gather(card: str):
+    """The density slice's first frame (112x64x112, W=1, config #3
+    widths, 3 octaves x 8 iterations) coloured by the 'fire' transfer
+    function with its control points trained (render.train_transfer),
+    then the same frame with rotation='gather' (the exact trilinear
+    resample through ops/interp.grid_sample) in place of the shears.
+    Each frame runs twice and the second run is timed and checked, with
+    the launches of that run. Gather and shear give different images, so
+    the two are not compared with each other; a small gather frame with
+    a trained transfer function is compared with the CPU port."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.render.transfer import COLORMAPS
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    rng = np.random.default_rng(4)
+    ds = _plume_density(SHAPE, 0, rng)[None]
+    vs = _swirl_velocity(SHAPE, 0)[None]
+    style = np.random.default_rng(1).random((256, 256, 3),
+                                            dtype=np.float32)
+    record = {"phase": "transfer_gather", "shape": list(SHAPE), "card": card,
+              "reduced": "one frame, 8 iterations per octave (config #3: "
+                         "20)"}
+    for rotation in ("shear", "gather"):
+        cfg = _northstar_cfg(**{"optim.iters": 8,
+                                "render.transfer_fn": "fire",
+                                "render.train_transfer": True,
+                                "render.rotation": rotation})
+        styler = GridStyler(cfg, style_image=style, device="cuda")
+        for _ in range(2):
+            marks = []
+            ak.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (_, d_star, param), = styler.stylize_sequence(
+                ds, vs, fused=0, callback=lambda done, loss, octave:
+                marks.append((octave, done, time.perf_counter())))
+            out = d_star.cpu().numpy()
+            wall = time.perf_counter() - t0
+        launches = dict(ak.LAUNCHES)
+        nodes = torch.clamp(param["tf"], 0, 1).cpu().numpy()
+        _check_grid_out(rotation, out, ds[0])
+        if not (np.isfinite(nodes).all()
+                and np.abs(nodes - COLORMAPS["fire"]).max() > 0.0):
+            raise AssertionError(f"{rotation}: the nodes did not train")
+        if launches["fwd"] <= 0 or launches["bwd_field"] <= 0:
+            raise AssertionError(f"{rotation} launched {launches}")
+        losses = styler.frame_losses[0].cpu().numpy()
+        record[rotation] = {
+            "wall_s": wall, "finest_s_per_iter": _octave_s_per_iter(
+                marks, cfg.optim.octave_n - 1, cfg.optim.iters),
+            "finest_losses": losses[-1].tolist(),
+            "max_node_move": float(np.abs(nodes - COLORMAPS["fire"]).max()),
+            "launches": launches}
+    record["gather_minus_shear_finest_s_per_iter"] = (
+        record["gather"]["finest_s_per_iter"]
+        - record["shear"]["finest_s_per_iter"])
+    record["reference"] = _reference_transfer_gather(card)
+    emit(record)
+
+
+def phase_checkpoint(card: str, root: str, data_dir: str):
+    """In-frame checkpoints on the velocity slice's first frame (config
+    #4, 112x64x112, W=1, 2 octaves x 4 iterations, log_every 2, so K1, K2
+    and K3 run): the frame twice without interruption, then through
+    ``stylize_frame(checkpoint_path=)`` interrupted by a callback raising
+    after the first chunk of octave 1 (its checkpoint written), and
+    resumed. If the two uninterrupted runs are bitwise equal, the resumed
+    one must be too; if not, their gap is printed and the resumed run
+    held to it. Then a
+    ``--checkpoint_in_frame`` CLI job on one of the scene's frames, which
+    must complete and leave no checkpoint file."""
+    import torch
+
+    from nfs_tpu_torch.cli.stylize import main as stylize
+    from nfs_tpu_torch.io.checkpoint import read_meta
+    from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    class Interrupt(Exception):
+        pass
+
+    def stop(done, loss, octave):
+        if (octave, done) == (1, 2):
+            raise Interrupt
+
+    cfg = _northstar_cfg(**{"optim.parameterization": "velocity",
+                            "optim.octave_n": 2, "optim.iters": 4,
+                            "optim.log_every": 2})
+    styler = GridStyler(cfg, style_image=np.random.default_rng(2).random(
+        (256, 256, 3), dtype=np.float32), device="cuda")
+    d = _plume_density(SHAPE, 0, np.random.default_rng(3))
+    v = _swirl_velocity(SHAPE, 0)
+    vels = np.stack([v, v])     # frame 0's W=1 context
+    ckpt = os.path.join(root, "inframe_ckpt.npz")
+    ak.reset_launches()
+    runs, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        d_star, param, _ = styler.stylize_frame(d, vels=vels)
+        runs.append((d_star.cpu().numpy(), param.cpu().numpy()))
+        walls.append(time.perf_counter() - t0)
+    try:
+        styler.stylize_frame(d, vels=vels, checkpoint_path=ckpt,
+                             callback=stop)
+        raise AssertionError("the interrupting callback never ran")
+    except Interrupt:
+        pass
+    meta = read_meta(ckpt)
+    if (meta["octave"], meta["iters_done"]) != (1, 2):
+        raise AssertionError(f"checkpoint at {meta}")
+    t0 = time.perf_counter()
+    d_star, param, info = styler.stylize_frame(d, vels=vels,
+                                               checkpoint_path=ckpt)
+    resumed = (d_star.cpu().numpy(), param.cpu().numpy())
+    resume_s = time.perf_counter() - t0
+    launches = dict(ak.LAUNCHES)
+    if os.path.exists(ckpt):
+        raise AssertionError("the completed frame left its checkpoint")
+    if [len(l) for l in info["octave_losses"]] != [2]:
+        raise AssertionError(f"resumed losses {info['octave_losses']}")
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(*runs))
+    off = max(float(np.abs(a - b).max()) for a, b in zip(resumed, runs[0]))
+    if not off <= gap:
+        raise AssertionError(f"resumed run {off} from the uninterrupted, "
+                             f"two uninterrupted runs {gap} apart")
+    if not (launches["fwd"] > 0 and launches["bwd_field"] > 0
+            and launches["bwd_vel"] > 0):
+        raise AssertionError(f"velocity checkpoint path launched {launches}")
+
+    log = os.path.join(root, "log")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        stylize(["--data_dir", data_dir, "--log_dir", log, "--tag", "ckpt",
+                 "--checkpoint_in_frame", "--octave_n", "2", "--iter", "2"])
+    cli_s = time.perf_counter() - t0
+    out_dir = os.path.join(log, "ckpt")
+    if os.path.exists(os.path.join(out_dir, "inframe_ckpt.npz")):
+        raise AssertionError("the CLI job left its in-frame checkpoint")
+    out = FrameStore(out_dir).load_density(0)
+    if not (out.shape == SHAPE and np.isfinite(out).all()):
+        raise AssertionError("the CLI job wrote a bad frame")
+    emit({"phase": "checkpoint", "shape": list(SHAPE),
+          "parameterization": "velocity", "octave_n": 2, "iters": 4,
+          "log_every": 2, "interrupted_at": meta,
+          "uninterrupted_runs_bitwise_equal": gap == 0.0,
+          "uninterrupted_gap_max_abs": gap,
+          "resumed_vs_uninterrupted_max_abs": off,
+          "frame_s": walls, "resume_s": resume_s, "launches": launches,
+          "cli": {"wall_s": cli_s, "checkpoint_left": False},
+          "card": card})
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(
         description="Drive the PyTorch/CUDA port on one GPU")
@@ -1569,10 +2141,14 @@ def main(argv=None) -> int:
     bin_launches = phase_particle(card, args.profile)
     if args.profile:
         phase_profile(card)
+    phase_2d(card)
+    phase_transfer_gather(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
+        phase_color(card, tmp)
         smoke_dir = phase_scene(card, tmp)
         phase_northstar(card, tmp)
         phase_cli(card, tmp, smoke_dir)
+        phase_checkpoint(card, tmp, smoke_dir)
     for recs, keys, counts in ((records, KERNELS, launches),
                                ([far_record], (UNTILED,), launches),
                                (bin_records, BIN_KERNELS, bin_launches)):

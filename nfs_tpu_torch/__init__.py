@@ -1,20 +1,23 @@
 """nfs_tpu_torch — the PyTorch/CUDA port of ``nfs_tpu``.
 
-The TNST grid path (3D smoke density, density and velocity
-parameterizations, window-transport loss, streaming, fused and
-block-streamed sequences with mid-sequence resume), the LNST particle
-path (3D, position and density attributes, keyframes) and the smoke and
-FLIP data generators on PyTorch, with the bounded-displacement advection
+The TNST grid path (2D and 3D smoke density, density and velocity
+parameterizations, window-transport loss, transfer functions, shear or
+gather rotation, streaming, fused and block-streamed sequences with
+mid-sequence resume, in-frame checkpoints), the LNST particle path (2D
+and 3D, position, density and colour attributes, keyframes) and the
+smoke and FLIP data generators on PyTorch, with the bounded-displacement advection
 kernels and the binned-splat window kernels written by hand in CUDA for
 Hopper (``csrc/advect.cu``, ``csrc/binsplat.cu``). The sub-packages mirror
 ``nfs_tpu``'s so each module's counterpart is found under the same name:
 
 - :mod:`nfs_tpu_torch.core`     — configuration dataclasses, ParticleSet
 - :mod:`nfs_tpu_torch.io`       — ``.npz`` frame store, chunked sequence
-  cache, ``.uni`` files, sequence manifest, image export
+  cache, ``.uni`` files, in-frame checkpoints, sequence manifest, image
+  export
 - :mod:`nfs_tpu_torch.ops`      — advection (kernels K1-K3b), splatting and
-  binning (kernels K4-K5), grid sampling, resize, shear
+  binning (kernels K4-K5), grid sampling, resize, shear, gather rotation
 - :mod:`nfs_tpu_torch.render`   — Poisson-disk cameras, Beer-Lambert march
+  (grey or colour), the 2D renderer, transfer functions
 - :mod:`nfs_tpu_torch.features` — VGG-19 features and the losses
 - :mod:`nfs_tpu_torch.styler`   — octave Adam driver, ``GridStyler``,
   ``ParticleStyler``

@@ -11,22 +11,29 @@ Usage:
       --opt_density --keyframe_stride 10 --style_target style.npy
 
 The flags are the JAX CLI's grid- and particle-mode flags plus
-``--device`` (default ``cuda``; a missing GPU is an error); the mesh and
-transfer-function flags come with the ROADMAP slices that port them.
-Grid mode runs a single frame, or a sequence (``--num_frames`` > 1 or
+``--device`` (default ``cuda``; a missing GPU is an error); the mesh
+flags come with the ROADMAP slice that ports them. Grid mode runs a
+single 2D or 3D frame, or a sequence (``--num_frames`` > 1 or
 ``--window`` > 0) on the streaming path or, with ``--fused F`` > 1, in
-chunks of F frames. Particle mode (LNST) reads ``p_%04d.npz`` frames,
-optimizes keyframes and interpolates between them
-(``ParticleStyler.stylize_keyframes``, 3D grids). Outputs land in
-``<log_dir>/<tag>/``: stylized ``d_%04d.npz`` or ``p_%04d.npz`` frames,
-the carry ``param_%04d.npz`` of grid sequence frames (every frame when
-streaming, each chunk's last frame when fused), preview images, a
-``metrics.jsonl`` log and, for grid sequences, a ``manifest.json`` of
-finished frames. A rerun of a grid sequence skips the frames the
-manifest holds and continues the warm-start chain from the last saved
-param (at most F-1 finished frames are stylized again when fused). Not
-ported yet, and refused with the ROADMAP item that holds them:
-``--opt_color``, ``--parallel`` and ``--checkpoint_in_frame``.
+chunks of F frames; ``--transfer_fn`` colours the renders and
+``--train_transfer`` trains its control points with the density.
+Particle mode (LNST) reads ``p_%04d.npz`` frames (2D or 3D), optimizes
+keyframes, with ``--opt_color`` the particles' colours too, and
+interpolates between them (``ParticleStyler.stylize_keyframes``).
+Outputs land in ``<log_dir>/<tag>/``: stylized ``d_%04d.npz`` or
+``p_%04d.npz`` frames, the carry ``param_%04d.npz`` of grid sequence
+frames (every frame when streaming, each chunk's last frame when fused),
+the trained transfer function ``tf_%04d.npz`` (``nodes``), preview
+images, a ``metrics.jsonl`` log and, for grid sequences, a
+``manifest.json`` of finished frames. A rerun of a grid sequence skips
+the frames the manifest holds and continues the warm-start chain from
+the last saved param (at most F-1 finished frames are stylized again
+when fused). With ``--checkpoint_in_frame`` every grid frame writes
+{param, Adam state} to ``inframe_ckpt.npz`` after each ``log_every``
+iterations, and a rerun resumes the interrupted frame there with the
+bits of an uninterrupted run; the file is deleted when the frame
+completes. Not ported yet, and refused with the ROADMAP item that holds
+it: ``--parallel``.
 """
 
 from __future__ import annotations
@@ -93,6 +100,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fixed_view_schedule", action="store_true",
                    help="same per-iteration view draws for every frame "
                         "(temporal-coherence lever)")
+    p.add_argument("--train_transfer", action="store_true",
+                   help="jointly optimize the transfer-function control "
+                        "points with the density (grid mode, single "
+                        "frames and sequences; requires --transfer_fn)")
+    p.add_argument("--transfer_fn", default=None,
+                   help="density->RGB transfer function for colored "
+                        "rendering: builtin colormap (fire, ice, viridis,"
+                        " gray), gradient-image path or trained-nodes "
+                        ".npz")
+    p.add_argument("--tf_max_density", type=float, default=2.0)
     # loss (reference --style_target, --style_layer, --w_style,
     # --content_layer, --content_channel, --w_content)
     p.add_argument("--style_target", default=None,
@@ -117,7 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false")
     p.add_argument("--opt_density", action="store_true")
     p.add_argument("--opt_color", action="store_true",
-                   help="not ported yet (colour compositing)")
+                   help="optimize per-particle colours (particle mode)")
     p.add_argument("--keyframe_stride", type=int, default=10)
     p.add_argument("--max_log_dens", type=float, default=None,
                    help="bound the per-particle density factor to "
@@ -160,7 +177,10 @@ def config_from_args(args) -> StyleConfig:
             transmit=args.transmit, render_size=tuple(args.render_size),
             n_views=args.n_views, theta0=args.theta0, theta1=args.theta1,
             phi0=args.phi0, phi1=args.phi1, sample_type=args.sample_type,
-            gamma=args.gamma, fixed_view_schedule=args.fixed_view_schedule),
+            gamma=args.gamma, transfer_fn=args.transfer_fn,
+            tf_max_density=args.tf_max_density,
+            fixed_view_schedule=args.fixed_view_schedule,
+            train_transfer=args.train_transfer),
         loss=LossConfig(
             style_target=args.style_target, style_layers=layers,
             style_layer_weights=lw, w_style=args.w_style,
@@ -185,16 +205,10 @@ def config_from_args(args) -> StyleConfig:
 
 
 def _refuse_unported(args) -> None:
-    refused = [
-        (args.opt_color, "--opt_color (colour compositing)", "item 6"),
-        (args.parallel, "--parallel", "item 21"),
-        (args.checkpoint_in_frame, "--checkpoint_in_frame", "item 16"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to nfs_tpu_torch yet: ROADMAP queue "
-                f"1, {item}")
+    if args.parallel:
+        raise NotImplementedError(
+            "--parallel is not ported to nfs_tpu_torch yet: ROADMAP queue "
+            "1, item 21")
 
 
 def main(argv=None):
@@ -206,7 +220,8 @@ def main(argv=None):
 
     from nfs_tpu_torch.io.image import save_image
     from nfs_tpu_torch.io.npz import FrameStore
-    from nfs_tpu_torch.render.raymarch import render_volume
+    from nfs_tpu_torch.render.raymarch import render2d, render_volume
+    from nfs_tpu_torch.render.transfer import resolve_transfer
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -224,11 +239,19 @@ def main(argv=None):
         with open(metrics_path, "a") as f:
             f.write(json.dumps(kw) + "\n")
 
+    tf = resolve_transfer(cfg.render.transfer_fn)
+    tf = None if tf is None else torch.as_tensor(tf, device=device)
+
     def preview(frame, d_star):
+        rc = cfg.render
         with torch.no_grad():
-            img = render_volume(d_star, 0.0, 0.0,
-                                transmit=cfg.render.transmit,
-                                out_size=cfg.render.render_size)
+            if d_star.ndim == 2:
+                img = render2d(d_star, out_size=rc.render_size, tf_nodes=tf,
+                               tf_max=rc.tf_max_density)
+            else:
+                img = render_volume(d_star, 0.0, 0.0, transmit=rc.transmit,
+                                    out_size=rc.render_size, tf_nodes=tf,
+                                    tf_max=rc.tf_max_density)
         save_image(os.path.join(out_dir, f"preview_{frame:04d}.png"),
                    img.cpu().numpy())
 
@@ -251,12 +274,17 @@ def main(argv=None):
         t = frames[0]
         d = store.load_density(t)
         t0 = time.time()
-        d_star, _, info = styler.stylize_frame(d)
+        d_star, _, info = styler.stylize_frame(
+            d, checkpoint_path=_checkpoint_path(args, out_dir))
         d_np = d_star.cpu().numpy()
         dt = time.time() - t0
         out_store.save_density(t, d_np)
+        if "tf_nodes" in info:   # the trained transfer function
+            np.savez(os.path.join(out_dir, f"tf_{t:04d}.npz"),
+                     nodes=info["tf_nodes"].cpu().numpy())
         preview(t, d_star)
-        losses = [float(l[-1]) for l in info["octave_losses"]]
+        # a frame resumed at an octave's end ran no iteration there
+        losses = [float(l[-1]) for l in info["octave_losses"] if len(l)]
         n_iters = cfg.optim.iters * cfg.optim.octave_n
         log_metric(frame=t, wall_s=dt, iters=n_iters,
                    iters_per_sec=n_iters / dt, final_losses=losses,
@@ -264,6 +292,34 @@ def main(argv=None):
         print(f"[frame {t}] {dt:.1f}s ({n_iters / dt:.2f} iters/s on "
               f"{device}) losses={losses}")
     print(f"done -> {out_dir}")
+
+
+def _checkpoint_path(args, out_dir):
+    """The in-frame checkpoint of --checkpoint_in_frame, else None."""
+    return (os.path.join(out_dir, "inframe_ckpt.npz")
+            if args.checkpoint_in_frame else None)
+
+
+def _save_param(out_dir: str, t: int, param) -> None:
+    """The carry param of frame t; a --train_transfer carry is saved per
+    leaf (``param/field``, ``param/tf``) with its clipped nodes in
+    ``tf_%04d.npz``, as the JAX CLI writes them."""
+    path = os.path.join(out_dir, f"param_{t:04d}.npz")
+    if isinstance(param, dict):
+        np.savez(path, **{"param/" + k: v.cpu().numpy()
+                          for k, v in param.items()})
+        np.savez(os.path.join(out_dir, f"tf_{t:04d}.npz"),
+                 nodes=np.clip(param["tf"].cpu().numpy(), 0, 1))
+    else:
+        np.savez(path, param=param.cpu().numpy())
+
+
+def _load_param(path: str):
+    with np.load(path) as z:
+        if "param" in z.files:
+            return z["param"]
+        return {k[len("param/"):]: z[k] for k in z.files
+                if k.startswith("param/")}
 
 
 def _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
@@ -278,8 +334,9 @@ def _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
     start = 0
     while start < len(frames) and manifest.done(frames[start]):
         start += 1
-    # the fused path saves the carry param only at chunk ends: step back
-    # to the last frame whose param was saved, so the chain stays exact
+    # the fused path saves the carry param only at chunk ends (every
+    # frame's with --checkpoint_in_frame): step back to the last frame
+    # whose param was saved, so the chain stays exact
     if args.fused and args.fused > 1:
         while start > 0 and not os.path.exists(os.path.join(
                 out_dir, f"param_{frames[start - 1]:04d}.npz")):
@@ -298,20 +355,20 @@ def _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
         prev_t = frames[start - 1]
         ppath = os.path.join(out_dir, f"param_{prev_t:04d}.npz")
         if os.path.exists(ppath):
-            with np.load(ppath) as z:
-                init_param = z["param"]
+            init_param = _load_param(ppath)
             vpath = os.path.join(cfg.data.data_dir, cfg.data.v_path % prev_t)
             if os.path.exists(vpath):
                 prev_velocity = store.load_velocity(prev_t)
     t0 = time.time()
     for i, d_star, param in styler.stylize_sequence(
-            densities, vels, fused=args.fused, init_param=init_param,
-            prev_velocity=prev_velocity, frame_offset=start):
+            densities, vels, fused=args.fused,
+            checkpoint_path=_checkpoint_path(args, out_dir),
+            init_param=init_param, prev_velocity=prev_velocity,
+            frame_offset=start):
         t = todo[i]
         out_store.save_density(t, d_star.cpu().numpy())
         if param is not None:
-            np.savez(os.path.join(out_dir, f"param_{t:04d}.npz"),
-                     param=param.cpu().numpy())
+            _save_param(out_dir, t, param)
         preview(t, d_star)
         dt = time.time() - t0
         manifest.mark(t, os.path.join(out_dir, cfg.data.d_path % t),
@@ -326,6 +383,8 @@ def _run_particles(cfg, args, store, out_store, frames, preview, log_metric,
                    device) -> None:
     """LNST: keyframe optimization + attribute interpolation over the
     particle frames, one ``p_%04d.npz`` and one preview per frame."""
+    import torch
+
     from nfs_tpu_torch.core.pytrees import ParticleSet
     from nfs_tpu_torch.styler.particle import ParticleStyler
 
@@ -343,7 +402,7 @@ def _run_particles(cfg, args, store, out_store, frames, preview, log_metric,
         t = frames[i]
         out_store.save_particles(
             t, x=styled.x.cpu().numpy(), dens=styled.dens.cpu().numpy(),
-            **({"color": np.asarray(styled.color)}
+            **({"color": np.asarray(torch.as_tensor(styled.color).cpu())}
                if styled.color is not None else {}))
         preview(t, styler.rasterize(styled))
         kf_info = styler.last_keyframe_infos.get(i, {})

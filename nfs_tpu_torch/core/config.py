@@ -58,9 +58,10 @@ class RenderConfig:
     # jointly OPTIMIZE the transfer function's control points with the
     # density field (the hat-basis expansion in render/transfer.py is
     # differentiable in its nodes): the styler's param becomes the
-    # pytree {'field', 'tf'} and the trained nodes come back in
-    # info['tf_nodes']. Single-frame path only (sequence paths hold the
-    # TF fixed); requires transfer_fn to seed the nodes.
+    # dict {'field', 'tf'} and the trained nodes come back in
+    # info['tf_nodes']. Single frames and sequences (the nodes ride the
+    # carry unchanged by the transport); requires transfer_fn to seed
+    # the nodes.
     train_transfer: bool = False
     # use the SAME per-iteration view schedule for every frame of a
     # sequence (per-frame PRNG keys stop folding in the frame index).

@@ -1,19 +1,112 @@
-"""Sequence-level resume bookkeeping (counterpart of the
-``SequenceManifest`` of ``nfs_tpu/io/checkpoint.py``).
+"""In-frame checkpoints and sequence-level resume bookkeeping
+(counterpart of ``nfs_tpu/io/checkpoint.py``).
 
-A sequence job marks every finished frame in a JSON manifest; a rerun
+In-frame: :func:`save_checkpoint` writes a tree of tensors (dicts,
+:class:`~nfs_tpu_torch.styler.octave.AdamState` and tensors or ints) and
+JSON metadata to ONE ``.npz``: each leaf under ``leaf:<path>`` (its keys
+and field names joined by ``/``), the metadata as ``__meta__``. No pickle.
+The write is atomic (a temp file in the same directory, then a rename),
+so a crash mid-write leaves the previous checkpoint intact.
+:func:`load_checkpoint` reads one back into the structure, dtypes and
+device of a template tree.
+
+Sequence: a job marks every finished frame in a JSON manifest; a rerun
 skips the frames already done and continues the recursive warm-start
 chain from the last saved ``param_%04d.npz`` (``cli/stylize.py``). The
 manifest file has the JAX package's format, so either package resumes a
-job the other started. In-frame checkpoints ({param, Adam state} every
-``log_every`` iterations) are ROADMAP queue 1, item 16.
+job the other started.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Dict
+import tempfile
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Any, prefix: str = ""):
+    """(path, leaf) pairs of a tree of dicts, dataclasses and leaves."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _flatten(tree[k], f"{prefix}{k}/")
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _flatten(getattr(tree, f.name), f"{prefix}{f.name}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = ""):
+    if isinstance(like, dict):
+        return {k: _rebuild(v, leaves, f"{prefix}{k}/")
+                for k, v in like.items()}
+    if dataclasses.is_dataclass(like):
+        return dataclasses.replace(like, **{
+            f.name: _rebuild(getattr(like, f.name), leaves,
+                             f"{prefix}{f.name}/")
+            for f in dataclasses.fields(like)})
+    return leaves[prefix[:-1]]
+
+
+def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None
+                    ) -> None:
+    """Atomically save a tree of tensors (+ JSON-able metadata)."""
+    arrays = {}
+    for p, leaf in _flatten(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        arrays["leaf:" + p] = np.asarray(leaf)
+    if meta is not None:
+        arrays["__meta__"] = np.frombuffer(
+            json.dumps(meta).encode(), dtype=np.uint8)
+    directory = os.path.dirname(path) or "."
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def read_meta(path: str) -> Optional[Dict]:
+    """The JSON metadata of a checkpoint, or None if it has none."""
+    with np.load(path) as npz:
+        if "__meta__" not in npz.files:
+            return None
+        return json.loads(bytes(npz["__meta__"]).decode())
+
+
+def load_checkpoint(path: str, like: Any) -> Tuple[Any, Optional[Dict]]:
+    """Load a checkpoint into the structure of ``like`` (a tree of the
+    same layout, e.g. freshly initialized state): tensor leaves come back
+    with the dtype and device of ``like``'s, int leaves as ints. Returns
+    (tree, meta)."""
+    leaves = {}
+    with np.load(path) as npz:
+        for p, leaf in _flatten(like):
+            key = "leaf:" + p
+            if key not in npz.files:
+                raise KeyError(f"checkpoint {path} missing leaf {key}")
+            arr = npz[key]
+            if isinstance(leaf, torch.Tensor):
+                if tuple(arr.shape) != tuple(leaf.shape):
+                    raise ValueError(
+                        f"checkpoint {path} leaf {key} has shape "
+                        f"{arr.shape}, expected {tuple(leaf.shape)}")
+                leaves[p] = torch.as_tensor(arr).to(dtype=leaf.dtype,
+                                                    device=leaf.device)
+            else:
+                leaves[p] = type(leaf)(arr)
+    return _rebuild(like, leaves), read_meta(path)
 
 
 class SequenceManifest:

@@ -26,39 +26,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from nfs_tpu_torch.ops.advect_kernels import (
-    AdvectWindow, _clip_grad, _dtent, _tent)
+from nfs_tpu_torch.ops.advect_kernels import AdvectWindow
+from nfs_tpu_torch.ops.jaxgrad import jax_clip, jax_tent
 
 _IMPLS = ("auto", "xla", "pallas")
-
-
-class _JaxTent(torch.autograd.Function):
-    """max(0, 1 - |u|) with JAX's subgradient (pallas_advect.py _dtent)."""
-
-    @staticmethod
-    def forward(ctx, u):
-        ctx.save_for_backward(u)
-        return _tent(u)
-
-    @staticmethod
-    def backward(ctx, g):
-        (u,) = ctx.saved_tensors
-        return g * _dtent(u)
-
-
-class _JaxClip(torch.autograd.Function):
-    """clip(x, lo, hi) whose gradient is 0.5 at a bound, as jnp.clip's."""
-
-    @staticmethod
-    def forward(ctx, x, lo, hi):
-        ctx.save_for_backward(x)
-        ctx.bounds = (lo, hi)
-        return x.clamp(lo, hi)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * _clip_grad(x, *ctx.bounds), None, None
 
 
 def _shift_zero(x: torch.Tensor, offsets, ndim_space: int) -> torch.Tensor:
@@ -85,7 +56,7 @@ def _advect_window_taps(field: torch.Tensor, vel: torch.Tensor, dt: float,
     ndim = vel.shape[-1]
     spatial = tuple(field.shape[:ndim])
     K = int(math.ceil(max_disp)) + 1
-    disp = _JaxClip.apply(dt * vel.to(torch.float32), -max_disp, max_disp)
+    disp = jax_clip(dt * vel.to(torch.float32), -max_disp, max_disp)
     idx = []
     for a in range(ndim):
         view = [1] * ndim
@@ -94,13 +65,13 @@ def _advect_window_taps(field: torch.Tensor, vel: torch.Tensor, dt: float,
                                 device=field.device).view(view)
                    .expand(spatial))
     if mode == "clamp":
-        s = [_JaxClip.apply(idx[a] - disp[..., a], 0.0, spatial[a] - 1)
+        s = [jax_clip(idx[a] - disp[..., a], 0.0, spatial[a] - 1)
              for a in range(ndim)]
     elif mode == "zero":  # raw backtrace; outside support falls to zero
         s = [idx[a] - disp[..., a] for a in range(ndim)]
     else:
         raise ValueError(f"unknown advection mode {mode!r}")
-    weights = [[_JaxTent.apply(s[a] - (idx[a] + o)) for o in range(-K, K + 1)]
+    weights = [[jax_tent(s[a] - (idx[a] + o)) for o in range(-K, K + 1)]
                for a in range(ndim)]
     has_channels = field.ndim > ndim
     acc = torch.zeros_like(field)

@@ -23,13 +23,13 @@ from typing import Tuple
 
 import torch
 
-from nfs_tpu_torch.ops.advect import _JaxTent
+from nfs_tpu_torch.ops.jaxgrad import jax_tent
 
 
 def _kernel_weight_1d(u: torch.Tensor, kernel: str) -> torch.Tensor:
     """Kernel value at signed distance u (cells), unit support."""
     if kernel == "linear":
-        return _JaxTent.apply(u)
+        return jax_tent(u)
     if kernel == "bspline":
         au = u.abs()
         return torch.where(au < 0.5, 0.75 - au * au,

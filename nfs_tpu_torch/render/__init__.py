@@ -1,2 +1,2 @@
-"""Camera sampling and the Beer-Lambert renderer (counterpart of
-``nfs_tpu.render``)."""
+"""Camera sampling, the Beer-Lambert and 2D renderers and transfer
+functions (counterpart of ``nfs_tpu.render``)."""

@@ -8,9 +8,11 @@ depth axis with front-to-back absorption compositing:
     C_t = sum_{s<t} rho_s                       (exclusive cumsum)
     I(u, v) = sum_t  sigma * rho_t * exp(-sigma * C_t)
 
-All views of one volume are rotated and marched as one batch. Colour
-transfer functions and the 2D renderer are not ported yet (ROADMAP queue
-1, items 15 and 6).
+All views of one volume are rotated and marched as one batch. With a
+per-voxel colour (LNST colour, or a transfer function applied after the
+rotation) the image is the density-weighted composite of the colour.
+
+2D stylization renders the grid itself as the image (:func:`render2d`).
 """
 
 from __future__ import annotations
@@ -19,30 +21,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from nfs_tpu_torch.ops.jaxgrad import jax_clip, jax_maximum
 from nfs_tpu_torch.ops.resize import resize_axes
+from nfs_tpu_torch.ops.rotate import rotate3d_batch
 from nfs_tpu_torch.ops.shear import rotate3d_shear
-
-
-class _Maximum(torch.autograd.Function):
-    """max(x, c) for a constant c whose gradient is 0.5 at a tie, as
-    jnp.maximum's (torch's clamp gives 1). Densities are exactly 0 in much
-    of a smoke volume, so the tie is common, not a corner case."""
-
-    @staticmethod
-    def forward(ctx, x, c):
-        ctx.save_for_backward(x)
-        ctx.c = c
-        return torch.clamp(x, min=c)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        w = torch.where(x > ctx.c, 1.0, torch.where(x == ctx.c, 0.5, 0.0))
-        return g * w, None
-
-
-def jax_maximum(x: torch.Tensor, c: float) -> torch.Tensor:
-    return _Maximum.apply(x, c)
+from nfs_tpu_torch.render.transfer import transfer_colors
 
 
 def _exclusive_cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -50,67 +33,121 @@ def _exclusive_cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _rotate(d: torch.Tensor, theta, phi, method: str) -> torch.Tensor:
+    """View rotation of a (D, H, W) volume: scalar angles give one
+    volume, 1-D angle tensors a (V, D, H, W) batch. 'shear' is the
+    three-shear GEMM path, 'gather' the exact trilinear resample."""
     if method == "shear":
         return rotate3d_shear(d, theta, phi)
     if method == "shear_bf16":
         return rotate3d_shear(d, theta, phi, dtype=torch.bfloat16)
     if method == "gather":
-        raise NotImplementedError(
-            "rotation='gather' (ops/rotate.py rotate3d) is not ported yet: "
-            "ROADMAP queue 1, item 5")
+        theta = torch.as_tensor(theta, dtype=torch.float32, device=d.device)
+        phi = torch.as_tensor(phi, dtype=torch.float32, device=d.device)
+        out = rotate3d_batch(d, theta.reshape(-1), phi.reshape(-1),
+                             mode="zero")
+        return out[0] if theta.ndim == 0 else out
     raise ValueError(f"unknown rotation method {method!r}")
 
 
-def _march(rho: torch.Tensor, transmit: float, axis: int) -> torch.Tensor:
+def _march(rho: torch.Tensor, transmit: float, axis: int,
+           color: Optional[torch.Tensor] = None) -> torch.Tensor:
     rho = jax_maximum(rho, 0.0)
     trans = torch.exp(-transmit * _exclusive_cumsum(rho, axis))
-    return torch.sum(transmit * rho * trans, dim=axis)
+    w = transmit * rho * trans
+    if color is None:
+        return torch.sum(w, dim=axis)
+    return torch.sum(w[..., None] * color, dim=axis)
 
 
 def raymarch(rho: torch.Tensor, transmit: float = 0.01, axis: int = 0,
-             out_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+             out_size: Optional[Tuple[int, int]] = None,
+             color: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Integrate a view-aligned ``(D, H, W)`` volume along `axis` to an
-    image, resized (linear, antialiased) to ``out_size`` if given.
-    Per-voxel colour compositing (LNST colour) is not ported yet."""
-    img = _march(rho, transmit, axis)
+    (H, W) image, or with ``color`` (D, H, W, 3) to the density-weighted
+    (H, W, 3) composite; resized (linear, antialiased) to ``out_size`` if
+    given."""
+    img = _march(rho, transmit, axis, color)
     if out_size is not None:
         img = resize_axes(img, (0, 1), tuple(out_size))
     return img
 
 
-def _no_transfer(tf_nodes) -> None:
-    if tf_nodes is not None:
-        raise NotImplementedError(
-            "transfer-function colour rendering (render/transfer.py) is not "
-            "ported yet: ROADMAP queue 1, item 15")
+def _gamma(img: torch.Tensor, gamma: float) -> torch.Tensor:
+    if gamma != 1.0:
+        img = torch.pow(jax_maximum(img, 1e-6), 1.0 / gamma)
+    return img
 
 
 def render_volume(d: torch.Tensor, theta, phi, transmit: float = 0.01,
                   out_size: Optional[Tuple[int, int]] = None,
                   gamma: float = 1.0, method: str = "shear",
-                  tf_nodes=None) -> torch.Tensor:
-    """Render one view of a (D, H, W) volume to an (H, W) gray image:
-    rotate (theta azimuth, phi elevation, radians), then march along z."""
-    _no_transfer(tf_nodes)
+                  tf_nodes: Optional[torch.Tensor] = None,
+                  tf_max: float = 1.0) -> torch.Tensor:
+    """Render one view of a (D, H, W) volume: rotate (theta azimuth, phi
+    elevation, radians), then march along z. (H, W) gray, or with
+    ``tf_nodes`` (N, 3) an (H, W, 3) image whose colour is the transfer
+    function of the rotated density."""
     rot = _rotate(d, theta, phi, method)
-    img = raymarch(rot, transmit=transmit, axis=0, out_size=out_size)
-    if gamma != 1.0:
-        img = torch.pow(jax_maximum(img, 1e-6), 1.0 / gamma)
-    return img
+    color = (None if tf_nodes is None
+             else transfer_colors(rot, tf_nodes, tf_max))
+    img = raymarch(rot, transmit=transmit, axis=0, out_size=out_size,
+                   color=color)
+    return _gamma(img, gamma)
 
 
 def render_views(d: torch.Tensor, thetas: torch.Tensor, phis: torch.Tensor,
                  transmit: float = 0.01,
                  out_size: Optional[Tuple[int, int]] = None,
                  gamma: float = 1.0, method: str = "shear",
-                 tf_nodes=None) -> torch.Tensor:
-    """Render a batch of views -> (V, H, W, 3), grayscale tiled to three
-    channels for the CNN."""
-    _no_transfer(tf_nodes)
+                 tf_nodes: Optional[torch.Tensor] = None,
+                 tf_max: float = 1.0,
+                 color: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Render a batch of views -> (V, H, W, 3). Grayscale is tiled to
+    three channels for the CNN; with ``tf_nodes`` the channels are the
+    transfer function's colours, and with ``color`` (D, H, W, 3), a
+    per-voxel colour volume rotated with the density, its composite."""
     rot = _rotate(d, thetas, phis, method)             # (V, D, H, W)
-    img = _march(rot, transmit, axis=1)                # (V, H, W)
+    col = None
+    if color is not None:
+        col = torch.stack([_rotate(color[..., c], thetas, phis, method)
+                           for c in range(3)], dim=-1)
+    elif tf_nodes is not None:
+        col = transfer_colors(rot, tf_nodes, tf_max)
+    img = _march(rot, transmit, axis=1, color=col)     # (V, H, W[, 3])
     if out_size is not None:
         img = resize_axes(img, (1, 2), tuple(out_size))
-    if gamma != 1.0:
-        img = torch.pow(jax_maximum(img, 1e-6), 1.0 / gamma)
+    img = _gamma(img, gamma)
+    if col is not None:
+        return img
     return img[..., None].expand(*img.shape, 3)
+
+
+def render2d(d: torch.Tensor, out_size: Optional[Tuple[int, int]] = None,
+             gamma: float = 1.0, color: Optional[torch.Tensor] = None,
+             compress: str = "soft",
+             tf_nodes: Optional[torch.Tensor] = None,
+             tf_max: float = 1.0) -> torch.Tensor:
+    """2D grid -> (H, W, 3) image; an optional (H, W, 3) colour field (or
+    the transfer function ``tf_nodes`` of the density) is modulated by
+    the density.
+
+    compress: how density maps to [0, 1] brightness: 'soft' (default),
+      1 - exp(-max(d, 0)), the 2D analogue of the Beer-Lambert
+      transmittance, whose gradient never vanishes; 'clip', a hard clip
+      to [0, 1]. Both keep JAX's subgradients at their ties (0.5 at
+      d == 0 and at a clip bound).
+    """
+    if tf_nodes is not None:
+        color = transfer_colors(d, tf_nodes, tf_max)
+    if compress == "soft":
+        img = 1.0 - torch.exp(-jax_maximum(d, 0.0))
+    else:
+        img = jax_clip(d, 0.0, 1.0)
+    img = _gamma(img, gamma)
+    if color is None:
+        img = img[..., None].expand(*img.shape, 3)
+    else:
+        img = img[..., None] * jax_clip(color, 0.0, 1.0)
+    if out_size is not None:
+        img = resize_axes(img, (0, 1), tuple(out_size))
+    return img

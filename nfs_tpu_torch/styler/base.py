@@ -23,6 +23,7 @@ from nfs_tpu_torch.features.vgg import (
 from nfs_tpu_torch.io.image import load_image
 from nfs_tpu_torch.render.camera import (
     poisson_view_pool, sample_views_stratified)
+from nfs_tpu_torch.render.transfer import resolve_transfer
 
 
 def _not_ported(what: str, item: str):
@@ -32,16 +33,14 @@ def _not_ported(what: str, item: str):
 
 
 class StylerBase:
-    """Loss network, style/content targets and view pool on ``device``."""
+    """Loss network, style/content targets, view pool and transfer
+    function on ``device``."""
 
     def __init__(self, cfg: StyleConfig, vgg_params=None,
                  style_image: Optional[np.ndarray] = None,
                  content_image: Optional[np.ndarray] = None,
                  device="cuda"):
         rc, lc = cfg.render, cfg.loss
-        if rc.transfer_fn or rc.train_transfer:
-            raise _not_ported("render.transfer_fn / train_transfer",
-                              "item 15")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
@@ -73,6 +72,14 @@ class StylerBase:
                     torch.as_tensor(content_image, dtype=torch.float32,
                                     device=dev)[None],
                     (lc.content_layer,), pool=lc.pool)
+
+        # optional density -> RGB transfer function (render/transfer.py),
+        # resolved once
+        self.tf_nodes = None
+        if rc.transfer_fn:
+            self.tf_nodes = torch.as_tensor(
+                resolve_transfer(rc.transfer_fn), dtype=torch.float32,
+                device=dev)
 
         # Poisson-disk view pool (numpy, the JAX package's pool for the
         # same seed), shipped to the device once

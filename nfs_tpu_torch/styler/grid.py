@@ -1,14 +1,20 @@
 """TNST grid stylization engine (counterpart of
 ``nfs_tpu/styler/grid.py``; TNST arXiv:1905.07442).
 
-Ported: 3D (D, H, W) smoke densities; the density (``d* = d + dd``) and
-velocity (``d* = advect(d, v_hat)``, TNST §4.2) parameterizations; Gram
-style, semantic and content losses with a TV regularizer; multi-view
-rendering from a Poisson-disk view pool; octave Adam; the
-Gaussian-weighted window-transport loss and the recursive sequence
-(TNST §6), whole or block-streamed from a chunk directory
-(``io/stream.py``), with the param yielded per frame or per chunk of
-frames, and resumed mid-sequence from a saved param.
+Ported: 2D (H, W) and 3D (D, H, W) smoke densities; the density
+(``d* = d + dd``) and velocity (``d* = advect(d, v_hat)``, TNST §4.2)
+parameterizations; Gram style, semantic and content losses with a TV
+regularizer; multi-view rendering from a Poisson-disk view pool for 3D,
+the grid itself as the image for 2D (``render2d``); an optional
+density -> RGB transfer function, whose control points can be trained
+with the field (``render.train_transfer``: the param becomes the dict
+``{'field', 'tf'}``); octave Adam; the Gaussian-weighted window-transport
+loss and the recursive sequence (TNST §6), whole or block-streamed from a
+chunk directory (``io/stream.py``), with the param yielded per frame or
+per chunk of frames, and resumed mid-sequence from a saved param; in-frame
+checkpoints of {param, Adam state} every ``log_every`` iterations, from
+which an interrupted frame resumes mid-octave with the uninterrupted
+run's bits.
 
 The optimization runs eagerly on ``device``. Advection inside the loss
 goes through the CUDA kernels K1-K3b (``ops/advect_kernels.py``) on a
@@ -17,13 +23,13 @@ Random draws come from explicit ``torch.Generator`` objects; since torch
 cannot reproduce ``jax.random``, a per-iteration ``view_schedule`` of view
 pool indices can be injected to replay the JAX package's draws.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): 2D grids, per-view rematerialization, transfer functions,
-in-frame checkpoints.
+Not ported yet: per-view rematerialization (``loss.remat_views`` raises
+``NotImplementedError`` naming its ROADMAP item).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -31,9 +37,12 @@ import torch
 
 from nfs_tpu_torch.core.config import StyleConfig
 from nfs_tpu_torch.features.losses import gram_matrix, tv_loss
+from nfs_tpu_torch.io.checkpoint import (
+    load_checkpoint, read_meta, save_checkpoint)
 from nfs_tpu_torch.ops.advect import advect, advect_maccormack
+from nfs_tpu_torch.ops.jaxgrad import jax_clip
 from nfs_tpu_torch.ops.resize import octave_shapes, resize
-from nfs_tpu_torch.render.raymarch import render_views
+from nfs_tpu_torch.render.raymarch import render2d, render_views
 from nfs_tpu_torch.styler.base import StylerBase, _not_ported
 from nfs_tpu_torch.styler.octave import Adam, run_octave
 
@@ -65,23 +74,30 @@ class GridStyler(StylerBase):
     # loss pipeline: pure functions of (opt_var, views, data)
     # ---------------------------------------------------------------- #
 
-    def _render(self, d_star: torch.Tensor, views: torch.Tensor,
-                render_size=None) -> torch.Tensor:
-        """d* -> (V, H, W, 3) images for the CNN."""
+    def _render(self, d_star: torch.Tensor, views: Optional[torch.Tensor],
+                render_size=None, tf_nodes=None) -> torch.Tensor:
+        """d* -> (V, H, W, 3) images for the CNN: V views of a 3D grid, or
+        the 2D grid itself (V = 1, ``views`` unused). ``tf_nodes``
+        overrides the styler's transfer function (the trained control
+        points of render.train_transfer)."""
         rc = self.cfg.render
+        render_size = render_size or rc.render_size
+        tf = self.tf_nodes if tf_nodes is None else tf_nodes
         if d_star.ndim == 2:
-            raise _not_ported("2D grids (render2d)", "item 6")
+            return render2d(d_star, out_size=render_size, gamma=rc.gamma,
+                            tf_nodes=tf, tf_max=rc.tf_max_density)[None]
         return render_views(d_star, views[:, 0], views[:, 1],
-                            transmit=rc.transmit,
-                            out_size=render_size or rc.render_size,
-                            gamma=rc.gamma, method=rc.rotation)
+                            transmit=rc.transmit, out_size=render_size,
+                            gamma=rc.gamma, method=rc.rotation,
+                            tf_nodes=tf, tf_max=rc.tf_max_density)
 
-    def _render_loss(self, d_star, views, render_size, data):
-        return self._image_loss(self._render(d_star, views, render_size),
-                                data)
+    def _render_loss(self, d_star, views, render_size, data, tf_nodes=None):
+        return self._image_loss(
+            self._render(d_star, views, render_size, tf_nodes), data)
 
-    def _apply_param(self, opt_var: torch.Tensor,
-                     d_base: torch.Tensor) -> torch.Tensor:
+    def _apply_param(self, opt_var, d_base: torch.Tensor) -> torch.Tensor:
+        if isinstance(opt_var, dict):  # render.train_transfer
+            opt_var = opt_var["field"]
         oc = self.cfg.optim
         if oc.parameterization == "velocity":
             return advect(d_base, opt_var, max_disp=oc.param_max_disp,
@@ -148,12 +164,18 @@ class GridStyler(StylerBase):
             return self._loss_cache[sig]
         cfg = self.cfg
         weights = self._window_weights(window) if window else None
+        # render.train_transfer: opt_var is {'field', 'tf'}, the control
+        # points trained jointly (clipped to [0, 1]) and rendering every
+        # window position's state
+        train_tf = self._train_tf
 
         def loss_fn(opt_var, views, data):
+            tf = (jax_clip(opt_var["tf"], 0.0, 1.0) if train_tf
+                  else None)
             d_star = self._apply_param(opt_var, data["d"])
             if window == 0:
                 total = self._render_loss(d_star, views[0], render_size,
-                                          data)
+                                          data, tf)
             else:
                 vels = data["vels"]
                 md = cfg.optim.max_disp
@@ -173,11 +195,13 @@ class GridStyler(StylerBase):
                                  impl=impl)
                     states[window - j] = d_j
                 imgs = torch.stack([
-                    self._render(s, views[p], render_size)
+                    self._render(s, views[p], render_size, tf)
                     for p, s in enumerate(states)])
                 total = self._image_loss_weighted(imgs, weights, data)
             if cfg.loss.w_tv:
-                total = total + cfg.loss.w_tv * tv_loss(opt_var, ndim=ndim)
+                field = (opt_var["field"] if isinstance(opt_var, dict)
+                         else opt_var)
+                total = total + cfg.loss.w_tv * tv_loss(field, ndim=ndim)
             return total
 
         self._loss_cache[sig] = loss_fn
@@ -187,6 +211,24 @@ class GridStyler(StylerBase):
     # public API
     # ---------------------------------------------------------------- #
 
+    @property
+    def _train_tf(self) -> bool:
+        return bool(self.cfg.render.train_transfer
+                    and self.tf_nodes is not None)
+
+    def _wrap_tf_param(self, param):
+        """Lift a tensor param into ``{'field', 'tf'}`` when
+        render.train_transfer is on (a copy of the styler's nodes seeds
+        'tf'); a dict or a run without it passes through."""
+        if self._train_tf and not isinstance(param, dict):
+            return {"field": param, "tf": self.tf_nodes.clone()}
+        return param
+
+    def _param_on_device(self, param):
+        if isinstance(param, dict):
+            return {k: self._on_device(v) for k, v in param.items()}
+        return self._on_device(param)
+
     def init_param(self, shape: Tuple[int, ...]) -> torch.Tensor:
         if self.cfg.optim.parameterization == "velocity":
             shape = tuple(shape) + (len(shape),)
@@ -194,16 +236,22 @@ class GridStyler(StylerBase):
                            device=self.device)
 
     @torch.no_grad()
-    def _advect_param(self, param: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
+    def _advect_param(self, param, v: torch.Tensor):
         """Recursive warm-start transport (TNST §6) of the previous
-        frame's param through the sim velocity ('semi' or MacCormack)."""
+        frame's param through the sim velocity ('semi' or MacCormack).
+        Of a ``{'field', 'tf'}`` param only the field lives on the grid;
+        the control points carry over unchanged."""
+        if isinstance(param, dict):
+            return dict(param, field=self._advect_param(param["field"], v))
         oc = self.cfg.optim
         if oc.param_advect == "maccormack":
             return advect_maccormack(param, v, max_disp=oc.max_disp)
         return advect(param, v, max_disp=oc.max_disp)
 
     def _resize_param(self, param, shape: Tuple[int, ...]):
+        if isinstance(param, dict):  # only the field has the octave grid
+            return dict(param,
+                        field=self._resize_param(param["field"], shape))
         if tuple(param.shape[:len(shape)]) == tuple(shape):
             return param
         is_vel = self.cfg.optim.parameterization == "velocity"
@@ -225,21 +273,39 @@ class GridStyler(StylerBase):
             for i in range(t - window, t + window)])
 
     def _octave_sweep(self, param, d_full, vels_win, generator, warm,
-                      schedule=None, callback=None):
+                      schedule=None, callback=None, checkpoint_path=None):
         """The complete coarse-to-fine optimization of one frame: (param,
-        d_star, per-octave (iters,) losses). ``vels_win`` is the (2W, D,
-        H, W, 3) window context or None; ``schedule`` optional pool
-        indices per octave; ``warm`` picks the optim.warm_iters / warm_lr
-        schedule. Every octave starts a fresh Adam."""
+        d_star, per-octave (iters,) losses). ``vels_win`` is the (2W,
+        *spatial, ndim) window context or None; ``schedule`` optional
+        pool indices per octave; ``warm`` picks the optim.warm_iters /
+        warm_lr schedule. Every octave starts a fresh Adam, except the
+        one a checkpoint at ``checkpoint_path`` resumes."""
         oc = self.cfg.optim
         full_shape = tuple(d_full.shape)
         window = oc.window if vels_win is not None else 0
-        iters = (oc.warm_iters if (warm and oc.warm_iters is not None)
-                 else oc.iters)
+        iters = self._iters(warm)
         optimizer = self._warm_optimizer if warm else self._optimizer
+        shapes = octave_shapes(full_shape, oc.octave_n, oc.octave_scale)
+        param = self._wrap_tf_param(param)
+        meta = {"log_every": oc.log_every, "iters": iters,
+                "shapes": [list(s) for s in shapes]}
+        start_octave, start_iter, opt_state = 0, 0, None
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            start_octave, start_iter, param, opt_state = self._resume(
+                checkpoint_path, meta, shapes, optimizer)
         losses_all = []
-        for o, shape in enumerate(octave_shapes(full_shape, oc.octave_n,
-                                                oc.octave_scale)):
+        for o, shape in enumerate(shapes):
+            # every octave's views are drawn, a resumed run's finished
+            # octaves too, so the generator reaches the resumed octave in
+            # the uninterrupted run's state
+            if len(full_shape) == 2:   # the grid is the image: no views
+                views = [[None] * (2 * window + 1)] * iters
+            else:
+                views = self._octave_views(
+                    generator, None if schedule is None else schedule[o],
+                    iters, 2 * window + 1)
+            if o < start_octave:
+                continue
             loss_fn = self._get_loss_fn(
                 len(full_shape), window,
                 self._octave_render_size(shape, full_shape))
@@ -254,22 +320,54 @@ class GridStyler(StylerBase):
                                 torch.stack([resize(v, shape,
                                                     is_velocity=True)
                                              for v in vels_win]))
-            views = self._octave_views(
-                generator, None if schedule is None else schedule[o],
-                iters, 2 * window + 1)
-            cb = None
+            cb = state_cb = None
             if callback is not None:
                 def cb(done, loss, _o=o):
                     callback(done, loss, octave=_o)
+            if checkpoint_path is not None:
+                def state_cb(done, p, st, _o=o):
+                    save_checkpoint(
+                        checkpoint_path, {"param": p, "opt_state": st},
+                        meta=dict(meta, octave=_o, iters_done=done))
+            resumed = o == start_octave
             param, losses, _ = run_octave(
                 param, loss_fn, data, views, iters=iters, lr=oc.lr,
                 b1=oc.b1, b2=oc.b2, log_every=oc.log_every, callback=cb,
-                optimizer=optimizer)
+                optimizer=optimizer,
+                init_opt_state=opt_state if resumed else None,
+                start_iter=start_iter if resumed else 0,
+                state_callback=state_cb)
             losses_all.append(losses)
         param = self._resize_param(param, full_shape)
         with torch.no_grad():
             d_star = torch.clamp(self._apply_param(param, d_full), min=0.0)
         return param, d_star, losses_all
+
+    def _iters(self, warm: bool) -> int:
+        oc = self.cfg.optim
+        return (oc.warm_iters if (warm and oc.warm_iters is not None)
+                else oc.iters)
+
+    def _resume(self, path: str, meta, shapes, optimizer):
+        """(octave, iterations done, param, Adam state) of an in-frame
+        checkpoint. Resuming reproduces the uninterrupted run only with
+        the same log_every (chunk boundaries), iteration budget and octave
+        ladder, so a checkpoint written with others is refused."""
+        got = read_meta(path) or {}
+        for k, want in meta.items():
+            have = got.get(k, want)
+            if have != want:
+                raise ValueError(
+                    f"in-frame checkpoint {path} was written with "
+                    f"{k}={have} but this run uses {k}={want}; resuming "
+                    f"would not bit-match an uninterrupted run. Restore "
+                    f"the original flag or delete the checkpoint to "
+                    f"restart the frame.")
+        o = int(got["octave"])
+        like = self._wrap_tf_param(self.init_param(shapes[o]))
+        state, _ = load_checkpoint(
+            path, {"param": like, "opt_state": optimizer.init(like)})
+        return o, int(got["iters_done"]), state["param"], state["opt_state"]
 
     def stylize_frame(self, d: np.ndarray,
                       vels: Optional[np.ndarray] = None,
@@ -282,15 +380,23 @@ class GridStyler(StylerBase):
         """Stylize one frame (or one temporal window around a frame).
 
         Args:
-          d: (D, H, W) density of the centre frame.
-          vels: optional (2W, D, H, W, 3) sim velocities for the window
-            loss: vels[:W] are frames t-W..t-1 (backward transport uses
-            their negation), vels[W:] are frames t..t+W-1 (forward).
-          init_param: warm-start variable at full resolution.
+          d: (H, W) or (D, H, W) density of the centre frame.
+          vels: optional (2W, *spatial, ndim) sim velocities for the
+            window loss: vels[:W] are frames t-W..t-1 (backward transport
+            uses their negation), vels[W:] are frames t..t+W-1 (forward).
+          init_param: warm-start variable at full resolution (a tensor,
+            or a ``{'field', 'tf'}`` dict with render.train_transfer).
           generator: CPU ``torch.Generator`` for the view draws; default
             seeded with ``cfg.seed``.
           callback: fn(done, mean_chunk_loss, octave=o) every log_every
-            iterations.
+            iterations, called after the chunk's checkpoint is written.
+          checkpoint_path: if set, {param, Adam state} is written there
+            after every log_every-iteration chunk, and a call finding a
+            checkpoint there resumes from it (its octave, its iterations
+            done) with the uninterrupted run's bits. A checkpoint written
+            with another log_every, iteration budget or octave ladder is
+            refused with ValueError. The file is removed when the frame
+            completes.
           warm: use the optim.warm_iters/warm_lr schedule; None = warm iff
             init_param is given.
           view_schedule: optional pool indices, (octave_n, iters) or
@@ -298,11 +404,10 @@ class GridStyler(StylerBase):
 
         Returns:
           (d_star, param, info): stylized full-res density, final
-          variable, {'octave_losses': [per-octave (iters,) tensors]}.
+          variable, {'octave_losses': [per-octave (iters,) tensors of the
+          iterations run in this call]}, plus 'tf_nodes' (the trained
+          control points, clipped to [0, 1]) with render.train_transfer.
         """
-        if checkpoint_path is not None:
-            raise _not_ported("in-frame checkpoints (checkpoint_path)",
-                              "item 16")
         cfg = self.cfg
         warm = (init_param is not None) if warm is None else warm
         d_full = self._on_device(d)
@@ -310,12 +415,18 @@ class GridStyler(StylerBase):
         generator = (generator if generator is not None
                      else torch.Generator().manual_seed(cfg.seed))
         window = cfg.optim.window if vels is not None else 0
-        param = (self._on_device(init_param) if init_param is not None
-                 else self.init_param(full_shape))
+        param = (self._param_on_device(init_param)
+                 if init_param is not None else self.init_param(full_shape))
         param, d_star, losses = self._octave_sweep(
             param, d_full, self._on_device(vels) if window else None,
-            generator, warm, view_schedule, callback)
-        return d_star, param, {"octave_losses": losses}
+            generator, warm, view_schedule, callback, checkpoint_path)
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            os.unlink(checkpoint_path)
+        info = {"octave_losses": losses}
+        if self._train_tf:
+            with torch.no_grad():
+                info["tf_nodes"] = torch.clamp(param["tf"], 0.0, 1.0)
+        return d_star, param, info
 
     def _frame_generator(self, t: int) -> torch.Generator:
         """Per-frame generator, seeded by the frame's absolute index in the
@@ -354,6 +465,11 @@ class GridStyler(StylerBase):
             recompiles on the TPU) have no counterpart, and where its
             fused path draws from another PRNG stream than its streaming
             path, the port's two agree.
+          checkpoint_path: in-frame checkpoints of every frame, as
+            :meth:`stylize_frame` takes them; param is then yielded with
+            every frame, whatever ``fused`` says, so a rerun that
+            continues the chain at the interrupted frame (``init_param``
+            and ``frame_offset`` below) resumes that frame mid-octave.
           view_schedule: optional per-frame pool indices, (T, octave_n,
             iters[, 2W+1]).
           init_param / prev_velocity / frame_offset: continue the
@@ -367,13 +483,12 @@ class GridStyler(StylerBase):
 
         Yields (frame_index, d_star, param) per frame (param None between
         chunk ends); the per-iteration losses of every frame are in
-        :attr:`frame_losses`.
+        :attr:`frame_losses`, (octave_n, iters); a frame resumed from an
+        in-frame checkpoint has NaN for the iterations run before the
+        interruption.
         """
         oc = self.cfg.optim
         fused = oc.fused_frames if fused is None else fused
-        if checkpoint_path is not None:
-            raise _not_ported("in-frame checkpoints (checkpoint_path)",
-                              "item 16")
         # one bulk upload of the whole sequence
         densities = self._on_device(densities)
         if velocities is not None:
@@ -381,7 +496,7 @@ class GridStyler(StylerBase):
         if prev_velocity is not None:
             prev_velocity = self._on_device(prev_velocity)
         if init_param is not None:
-            init_param = self._on_device(init_param)
+            init_param = self._param_on_device(init_param)
         T = densities.shape[0]
         # a fresh run's cold frame 0 precedes the chunks of warm frames
         chunk0 = int(init_param is None and (oc.warm_iters is not None
@@ -389,16 +504,22 @@ class GridStyler(StylerBase):
         self.frame_losses: Dict[int, torch.Tensor] = {}
         for t, d_star, param, losses in self._frames(
                 densities, velocities, 0, init_param, prev_velocity,
-                frame_offset, view_schedule, callback):
+                frame_offset, view_schedule, callback, checkpoint_path):
             self.frame_losses[t] = losses
-            chunk_end = (fused <= 1 or t == T - 1
+            # with in-frame checkpoints every frame is a chunk end, as the
+            # JAX package drops to streaming for them: a rerun continues
+            # at the interrupted frame, whose checkpoint it finds
+            chunk_end = (checkpoint_path is not None or fused <= 1
+                         or t == T - 1
                          or (t >= chunk0 and (t + 1 - chunk0) % fused == 0))
             yield t, d_star, (param if chunk_end else None)
 
     def _frames(self, densities, vels, offset: int, param, prev_velocity,
-                frame_offset: int, view_schedule=None, callback=None):
+                frame_offset: int, view_schedule=None, callback=None,
+                checkpoint_path=None):
         """The frame loop of every sequence path: yields (t, d_star,
-        param, (octave_n, iters) losses) for each frame t of
+        param, (octave_n, iters) losses, NaN where a resumed frame skipped
+        iterations) for each frame t of
         ``densities``. ``vels`` (or None) holds the sim velocities from
         frame ``-offset`` on, counted from densities[0]; ``param``, when
         given, is the previous frame's final param, transported into
@@ -415,13 +536,18 @@ class GridStyler(StylerBase):
                     v_prev = None if vels is None else vels[offset + t - 1]
                 if v_prev is not None:
                     param = self._advect_param(param, v_prev)
+            warm = param is not None
             d_star, param, info = self.stylize_frame(
                 densities[t], vels=vels_win, init_param=param,
                 generator=self._frame_generator(frame_offset + t),
-                callback=callback,
+                callback=callback, checkpoint_path=checkpoint_path,
                 view_schedule=(None if view_schedule is None
                                else view_schedule[t]))
-            yield t, d_star, param, torch.stack(info["octave_losses"])
+            ran = torch.cat(info["octave_losses"])
+            table = ran.new_full(
+                (self.cfg.optim.octave_n * self._iters(warm),), float("nan"))
+            table[table.numel() - ran.numel():] = ran
+            yield t, d_star, param, table.view(self.cfg.optim.octave_n, -1)
 
     def stylize_sequence_blocks(self, blocks, fused: int = 8,
                                 view_schedule=None):

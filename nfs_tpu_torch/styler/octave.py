@@ -6,7 +6,9 @@ iteration's camera argument and ``data`` the octave's constants
 (densities, VGG weights, Gram targets, view pool). Iterations run eagerly
 on the param's device; losses stay there until the caller reads them.
 Iterations are grouped in chunks of ``log_every`` when a ``callback``
-wants the mean loss of each chunk.
+wants the mean loss of each chunk or a ``state_callback`` checkpoints
+{param, Adam state} after each chunk; ``init_opt_state`` and
+``start_iter`` resume an octave from such a checkpoint.
 
 :class:`Adam` is ``optax.adam`` written out, over one tensor or a dict of
 tensors: moments
@@ -15,9 +17,6 @@ correction by ``1 - b^t``, ``eps`` added AFTER the square root
 (``eps_root = 0``), step ``-lr * mu_hat / (sqrt(nu_hat) + eps)``.
 ``torch.optim.Adam`` is the same algorithm, but the functional form keeps
 the state explicit per octave, as the JAX driver does.
-
-Checkpointed state (``state_callback``) and mid-octave resume wait for
-ROADMAP queue 1, item 16.
 """
 
 from __future__ import annotations
@@ -78,7 +77,9 @@ class Adam:
 def run_octave(param: Param, loss_fn: Callable, data,
                views: Sequence, iters: int, lr: float, b1: float = 0.9,
                b2: float = 0.999, log_every: int = 10,
-               callback: Callable = None, optimizer: Adam = None
+               callback: Callable = None, optimizer: Adam = None,
+               init_opt_state: AdamState = None, start_iter: int = 0,
+               state_callback: Callable = None
                ) -> Tuple[Param, torch.Tensor, AdamState]:
     """Optimize ``param`` with Adam for ``iters`` steps.
 
@@ -91,27 +92,41 @@ def run_octave(param: Param, loss_fn: Callable, data,
         ``log_every`` iterations (and after the last); reading the loss
         synchronises with the device.
       optimizer: an :class:`Adam`; by default one is built from lr/b1/b2.
+      init_opt_state: resume Adam from a checkpointed state instead of a
+        fresh one.
+      start_iter: the first ``start_iter`` iterations count as done (a
+        chunk boundary of an earlier run); iteration i still takes
+        ``views[i]``, so a resumed octave computes what the
+        uninterrupted one did.
+      state_callback: optional fn(done, param, adam_state) called after
+        each chunk, before ``callback`` (the checkpoint hook: a failing
+        logger must not lose the chunk).
 
     Returns:
-      (optimized param, per-iteration losses (iters,) on the device,
-      final Adam state).
+      (optimized param, per-iteration losses of the iterations run here
+      on the device, final Adam state).
     """
     if len(views) != iters:
         raise ValueError(f"{len(views)} view draws for {iters} iterations")
     opt = optimizer if optimizer is not None else Adam(lr, b1, b2)
-    state = opt.init(param)
+    state = (init_opt_state if init_opt_state is not None
+             else opt.init(param))
     param = _leafwise(torch.Tensor.detach, param)
-    chunk = log_every if callback is not None else iters
+    observed = callback is not None or state_callback is not None
+    chunk = log_every if observed else iters
     losses = []
-    for i in range(iters):
+    for i in range(start_iter, iters):
         loss, grad = value_and_grad(loss_fn, param, views[i], data)
         updates, state = opt.update(grad, state)
         param = _leafwise(lambda p, u: (p + u).detach(), param, updates)
         losses.append(loss.detach().to(torch.float32).reshape(()))
         done = i + 1
-        if callback is not None and (done % chunk == 0 or done == iters):
-            start = (done - 1) // chunk * chunk
-            callback(done, float(torch.stack(losses[start:]).mean()))
+        if observed and (done % chunk == 0 or done == iters):
+            if state_callback is not None:
+                state_callback(done, param, state)
+            if callback is not None:
+                start = (done - 1) // chunk * chunk - start_iter
+                callback(done, float(torch.stack(losses[start:]).mean()))
     device = next(iter(param.values())).device if isinstance(
         param, dict) else param.device
     losses_out = (torch.stack(losses) if losses else

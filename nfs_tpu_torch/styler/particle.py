@@ -2,10 +2,12 @@
 ``nfs_tpu/styler/particle.py``; LNST arXiv:2005.00803).
 
 Optimization variables are per-particle attributes (LNST §4): position
-offsets ``dx`` and/or density multipliers ``ddens``. The forward pipeline
-is splat(x + dx, dens) -> grid -> multi-view raymarch -> VGG -> Gram /
-semantic losses, with gradients flowing back through the differentiable
-splat to the particle attributes. Sequences are stylized at keyframes and
+offsets ``dx``, density multipliers ``ddens`` and/or colours ``color``.
+The forward pipeline is splat(x + dx, dens) -> grid (and a
+weight-normalized colour grid) -> render (multi-view raymarch for 3D, the
+grid itself for 2D) -> VGG -> Gram / semantic losses, with gradients
+flowing back through the differentiable splat to the particle
+attributes. Sequences are stylized at keyframes and
 the attributes interpolated along particle identity between them (LNST
 §5, ``stylize_keyframes``).
 
@@ -18,8 +20,10 @@ package:
   and every iteration splats the bins. For 3D B-spline density with
   ``splat_impl`` 'auto' or 'binned_pallas' the splat is the window kernel
   pair K4/K5 (``splat_binned_window``; the plain versions on a CPU
-  tensor); ``splat_impl='binned'`` selects the plain generic
-  ``splat_binned``. Bin capacities K come from one occupancy probe per
+  tensor); ``splat_impl='binned'``, 2D grids and colour take the generic
+  ``splat_binned``, colour as one 5-channel pass [density, colour(3),
+  ones] whose last channel normalizes the colour, as the JAX package runs
+  its multi-channel XLA window there. Bin capacities K come from one occupancy probe per
   frame with one host sync (``_octave_ks``), reused across frames until a
   frame parks too many particles.
 - grid-space coarse octaves (``particle.coarse_mode='grid'`` with the
@@ -36,10 +40,8 @@ exists for the TPU's (8, 128) tiling and has no counterpart here:
 dense region the kernels read as a view.
 
 Random draws come from an explicit ``torch.Generator``; an optional
-``view_schedule`` of view-pool indices replays another run's draws.
-Ported: 3D grids with density and position attributes. 2D grids and
-``optimize_color`` wait for the 2D and colour renderers (ROADMAP queue 1,
-item 6) and raise.
+``view_schedule`` of view-pool indices replays another run's draws. A 2D
+grid is its own image and draws no views.
 """
 
 from __future__ import annotations
@@ -55,12 +57,13 @@ from nfs_tpu_torch.core.pytrees import ParticleSet
 from nfs_tpu_torch.ops.binsplat import (
     bin_count_stats, bin_particles, bucket_k, from_binned, padded_shape,
     splat_binned, to_binned)
+from nfs_tpu_torch.ops.jaxgrad import jax_clip
 from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
 from nfs_tpu_torch.ops.interp import grid_sample
 from nfs_tpu_torch.ops.resize import octave_shapes
-from nfs_tpu_torch.ops.splat import splat
-from nfs_tpu_torch.render.raymarch import render_views
-from nfs_tpu_torch.styler.base import StylerBase, _not_ported
+from nfs_tpu_torch.ops.splat import splat, splat_normalized
+from nfs_tpu_torch.render.raymarch import render2d, render_views
+from nfs_tpu_torch.styler.base import StylerBase
 from nfs_tpu_torch.styler.octave import (
     Adam, AdamState, run_octave, value_and_grad)
 
@@ -143,7 +146,8 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
 
 
 class ParticleStyler(StylerBase):
-    """Lagrangian (particle) stylizer for liquids and smoke (LNST), 3D.
+    """Lagrangian (particle) stylizer for liquids and smoke (LNST), on a
+    2D or 3D splat grid.
 
     Building one turns TF32 off for the process (``styler/base.py``).
     """
@@ -153,13 +157,10 @@ class ParticleStyler(StylerBase):
                  content_image: Optional[np.ndarray] = None,
                  device="cuda"):
         self.grid_shape = tuple(grid_shape)
-        if len(self.grid_shape) != 3:
-            raise _not_ported("2D particle grids (render2d)", "item 6")
-        if cfg.particle.optimize_color:
-            raise _not_ported("particle.optimize_color (colour "
-                              "compositing in raymarch)", "item 6")
         super().__init__(cfg, vgg_params, style_image, content_image,
                          device)
+        if len(self.grid_shape) == 2:   # the grid is the image: no views
+            self.view_pool = None
         oc = cfg.optim
         self._loss_cache: Dict[Tuple, object] = {}
         # bin-capacity plans reused across frames; dropped whenever a
@@ -181,12 +182,18 @@ class ParticleStyler(StylerBase):
         if pc.optimize_density:
             param["ddens"] = torch.zeros((n,), dtype=torch.float32,
                                          device=self.device)
+        if pc.optimize_color:
+            param["color"] = (
+                self._on_device(pset.color).clone()
+                if pset.color is not None
+                else torch.full((n, 3), 0.5, dtype=torch.float32,
+                                device=self.device))
         return param
 
     def _splat_grids(self, param: Param, data, scale: float,
-                     shape: Tuple[int, ...]) -> torch.Tensor:
-        """param -> density grid at octave resolution (positions scaled by
-        `scale`), by the flat splat."""
+                     shape: Tuple[int, ...]):
+        """param -> (density grid, colour grid or None) at octave
+        resolution (positions scaled by `scale`), by the flat splat."""
         pc = self.cfg.particle
         x = data["x"]
         if "dx" in param:
@@ -194,12 +201,18 @@ class ParticleStyler(StylerBase):
         dens = data["dens"]
         if "ddens" in param:
             dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
-        d_grid = splat(x * scale, dens, shape, kernel=pc.kernel,
+        xs = x * scale
+        d_grid = splat(xs, dens, shape, kernel=pc.kernel,
                        support=pc.support)
         # resolution-independent brightness: a coarse cell collects
-        # (1/scale)^3 of the mass and the raymarch steps 1/scale longer
-        # per cell, net scale^2
-        return d_grid * (scale ** 2)
+        # (1/scale)^dim of the mass; the 3D raymarch steps 1/scale longer
+        # per cell and the 2D image shows mass per area: scale^2 both
+        c_grid = None
+        if "color" in param:
+            c_grid = splat_normalized(
+                xs, jax_clip(param["color"], 0.0, 1.0), shape,
+                kernel=pc.kernel, support=pc.support)
+        return d_grid * (scale ** 2), c_grid
 
     def _octave_render_size(self, scale: float):
         """Per-octave render resolution (render.scale_with_octave); off
@@ -211,14 +224,26 @@ class ParticleStyler(StylerBase):
             max(rc.min_render_size, int(round(s * scale / 8)) * 8)
             for s in rc.render_size)
 
-    def _render(self, d_grid: torch.Tensor, views: torch.Tensor,
+    def _render(self, d_grid: torch.Tensor, c_grid, views,
                 render_size=None) -> torch.Tensor:
-        """(D, H, W) grid -> (V, H, W, 3) images for the CNN."""
+        """Density grid (and optional colour grid) -> (V, H, W, 3) images
+        for the CNN: V views of a 3D grid, or the 2D grid itself. Without
+        a colour grid the styler's transfer function colours the
+        density."""
         rc = self.cfg.render
+        render_size = render_size or rc.render_size
+        tf = self.tf_nodes if c_grid is None else None
+        if d_grid.ndim == 2:
+            return render2d(d_grid, out_size=render_size, gamma=rc.gamma,
+                            color=c_grid, tf_nodes=tf,
+                            tf_max=rc.tf_max_density)[None]
+        # a colour volume rotates with the density; the JAX package
+        # composites it without the gamma curve
         return render_views(d_grid, views[:, 0], views[:, 1],
-                            transmit=rc.transmit,
-                            out_size=render_size or rc.render_size,
-                            gamma=rc.gamma, method=rc.rotation)
+                            transmit=rc.transmit, out_size=render_size,
+                            gamma=rc.gamma if c_grid is None else 1.0,
+                            method=rc.rotation, tf_nodes=tf,
+                            tf_max=rc.tf_max_density, color=c_grid)
 
     def _get_loss_fn(self, shape: Tuple[int, ...], scale: float):
         """Loss of the flat-splat route."""
@@ -228,9 +253,9 @@ class ParticleStyler(StylerBase):
             return self._loss_cache[sig]
 
         def loss_fn(param, views, data):
-            d_grid = self._splat_grids(param, data, scale, shape)
-            total = self._image_loss(self._render(d_grid, views, rsize),
-                                     data)
+            d_grid, c_grid = self._splat_grids(param, data, scale, shape)
+            total = self._image_loss(
+                self._render(d_grid, c_grid, views, rsize), data)
             if "dx" in param:
                 # keep offsets small (LNST regularizes position changes)
                 total = total + 1e-3 * torch.mean(param["dx"] ** 2)
@@ -242,7 +267,8 @@ class ParticleStyler(StylerBase):
     def _get_binned_loss_fn(self, shape: Tuple[int, ...], scale: float,
                             K: int):
         """Loss over the binned slot layout; equals `_get_loss_fn` for the
-        'bspline' and 'linear' kernels at support 1."""
+        'bspline' and 'linear' kernels at support 1. Density, colour and
+        the colour's normalization share one 5-channel window pass."""
         rsize = self._octave_render_size(scale)
         pc = self.cfg.particle
         sig = ("binned", pc.splat_impl, pc.kernel, shape, round(scale, 6),
@@ -252,7 +278,8 @@ class ParticleStyler(StylerBase):
         window = _uses_window(pc, shape)
 
         def loss_fn(param_b, views, data_b):
-            # binned leaves are slot-minor: xb/dx (3, S), densb (S,)
+            # binned leaves are slot-minor: xb/dx (dim, S), densb (S,),
+            # color (3, S)
             xb, densb, valid = data_b["xb"], data_b["densb"], data_b["valid"]
             if "dx" in param_b:
                 pb = (xb + _offset(param_b["dx"], pc.max_offset)) * scale
@@ -262,14 +289,23 @@ class ParticleStyler(StylerBase):
             if "ddens" in param_b:
                 dens_eff = densb * _dens_scale(param_b["ddens"],
                                                pc.max_log_dens)
-            if window:
+            c_grid = None
+            if "color" in param_b:
+                colb = jax_clip(param_b["color"], 0.0, 1.0)
+                attr = torch.cat([dens_eff[None], colb,
+                                  torch.ones_like(dens_eff)[None]])
+                out = splat_binned(pb, attr, valid, shape, K,
+                                   kernel=pc.kernel)
+                d_grid = out[..., 0]
+                c_grid = out[..., 1:4] / (out[..., 4:5] + 1e-6)
+            elif window:
                 d_grid = splat_binned_window(pb, dens_eff, valid, shape, K)
             else:
                 d_grid = splat_binned(pb, dens_eff, valid, shape, K,
                                       kernel=pc.kernel)
             d_grid = d_grid * (scale ** 2)
-            total = self._image_loss(self._render(d_grid, views, rsize),
-                                     data_b)
+            total = self._image_loss(
+                self._render(d_grid, c_grid, views, rsize), data_b)
             if "dx" in param_b:
                 # parked + dense slots hold every particle once and empty
                 # slots are zero, so sum / N == the canonical mean
@@ -290,8 +326,8 @@ class ParticleStyler(StylerBase):
 
         def loss_fn(g, views, data):
             d_grid = data["base_d"] * torch.exp(g)
-            return self._image_loss(self._render(d_grid, views, rsize),
-                                    data)
+            return self._image_loss(
+                self._render(d_grid, None, views, rsize), data)
 
         self._loss_cache[sig] = loss_fn
         return loss_fn
@@ -305,7 +341,7 @@ class ParticleStyler(StylerBase):
         pc = self.cfg.particle
         if K is None:
             return self._splat_grids(param, {"x": x, "dens": dens}, scale,
-                                     shape)
+                                     shape)[0]
         if "dx" in param:
             x = x + _offset(param["dx"], pc.max_offset)
         if "ddens" in param:
@@ -450,7 +486,8 @@ class ParticleStyler(StylerBase):
                                 device=self.device))
         param = ({k: self._on_device(v) for k, v in init_param.items()}
                  if init_param is not None
-                 else self.init_param(ParticleSet(x=x, dens=dens)))
+                 else self.init_param(ParticleSet(x=x, dens=dens,
+                                                  color=pset.color)))
         info = {"octave_losses": [], "octave_overflow": []}
 
         shapes = octave_shapes(self.grid_shape, oc.octave_n,
@@ -477,9 +514,12 @@ class ParticleStyler(StylerBase):
             data = {"x": x, "dens": dens, "pool": self.view_pool,
                     "vgg": self.vgg_params, "targets": self.gram_targets,
                     "content": self.content_feats}
-            views = [row[0] for row in self._octave_views(
-                generator, None if view_schedule is None
-                else view_schedule[o], oc.iters, 1)]
+            if len(shape) == 2:   # the grid is the image: no views
+                views = [None] * oc.iters
+            else:
+                views = [row[0] for row in self._octave_views(
+                    generator, None if view_schedule is None
+                    else view_schedule[o], oc.iters, 1)]
             cb = None
             if callback is not None:
                 def cb(done, loss, _o=o):
@@ -534,7 +574,9 @@ class ParticleStyler(StylerBase):
             x = x + _offset(param["dx"], pc.max_offset)
         if "ddens" in param:
             dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
-        return ParticleSet(x=x, dens=dens, color=pset.color, vel=pset.vel)
+        return ParticleSet(x=x, dens=dens,
+                           color=param.get("color", pset.color),
+                           vel=pset.vel)
 
     @torch.no_grad()
     def rasterize(self, pset: ParticleSet) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The port's CLIs: the stylization CLI runs grid and particle mode,
-options of parts not ported yet are refused with the ROADMAP item that
-holds them, before any work starts, and the mesh and transfer-function
-flags are not accepted; a fused grid sequence resumes from its manifest.
-The scene CLI writes the frames of the JAX package's solvers."""
+``--parallel`` (not ported yet) is refused with its ROADMAP item before
+any work starts, and the mesh flags are not accepted; the transfer
+function, particle colour and in-frame checkpoint flags run; a fused
+grid sequence resumes from its manifest. The scene CLI writes the frames
+of the JAX package's solvers."""
 
 import json
 import os
@@ -22,10 +23,8 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mode", "particle", "--opt_color"], "item 6"),
     (["--parallel"], "item 21"),
-    (["--checkpoint_in_frame", "--fused", "4"], "item 16"),
-    (["--checkpoint_in_frame"], "item 16"),
+    (["--mode", "particle", "--parallel"], "item 21"),
 ])
 def test_unported_options_raise(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
@@ -33,15 +32,25 @@ def test_unported_options_raise(argv, item, tmp_path):
     assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mesh_views", "2"],
-    ["--train_transfer"],
-    ["--mesh_frames", "2"],
-    ["--transfer_fn", "fire"],
+@pytest.mark.parametrize("argv, field, value", [
+    (["--mesh_views", "2"], None, None),
+    (["--train_transfer"], "train_transfer", True),
+    (["--mesh_frames", "2"], None, None),
+    (["--transfer_fn", "fire"], "transfer_fn", "fire"),
 ])
-def test_particle_mesh_and_transfer_flags_absent(argv):
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(argv)
+def test_particle_mesh_and_transfer_flags_absent(argv, field, value):
+    """The mesh flags wait for --parallel (item 21) and are not accepted;
+    the transfer-function flags are ported and reach the render config."""
+    from nfs_tpu_torch.cli.stylize import config_from_args
+
+    if field is None:
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(argv)
+        return
+    cfg = config_from_args(build_parser().parse_args(
+        argv + ["--tf_max_density", "1.5"]))
+    assert getattr(cfg.render, field) == value
+    assert cfg.render.tf_max_density == 1.5
 
 
 def test_particle_flags_reach_the_config():
@@ -152,3 +161,91 @@ def test_fused_sequence_resumes_from_its_manifest(tmp_path, capsys):
     for t in range(4):
         np.testing.assert_array_equal(
             FrameStore(str(seq)).load_density(t), first[t])
+
+
+def _style(data, size=32):
+    np.save(data / "style.npy", np.random.default_rng(0).random(
+        (size, size, 3), dtype=np.float32))
+
+
+COMMON = ["--device", "cpu", "--render_size", "32", "32", "--n_views", "2",
+          "--octave_n", "2", "--octave_scale", "2.0", "--iter", "2",
+          "--style_layer", "relu1_1"]
+
+
+def test_opt_color_particle_mode_2d(tmp_path):
+    """--opt_color on 2D liquid frames: every frame comes out with a
+    colour per particle, optimized away from the 0.5 grey it starts at."""
+    data = tmp_path / "data"
+    scene.main(["--scene", "liquid2d", "--out", str(data), "--res", "20",
+                "20", "--frames", "3", "--device", "cpu"])
+    _style(data)
+    main(COMMON + ["--data_dir", str(data), "--log_dir", str(tmp_path),
+                   "--tag", "lnst", "--mode", "particle", "--opt_color",
+                   "--opt_density", "--num_frames", "3",
+                   "--keyframe_stride", "2", "--grid_shape", "20", "20",
+                   "--w_style", "1000", "--style_target",
+                   str(data / "style.npy")])
+    out = FrameStore(str(tmp_path / "lnst"))
+    for t in range(3):
+        p = out.load_particles(t)
+        n = p["x"].shape[0]
+        assert p["x"].shape == (n, 2) and p["color"].shape == (n, 3)
+        assert np.isfinite(p["color"]).all()
+        assert np.abs(p["color"] - 0.5).max() > 1e-4
+        assert (tmp_path / "lnst" / f"preview_{t:04d}.png").exists()
+
+
+def test_transfer_flags_run_and_resume(tmp_path, capsys):
+    """--transfer_fn with --train_transfer on 2D smoke: a single frame
+    exports its trained nodes; a W=1 sequence saves the {field, tf}
+    carry, and a rerun that lost frame 1 resumes from it and writes the
+    same frame."""
+    data = tmp_path / "data"
+    scene.main(["--scene", "smoke2d", "--out", str(data), "--res", "24",
+                "16", "--frames", "2", "--device", "cpu"])
+    _style(data)
+    flags = COMMON + ["--data_dir", str(data), "--log_dir", str(tmp_path),
+                      "--transfer_fn", "fire", "--train_transfer",
+                      "--tf_max_density", "1.0", "--w_style", "1000",
+                      "--style_target", str(data / "style.npy")]
+    main(flags + ["--tag", "frame"])
+    from nfs_tpu_torch.render.transfer import COLORMAPS
+
+    with np.load(tmp_path / "frame" / "tf_0000.npz") as z:
+        nodes = z["nodes"]
+    assert nodes.shape == (8, 3) and nodes.min() >= 0 and nodes.max() <= 1
+    assert np.abs(nodes - COLORMAPS["fire"]).max() > 1e-4
+    seq = tmp_path / "seq"
+    main(flags + ["--tag", "seq", "--num_frames", "2", "--window", "1"])
+    with np.load(seq / "param_0000.npz") as z:
+        assert sorted(z.files) == ["param/field", "param/tf"]
+        assert z["param/field"].shape == (24, 16)
+    assert (seq / "tf_0001.npz").exists()
+    first = FrameStore(str(seq)).load_density(1)
+    os.unlink(seq / "d_0001.npz")
+    capsys.readouterr()
+    main(flags + ["--tag", "seq", "--num_frames", "2", "--window", "1"])
+    out = capsys.readouterr().out
+    assert "[frame 1]" in out and "[frame 0]" not in out
+    np.testing.assert_array_equal(FrameStore(str(seq)).load_density(1),
+                                  first)
+
+
+def test_checkpoint_in_frame_fused_sequence(tmp_path):
+    """--checkpoint_in_frame with --fused 2: the job completes, leaves no
+    checkpoint and writes the frames of the same job without it."""
+    data = tmp_path / "data"
+    scene.main(["--scene", "smoke3d", "--out", str(data), "--res", "12",
+                "10", "12", "--frames", "3", "--device", "cpu"])
+    _style(data)
+    flags = COMMON + ["--data_dir", str(data), "--log_dir", str(tmp_path),
+                      "--num_frames", "3", "--window", "1", "--fused", "2",
+                      "--style_target", str(data / "style.npy")]
+    main(flags + ["--tag", "plain"])
+    main(flags + ["--tag", "ck", "--checkpoint_in_frame"])
+    assert not (tmp_path / "ck" / "inframe_ckpt.npz").exists()
+    for t in range(3):
+        np.testing.assert_array_equal(
+            FrameStore(str(tmp_path / "ck")).load_density(t),
+            FrameStore(str(tmp_path / "plain")).load_density(t))

@@ -1,9 +1,11 @@
 """nfs_tpu_torch needs no JAX: a fresh interpreter in which any import of
 ``jax`` fails imports every module of the port, then runs the CLIs on
-the CPU at a tiny size: the scene CLI (a 3D smoke and a 3D liquid), grid
-mode (a single frame, a 2-frame window sequence and a fused 3-frame
-sequence over the scene's smoke, run twice: the rerun resumes from its
-manifest) and particle mode (3 frames, keyframes 0 and 2)."""
+the CPU at a tiny size: the scene CLI (a 3D smoke, a 3D liquid and a 2D
+smoke), grid mode (a single frame, a 2-frame window sequence, a fused
+3-frame sequence over the scene's smoke, run twice: the rerun resumes
+from its manifest, and a 2D window sequence coloured by a transfer
+function with in-frame checkpoints) and particle mode (3 frames,
+keyframes 0 and 2, density and colour)."""
 
 import json
 import os
@@ -32,7 +34,8 @@ SCRIPT = textwrap.dedent("""
     from nfs_tpu_torch.cli.stylize import main
     data, log = sys.argv[1], sys.argv[2]
     for name, res in (("smoke3d", ["12", "10", "12"]),
-                      ("liquid3d", ["8", "8", "8"])):
+                      ("liquid3d", ["8", "8", "8"]),
+                      ("smoke2d", ["24", "16"])):
         scene.main(["--scene", name, "--out", log + "/" + name, "--res",
                     *res, "--frames", "3", "--device", "cpu"])
     common = ["--data_dir", data, "--log_dir", log, "--device", "cpu",
@@ -46,6 +49,12 @@ SCRIPT = textwrap.dedent("""
     main(common + ["--tag", "lnst", "--mode", "particle", "--num_frames",
                    "3", "--keyframe_stride", "2", "--opt_density",
                    "--grid_shape", "12", "10", "12"])
+    main(common + ["--tag", "color", "--mode", "particle", "--num_frames",
+                   "3", "--keyframe_stride", "2", "--opt_color",
+                   "--grid_shape", "12", "10", "12"])
+    two_d = [a if a != data else log + "/smoke2d" for a in common]
+    main(two_d + ["--tag", "grid2d", "--num_frames", "2", "--window", "1",
+                  "--transfer_fn", "fire", "--checkpoint_in_frame"])
     fused = [a if a != data else log + "/smoke3d" for a in common]
     for _ in range(2):
         main(fused + ["--tag", "fused", "--num_frames", "3", "--window",
@@ -108,6 +117,16 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
         assert p["x"].shape == (300, 3) and np.isfinite(p["x"]).all()
         assert p["dens"].shape == (300,) and (p["dens"] > 0).all()
         assert (lnst / f"preview_{t:04d}.png").exists()
+    color = FrameStore(str(tmp_path / "log" / "color"))
+    for t in range(3):
+        p = color.load_particles(t)
+        assert p["color"].shape == (300, 3) and np.isfinite(p["color"]).all()
+    grid2d = tmp_path / "log" / "grid2d"
+    for t in range(2):
+        d = FrameStore(str(grid2d)).load_density(t)
+        assert d.shape == (24, 16) and np.isfinite(d).all()
+        assert (grid2d / f"preview_{t:04d}.png").exists()
+    assert not (grid2d / "inframe_ckpt.npz").exists()
     overflow = [json.loads(l)["splat_overflow"]
                 for l in (lnst / "metrics.jsonl").open()]
     # keyframes 0 and 2 log their parked particles per octave

@@ -252,15 +252,20 @@ def test_rasterize_matches_jax(vgg_np):
 
 
 def test_not_ported_options_raise(vgg_np):
+    """Nothing of the particle path is refused any more: 2D grids,
+    particle colour and transfer functions, once refused with items 6 and
+    15, build (their parity is in tests/test_torch_particle_color.py)."""
     vgg = params_from_numpy(vgg_np)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        TP.ParticleStyler(StyleConfig(), grid_shape=(16, 16),
-                          vgg_params=vgg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        TP.ParticleStyler(
-            replace(StyleConfig(), **{"particle.optimize_color": True}),
-            grid_shape=GRID, vgg_params=vgg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TP.ParticleStyler(
-            replace(StyleConfig(), **{"render.transfer_fn": "fire"}),
-            grid_shape=GRID, vgg_params=vgg, device="cpu")
+    two_d = TP.ParticleStyler(StyleConfig(), grid_shape=(16, 16),
+                              vgg_params=vgg, device="cpu")
+    assert two_d.view_pool is None
+    color = TP.ParticleStyler(
+        replace(StyleConfig(), **{"particle.optimize_color": True}),
+        grid_shape=GRID, vgg_params=vgg, device="cpu")
+    x, dens = _particles(50)
+    assert sorted(color.init_param(ParticleSet(x=x, dens=dens))) == [
+        "color", "dx"]
+    tf = TP.ParticleStyler(
+        replace(StyleConfig(), **{"render.transfer_fn": "fire"}),
+        grid_shape=GRID, vgg_params=vgg, device="cpu")
+    assert tuple(tf.tf_nodes.shape) == (8, 3)

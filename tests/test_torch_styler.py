@@ -214,15 +214,18 @@ def test_view_schedule_replays_jax_draws(vgg_np):
 
 
 def test_not_ported_options_raise(vgg_np):
+    """What the grid path still refuses: per-view rematerialization
+    (item 10) and the exact advection path, max_disp=None (item 12).
+    In-frame checkpoints are ported (tests/test_torch_checkpoint.py)."""
+    from nfs_tpu_torch.ops.advect import advect
+
     _, ts = _stylers(vgg_np)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(ts.stylize_sequence(np.zeros((2,) + SHAPE, np.float32),
-                                 fused=4, checkpoint_path="x.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.stylize_frame(_density(), checkpoint_path="x.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         GridStyler(replace(StyleConfig(), **{"loss.remat_views": True}),
                    vgg_params=ts.vgg_params, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+        advect(torch.zeros(SHAPE), torch.zeros(SHAPE + (3,)),
+               max_disp=None)
 
 
 def test_tf32_off_from_styler_not_import(vgg_np):
