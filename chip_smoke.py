@@ -86,6 +86,25 @@ Phases, each printing one JSON line:
     chunk of octave 1 and resumed from its in-frame checkpoint, held
     against two uninterrupted runs; a ``--checkpoint_in_frame`` CLI job
     that completes and leaves no checkpoint.
+17. exact — the exact advection path (max_disp=None) at 112x64x112 on
+    the swirl and on a velocity of up to 6 cells: ``advect`` and
+    ``advect_maccormack`` with both gradients on the card against the
+    CPU port, timed beside K1 and K1 + K2; a density sequence and a
+    velocity frame with optim.max_disp and param_max_disp None (no K1-K3
+    launch allowed). Runs after transfer_gather.
+18. remat — the density slice's frame 0 at 512^2 renders without and
+    with ``loss.remat_views``: peak device memory and s/iter of each;
+    the peak with remat must be the lower.
+19. serve — the stylization service in-process over the scene's smoke3d
+    frames at the density slice's config: a grid job, the same job again
+    (both caches hit, equal output), once more under
+    ``utils.profiling.trace`` (the trace must hold K1), a particle job
+    at the particles_3d width, a "parallel" job that must fail naming
+    its ROADMAP item, then the stop marker.
+20. render_quality — ``cli.render`` over the served grid (grey and
+    'fire') and particle outputs; ``eval``'s metrics of the served and
+    raw frames; the density slice's FLOPs per iteration and MFU against
+    the H100's dense bf16 peak.
 
 Then one JSON line with every kernel's route, error, launches on its main
 path, times and least time on the card, and as the last line
@@ -851,7 +870,8 @@ def phase_reference_particle(card: str):
 
 
 def phase_density(card: str, frames_dir: str):
-    """Density parameterization, W=1, 3 frames through FrameStore."""
+    """Density parameterization, W=1, 3 frames through FrameStore.
+    Returns the steady seconds per iteration (frames 1-2)."""
     import torch
 
     from nfs_tpu_torch.io.npz import FrameStore
@@ -918,7 +938,7 @@ def phase_density(card: str, frames_dir: str):
           "finest_octave_losses_frame0": finest,
           "launches": launches, "card": card,
           "note": "callback reads each iteration's loss (log_every=1)"})
-    return launches
+    return steady
 
 
 def phase_velocity(card: str, fused_bwd: bool = False, split=None):
@@ -2097,6 +2117,500 @@ def phase_checkpoint(card: str, root: str, data_dir: str):
           "card": card})
 
 
+def _exact_inputs(case: str):
+    """Field, cotangent and velocity at SHAPE for the exact-path phase:
+    'swirl' is the density slice's swirl (|v| <= 1.5 cells), 'far' a
+    random velocity clipped to +-6 cells per component, the range the
+    exact path exists for."""
+    f, g, v = _kernel_inputs("swirl", 2.0, seed=31)
+    if case == "far":
+        rng = np.random.default_rng(32)
+        v = np.clip(2.5 * rng.standard_normal(SHAPE + (3,)), -6.0,
+                    6.0).astype(np.float32)
+    return f, g, v
+
+
+def _exact_value_and_grads(fn, f, g, v, dev: str):
+    """fn(field, vel) with both gradients of sum(fn * g), on ``dev``."""
+    import torch
+
+    ft = torch.from_numpy(f).to(dev).requires_grad_()
+    vt = torch.from_numpy(v).to(dev).requires_grad_()
+    out = fn(ft, vt)
+    gf, gv = torch.autograd.grad(out, (ft, vt), torch.from_numpy(g).to(dev))
+    return tuple(x.detach().cpu() for x in (out, gf, gv))
+
+
+def _exact_styler_run(cfg, style, ds, vs):
+    """A GridStyler sequence on the card: (per-frame outputs, per-frame
+    losses, s/iter over the frames after the first)."""
+    import torch
+
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    styler = GridStyler(cfg, style_image=style, device="cuda")
+    marks, outs = [time.perf_counter()], []
+    for _, d_star, param in styler.stylize_sequence(ds, vs, fused=0):
+        outs.append((d_star.cpu().numpy(), param.cpu().numpy()))
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    losses = [styler.frame_losses[t].cpu().numpy() for t in range(len(ds))]
+    per_frame = cfg.optim.octave_n * cfg.optim.iters
+    steady = (float(np.diff(marks)[1:].mean()) / per_frame
+              if len(ds) > 1 else (marks[-1] - marks[0]) / per_frame)
+    return outs, losses, steady
+
+
+def phase_exact(card: str):
+    """The exact advection path (max_disp=None), which runs no hand
+    kernel (a gather forward and one index_add for the field gradient,
+    ops/interp.py): advect and advect_maccormack at 112x64x112 on the
+    swirl and on a velocity of up to 6 cells, values and both gradients
+    on the card held against the CPU port (values 1e-5; gradients 1e-4:
+    index_add sums in another order on the card), timed beside K1 and
+    K1 + K2 (the window path at max_disp 2 through the same ``advect``);
+    then a density sequence (W=1, 2 frames) and a velocity frame (config
+    #4, 2 octaves x 3) with optim.max_disp and param_max_disp None,
+    which must be finite, lower the loss within an octave of frame 0
+    and launch no K1-K3."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.ops.advect import advect, advect_maccormack
+
+    fns = {
+        "advect": lambda f, v: advect(f, v, max_disp=None),
+        "maccormack": lambda f, v: advect_maccormack(f, v, max_disp=None),
+    }
+    tol = {"value": 1e-5, "grad": 1e-4}
+    errs = {}
+    for case in ("swirl", "far"):
+        f, g, v = _exact_inputs(case)
+        for name, fn in fns.items():
+            gpu = _exact_value_and_grads(fn, f, g, v, "cuda")
+            cpu = _exact_value_and_grads(fn, f, g, v, "cpu")
+            e = [float((a - b).abs().max()) for a, b in zip(gpu, cpu)]
+            errs[f"{name}_{case}"] = {"value": e[0], "grad_field": e[1],
+                                      "grad_vel": e[2]}
+            if not (all(_all_finite(x) for x in gpu) and e[0] <= tol["value"]
+                    and max(e[1:]) <= tol["grad"]):
+                raise AssertionError(f"exact {name} on {case}: card vs CPU "
+                                     f"port {errs[f'{name}_{case}']}")
+
+    # times: the exact path and the window path (K1, K1 + K2) through the
+    # same advect, on the swirl
+    f, g, v = (torch.from_numpy(a).cuda() for a in _exact_inputs("swirl"))
+    fr = f.clone().requires_grad_()
+
+    def fwd_bwd(md):
+        return lambda: torch.autograd.grad(advect(fr, v, max_disp=md), fr, g)
+
+    times = {}
+    for label, fn in (("exact_fwd", lambda: advect(f, v, max_disp=None)),
+                      ("exact_fwd_bwd_field", fwd_bwd(None)),
+                      ("k1_fwd", lambda: advect(f, v, max_disp=2.0)),
+                      ("k1_k2_fwd_bwd_field", fwd_bwd(2.0))):
+        times[label] = {"ms": _median_ms(fn), "device_ms": _device_ms(fn)}
+
+    rng = np.random.default_rng(33)
+    style = rng.random((256, 256, 3), dtype=np.float32)
+    ds = np.stack([_plume_density(SHAPE, t, rng) for t in range(2)])
+    vs = np.stack([_exact_inputs("far")[2], _swirl_velocity(SHAPE, 1)])
+    exact = {"optim.max_disp": None, "optim.param_max_disp": None}
+    runs = {}
+    for label, cfg, frames in (
+            ("density", _northstar_cfg(**exact, **{"optim.iters": 3}), 2),
+            ("velocity", _northstar_cfg(**exact, **{
+                "optim.parameterization": "velocity", "optim.octave_n": 2,
+                "optim.iters": 3}), 1)):
+        ak.reset_launches()
+        outs, losses, s_iter = _exact_styler_run(cfg, style, ds[:frames],
+                                                 vs[:frames])
+        launches = dict(ak.LAUNCHES)
+        if any(launches[k] for k in ("fwd", "bwd_field", "bwd_vel",
+                                     "bwd_fused", "bwd_field_untiled")):
+            raise AssertionError(f"exact {label} run launched {launches}")
+        for t, (d_star, param) in enumerate(outs):
+            if not (d_star.shape == SHAPE and np.isfinite(d_star).all()
+                    and np.isfinite(param).all()):
+                raise AssertionError(f"exact {label} frame {t}: bad output")
+        # Adam's fresh first step of an octave moves every cell by lr,
+        # which can raise the loss for a step (the velocity run's finest
+        # octave did on the H100), so the drop is asked of some octave
+        if not any(o[-1] < o[0] for o in losses[0]):
+            raise AssertionError(f"exact {label}: no octave of frame 0 "
+                                 f"lowered its loss: {losses[0]}")
+        runs[label] = {"frames": frames, "octave_n": cfg.optim.octave_n,
+                       "iters": cfg.optim.iters, "s_per_iter": s_iter,
+                       "octave_losses_frame0": losses[0].tolist(),
+                       "launches": launches}
+    emit({"phase": "exact", "shape": list(SHAPE),
+          "max_abs_err_vs_cpu_port": errs, "tol": tol, "times": times,
+          "runs": runs,
+          "note": "velocity 'far' up to 6 cells per component; s_per_iter "
+                  "of frame 1 (density) or of the one frame, warm-up "
+                  "included (velocity)", "card": card})
+
+
+def phase_remat(card: str):
+    """loss.remat_views at the density slice's frame 0 (W=1, 112x64x112,
+    9 views, bf16, relu1_1-relu4_1) at 512^2 renders, one octave x 3
+    iterations, without and with per-view rematerialization: peak device
+    memory (``max_memory_allocated`` after ``reset_peak_memory_stats``)
+    and s/iter of each (steady: iterations 2-3); the peak with remat must be the lower. The two
+    runs compute the same loss (a mean over views either way), with
+    cuDNN's bf16 convolutions batched differently: the first iteration's
+    loss within 1e-3 relative, every loss within 1e-2 and d* within
+    0.06 (half the 0.12 that 3 Adam steps of lr 0.02 can open). Returns
+    the remat run's losses."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    rng = np.random.default_rng(0)
+    d = _plume_density(SHAPE, 0, rng)
+    vels = np.stack([_swirl_velocity(SHAPE, 0)] * 2)
+    style = np.random.default_rng(1).random((512, 512, 3), dtype=np.float32)
+    runs = {}
+    for remat in (False, True):
+        cfg = _northstar_cfg(**{"render.render_size": (512, 512),
+                                "optim.octave_n": 1, "optim.iters": 3,
+                                "loss.remat_views": remat})
+        styler = GridStyler(cfg, style_image=style, device="cuda")
+        ak.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the callback reads each iteration's loss (log_every=1), which
+        # synchronises: iterations 2-3 give the steady s/iter (the first
+        # also imports what torch.utils.checkpoint needs)
+        marks = []
+        t0 = time.perf_counter()
+        d_star, _, info = styler.stylize_frame(
+            d, vels=vels, callback=lambda done, loss, octave: marks.append(
+                time.perf_counter()))
+        d_star = d_star.cpu().numpy()     # synchronises
+        seconds = time.perf_counter() - t0
+        runs[remat] = {
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "s_per_iter_incl_warmup": seconds / cfg.optim.iters,
+            "s_per_iter_steady": (marks[-1] - marks[0]) / (len(marks) - 1),
+            "losses": info["octave_losses"][0].cpu().numpy(),
+            "d_star": d_star, "launches": dict(ak.LAUNCHES)}
+        del styler
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    first_rel = float(abs(on["losses"][0] / off["losses"][0] - 1.0))
+    loss_rel = float(np.max(np.abs(on["losses"] / off["losses"] - 1.0)))
+    d_err = float(np.abs(on["d_star"] - off["d_star"]).max())
+    for r in (off, on):
+        if not (np.isfinite(r["d_star"]).all() and r["launches"]["fwd"] > 0
+                and r["launches"]["bwd_field"] > 0):
+            raise AssertionError(f"remat phase: bad run {r['launches']}")
+    if not on["peak_bytes"] < off["peak_bytes"]:
+        raise AssertionError(f"remat peak {on['peak_bytes']} not below "
+                             f"{off['peak_bytes']}")
+    if not (first_rel <= 1e-3 and loss_rel <= 1e-2 and d_err <= 0.06):
+        raise AssertionError(f"remat departs from the batched loss: first "
+                             f"{first_rel}, losses {loss_rel}, d* {d_err}")
+    emit({"phase": "remat", "shape": list(SHAPE), "render_size": [512, 512],
+          "n_views": 9, "window": 1, "octave_n": 1, "iters": 3,
+          "peak_gib": {"batched": off["peak_bytes"] / 2 ** 30,
+                       "remat": on["peak_bytes"] / 2 ** 30},
+          "s_per_iter_incl_warmup": {
+              "batched": off["s_per_iter_incl_warmup"],
+              "remat": on["s_per_iter_incl_warmup"]},
+          "s_per_iter_steady": {"batched": off["s_per_iter_steady"],
+                                "remat": on["s_per_iter_steady"]},
+          "losses": {"batched": off["losses"].tolist(),
+                     "remat": on["losses"].tolist()},
+          "err": {"first_loss_rel": first_rel, "loss_rel": loss_rel,
+                  "d_star_max_abs": d_err},
+          "tol": {"first_loss_rel": 1e-3, "loss_rel": 1e-2,
+                  "d_star_max_abs": 0.06},
+          "launches": {"batched": off["launches"],
+                       "remat": on["launches"]}, "card": card})
+    return on["losses"]
+
+
+def _serve_cfg():
+    """The density slice's config as a serve job's overrides (JSON)."""
+    return {"render.render_size": [256, 256], "render.n_views": 9,
+            "render.view_pool": 32, "render.transmit": 0.01,
+            "loss.style_layers": ["relu1_1", "relu2_1", "relu3_1",
+                                  "relu4_1"],
+            "loss.style_layer_weights": [1.0, 1.0, 1.0, 1.0],
+            "loss.features_dtype": "bfloat16", "optim.octave_n": 3,
+            "optim.octave_scale": 1.8, "optim.lr": 0.02, "optim.iters": 5,
+            "optim.window": 1}
+
+
+def _serve_particle_cfg():
+    """The particles_3d bench config (``_particle_cfg``) at 4 iterations
+    per octave as a serve job's overrides (JSON)."""
+    return {"render.render_size": [256, 256], "render.n_views": 9,
+            "render.transmit": 0.05, "loss.features_dtype": "bfloat16",
+            "optim.octave_n": 3, "optim.iters": 4,
+            "particle.optimize_position": True,
+            "particle.optimize_density": True,
+            "particle.keyframe_stride": 10}
+
+
+def phase_serve(card: str, root: str, smoke_dir: str):
+    """The stylization service in-process, ``serve(spool, max_jobs=5)``,
+    over the scene phase's smoke3d frames at the density slice's config
+    (job overrides; 5 iterations per octave, W=1): (A) a grid job over
+    frames 0-2; (B) the same job into another out_dir, which must hit
+    the styler and frame caches and equal A within 1e-3; (B2) B again
+    under ``utils.profiling.trace``, whose Chrome trace must hold
+    advect_fwd_kernel; (C) a particle job at the particles_3d width (200
+    000 particles, 96x64x96, 3 octaves x 4 iterations, keyframes 0 and
+    1); (D) a "parallel" job, which must fail naming ROADMAP item 21;
+    then the stop marker. K1 and K2 must launch in A, K4 and K5 in C
+    (counts reset before each job and read after it). Returns
+    (A's out_dir, C's out_dir, the style image path)."""
+    import torch
+
+    from nfs_tpu_torch.cli import serve as serve_mod
+    from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    from nfs_tpu_torch.utils.profiling import trace
+
+    spool = os.path.join(root, "spool")
+    style = os.path.join(root, "serve_style.npy")
+    size = tuple(_serve_cfg()["render.render_size"])
+    np.save(style, np.random.default_rng(1).random(size + (3,),
+                                                   dtype=np.float32))
+    pdir = os.path.join(root, "particles")
+    store = FrameStore(pdir)
+    for t, x in enumerate(_particle_frames(2)):
+        store.save_particles(t, x=x, dens=np.ones(P_COUNT, np.float32))
+    out = {k: os.path.join(root, "served", k)
+           for k in ("a", "b", "b2", "c", "d")}
+    grid_job = {"mode": "grid", "data_dir": smoke_dir, "frames": [0, 1, 2],
+                "style_target": style, "config": _serve_cfg()}
+    jobs = {
+        "a": dict(grid_job, out_dir=out["a"]),
+        "b": dict(grid_job, out_dir=out["b"]),
+        "b2": dict(grid_job, out_dir=out["b2"]),
+        "c": {"mode": "particle", "data_dir": pdir, "frames": [0, 1],
+              "out_dir": out["c"], "style_target": style,
+              "grid_shape": list(P_GRID), "config": _serve_particle_cfg()},
+        "d": dict(grid_job, out_dir=out["d"], parallel=True),
+    }
+    for name, job in jobs.items():
+        serve_mod.submit_job(spool, job, name=name)
+
+    trace_dir = os.path.join(root, "serve_trace")
+    per_job = {}
+    run_job = serve_mod.StylizeWorker.run_job
+
+    def counted(self, job):
+        name = os.path.basename(job["out_dir"])
+        ak.reset_launches()
+        bk.reset_launches()
+        torch.cuda.synchronize()
+        try:
+            if name == "b2":
+                with trace(trace_dir):
+                    return run_job(self, job)
+            return run_job(self, job)
+        finally:
+            torch.cuda.synchronize()
+            per_job[name] = {"advect": dict(ak.LAUNCHES),
+                             "binsplat": dict(bk.LAUNCHES)}
+
+    serve_mod.StylizeWorker.run_job = counted
+    try:
+        t0 = time.perf_counter()
+        stats = serve_mod.serve(spool, poll_s=0.01, max_jobs=len(jobs))
+        serve_s = time.perf_counter() - t0
+    finally:
+        serve_mod.StylizeWorker.run_job = run_job
+    open(os.path.join(spool, "stop"), "w").close()
+    stopped = serve_mod.serve(spool, poll_s=0.01)
+
+    results = {}
+    for name in jobs:
+        with open(os.path.join(spool, "done", f"{name}.json")) as f:
+            results[name] = json.load(f)
+    for name in ("a", "b", "b2", "c"):
+        if results[name]["status"] != "ok":
+            raise AssertionError(f"job {name}: {results[name]}")
+    err_d = results["d"]
+    if not (err_d["status"] == "error"
+            and err_d["error"].startswith("NotImplementedError")
+            and "ROADMAP queue 1, item 21" in err_d["error"]):
+        raise AssertionError(f"parallel job: {err_d}")
+    hb = [f for f in os.listdir(spool) if f.startswith("worker_")]
+    with open(os.path.join(spool, hb[0])) as f:
+        beat = json.load(f)
+    if beat["status"] != "stopped" or stopped["jobs"] != 0:
+        raise AssertionError(f"heartbeat {beat}, after stop {stopped}")
+    if not (stats["styler_cache_hits"] >= 1
+            and stats["frame_cache_hits"] >= 1 and stats["jobs"] == 4
+            and stats["errors"] == 1):
+        raise AssertionError(f"worker stats {stats}")
+    a_l, c_l = per_job["a"], per_job["c"]
+    if not (a_l["advect"]["fwd"] > 0 and a_l["advect"]["bwd_field"] > 0
+            and c_l["binsplat"]["fwd"] > 0 and c_l["binsplat"]["bwd"] > 0):
+        raise AssertionError(f"launches per job {per_job}")
+
+    grid_a, grid_b = FrameStore(out["a"]), FrameStore(out["b"])
+    b_vs_a = 0.0
+    for t in range(3):
+        da, db = grid_a.load_density(t), grid_b.load_density(t)
+        if not (da.shape == SHAPE and np.isfinite(da).all()):
+            raise AssertionError(f"job a frame {t}: bad output")
+        b_vs_a = max(b_vs_a, float(np.abs(da - db).max()))
+    if not b_vs_a <= 1e-3:
+        raise AssertionError(f"job b departs from job a: {b_vs_a}")
+    for t in range(2):
+        p = FrameStore(out["c"]).load_particles(t)
+        if not (p["x"].shape == (P_COUNT, 3) and np.isfinite(p["x"]).all()
+                and np.isfinite(p["dens"]).all()):
+            raise AssertionError(f"job c frame {t}: bad output")
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    k1_events = sum(1 for e in events
+                    if "advect_fwd_kernel" in str(e.get("name", "")))
+    if not k1_events:
+        raise AssertionError("the trace of job b2 holds no "
+                             "advect_fwd_kernel event")
+    emit({"phase": "serve", "shape": list(SHAPE), "frames": 3,
+          "reduced": "optim.iters 5 per octave (config #3: 20); particle "
+                     "job 4 (bench: 20); random VGG weights and style",
+          "wall_s": {k: results[k].get("wall_s") for k in jobs},
+          "first_vs_cached_wall_s": [results["a"]["wall_s"],
+                                     results["b"]["wall_s"]],
+          "serve_s": serve_s, "stats": stats, "b_vs_a_max_abs": b_vs_a,
+          "tol": {"b_vs_a_max_abs": 1e-3}, "launches": per_job,
+          "trace_events": len(events), "trace_k1_events": k1_events,
+          "parallel_error": err_d["error"], "heartbeat": beat["status"],
+          "card": card})
+    return out["a"], out["c"], style
+
+
+def _image_files(out_dir, n: int):
+    """The render CLI's frames: ``.png`` with PIL, ``.png.npy`` without."""
+    imgs = []
+    for t in range(n):
+        path = os.path.join(out_dir, f"frame_{t:04d}.png")
+        if os.path.exists(path + ".npy"):
+            imgs.append(np.load(path + ".npy"))
+        else:
+            from PIL import Image
+
+            with Image.open(path) as f:
+                imgs.append(np.asarray(f))
+    return imgs
+
+
+def phase_render_quality(card: str, root: str, smoke_dir: str, a_dir: str,
+                         c_dir: str, style_path: str, remat_losses,
+                         density_s_per_iter: float):
+    """``cli.render`` over the serve phase's grid output (3 frames, grey
+    and 'fire') and its particle output (splatted onto 96x64x96): every
+    image written, finite and not constant. Then the quality metrics of
+    ``eval``: temporal coherence of the raw smoke3d frames 0-2 and of job
+    A's stylized frames against the sim velocities (K1, max_disp 2), the
+    coherence gate, the stylization strength of frame 0, the Gram
+    distance to the style of 9 views of the stylized and of the raw frame
+    0, the Gram convergence of the remat phase's losses; and the density
+    slice's analytic FLOPs per iteration and its MFU against the H100's
+    dense bf16 peak. Gates nothing beyond finiteness and the gate's own
+    output."""
+    import torch
+
+    from nfs_tpu_torch.cli.render import main as render
+    from nfs_tpu_torch.eval import (
+        coherence_gate, gram_convergence, gram_distance,
+        stylization_strength, temporal_coherence)
+    from nfs_tpu_torch.features.losses import style_gram_targets
+    from nfs_tpu_torch.features.vgg import init_vgg_params
+    from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.render.camera import poisson_view_pool
+    from nfs_tpu_torch.render.raymarch import render_views
+    from nfs_tpu_torch.utils.flops import (
+        H100_SXM_PEAK_BF16, mfu, styler_step_flops)
+
+    renders = {}
+    for label, argv, src, n in (
+            ("grey", [], a_dir, 3),
+            ("fire", ["--transfer_fn", "fire"], a_dir, 3),
+            ("particle", ["--mode", "particle", "--grid_shape",
+                          *map(str, P_GRID)], c_dir, 2)):
+        dst = os.path.join(root, "render", label)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            render(["--data_dir", src, "--num_frames", str(n), "--out", dst]
+                   + argv)
+        imgs = _image_files(dst, n)
+        for img in imgs:
+            if not (np.isfinite(img).all() and img.max() > img.min()):
+                raise AssertionError(f"render {label}: a bad image")
+        renders[label] = {"frames": n, "shape": list(imgs[0].shape),
+                          "wall_s": time.perf_counter() - t0}
+
+    raw, out = FrameStore(smoke_dir), FrameStore(a_dir)
+    dev = torch.device("cuda")
+    raw_d = np.stack([raw.load_density(t) for t in range(3)])
+    vels = np.stack([raw.load_velocity(t) for t in range(3)])
+    sty_d = np.stack([out.load_density(t) for t in range(3)])
+    ak.reset_launches()
+    sim = temporal_coherence(torch.from_numpy(raw_d).to(dev),
+                             torch.from_numpy(vels).to(dev), max_disp=2.0)
+    stylized = temporal_coherence(torch.from_numpy(sty_d).to(dev),
+                                  torch.from_numpy(vels).to(dev),
+                                  max_disp=2.0)
+    k1 = ak.LAUNCHES["fwd"]
+    if k1 != 4:
+        raise AssertionError(f"temporal_coherence launched K1 {k1} times")
+    gate = coherence_gate(stylized["ratio"], sim["ratio"])
+    strength = stylization_strength(torch.from_numpy(sty_d[0]).to(dev),
+                                    torch.from_numpy(raw_d[0]).to(dev))
+
+    cfg = _northstar_cfg()
+    rc, lc = cfg.render, cfg.loss
+    vgg = init_vgg_params(cfg.seed, device=dev)
+    style = torch.from_numpy(np.load(style_path)).to(dev)
+    with torch.no_grad():
+        targets = style_gram_targets(vgg, style, lc.style_layers)
+        views = torch.from_numpy(poisson_view_pool(
+            rc.view_pool, rc.n_views, (rc.theta0, rc.theta1),
+            (rc.phi0, rc.phi1), seed=cfg.seed)[0]).to(dev)
+        gram = {}
+        for label, d in (("stylized", sty_d[0]), ("raw", raw_d[0])):
+            imgs = render_views(torch.from_numpy(d).to(dev), views[:, 0],
+                                views[:, 1], transmit=rc.transmit,
+                                out_size=rc.render_size)
+            gram[label] = gram_distance(vgg, imgs, targets, lc.style_layers,
+                                        dtype=torch.bfloat16)
+    convergence = gram_convergence([remat_losses])
+    flops = styler_step_flops(SHAPE, rc.render_size, rc.n_views,
+                              lc.style_layers,
+                              n_window_renders=2 * cfg.optim.window + 1)
+    numbers = [sim["ratio"], stylized["ratio"], strength["rel_change"],
+               gram["stylized"], gram["raw"],
+               convergence["overall_drop_pct"]]
+    if not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"non-finite quality metrics {numbers}")
+    emit({"phase": "render_quality", "renders": renders,
+          "temporal_coherence": {"sim": sim, "stylized": stylized,
+                                 "gate_pass": gate, "k1_launches": k1},
+          "stylization_strength": strength,
+          "gram_distance_9_views": gram,
+          "gram_convergence_remat": convergence,
+          "density_slice_flops_per_iter": flops,
+          "density_slice_s_per_iter": density_s_per_iter,
+          "mfu_vs_h100_bf16": mfu(flops / density_s_per_iter),
+          "peak": H100_SXM_PEAK_BF16, "card": card})
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(
         description="Drive the PyTorch/CUDA port on one GPU")
@@ -2124,7 +2638,7 @@ def main(argv=None) -> int:
     phase_reference(card)
     phase_reference_particle(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
-        phase_density(card, tmp)
+        density_s_per_iter = phase_density(card, tmp)
     split = phase_velocity(card)
     # launches of the grid main path (density + velocity runs): the
     # counters were reset just before the density run
@@ -2143,12 +2657,18 @@ def main(argv=None) -> int:
         phase_profile(card)
     phase_2d(card)
     phase_transfer_gather(card)
+    # the exact advection path launches no hand kernel (it checks so)
+    phase_exact(card)
+    remat_losses = phase_remat(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
         phase_color(card, tmp)
         smoke_dir = phase_scene(card, tmp)
         phase_northstar(card, tmp)
         phase_cli(card, tmp, smoke_dir)
         phase_checkpoint(card, tmp, smoke_dir)
+        a_dir, c_dir, style = phase_serve(card, tmp, smoke_dir)
+        phase_render_quality(card, tmp, smoke_dir, a_dir, c_dir, style,
+                             remat_losses, density_s_per_iter)
     for recs, keys, counts in ((records, KERNELS, launches),
                                ([far_record], (UNTILED,), launches),
                                (bin_records, BIN_KERNELS, bin_launches)):

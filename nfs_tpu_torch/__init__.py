@@ -1,13 +1,16 @@
 """nfs_tpu_torch — the PyTorch/CUDA port of ``nfs_tpu``.
 
 The TNST grid path (2D and 3D smoke density, density and velocity
-parameterizations, window-transport loss, transfer functions, shear or
-gather rotation, streaming, fused and block-streamed sequences with
-mid-sequence resume, in-frame checkpoints), the LNST particle path (2D
-and 3D, position, density and colour attributes, keyframes) and the
-smoke and FLIP data generators on PyTorch, with the bounded-displacement advection
-kernels and the binned-splat window kernels written by hand in CUDA for
-Hopper (``csrc/advect.cu``, ``csrc/binsplat.cu``). The sub-packages mirror
+parameterizations, window-transport loss on the bounded-displacement or
+the exact advection path, transfer functions, shear or gather rotation,
+per-view rematerialization, streaming, fused and block-streamed
+sequences with mid-sequence resume, in-frame checkpoints), the LNST
+particle path (2D and 3D, position, density and colour attributes,
+keyframes), the smoke and FLIP data generators, a spool-directory
+stylization service and quality metrics on PyTorch, with the
+bounded-displacement advection kernels and the binned-splat window
+kernels written by hand in CUDA for Hopper (``csrc/advect.cu``,
+``csrc/binsplat.cu``). The sub-packages mirror
 ``nfs_tpu``'s so each module's counterpart is found under the same name:
 
 - :mod:`nfs_tpu_torch.core`     — configuration dataclasses, ParticleSet
@@ -22,8 +25,13 @@ Hopper (``csrc/advect.cu``, ``csrc/binsplat.cu``). The sub-packages mirror
 - :mod:`nfs_tpu_torch.styler`   — octave Adam driver, ``GridStyler``,
   ``ParticleStyler``
 - :mod:`nfs_tpu_torch.sim`      — smoke and FLIP solvers
-- :mod:`nfs_tpu_torch.cli`      — stylization (grid, particle) and scene
-  generation entry points
+- :mod:`nfs_tpu_torch.eval`     — quality metrics: temporal coherence and
+  its gate, Gram distance and convergence, stylization strength
+- :mod:`nfs_tpu_torch.utils`    — profiler traces, device-synchronized
+  timers, JSONL metrics, analytic FLOPs and MFU against the H100's peak
+- :mod:`nfs_tpu_torch.cli`      — stylization (grid, particle), scene
+  generation, the stylization service (``cli.serve``) and the renderer
+  (``cli.render``)
 
 Public functions keep the JAX package's layouts: volumes ``(D, H, W)``,
 velocities ``(D, H, W, 3)`` and particles ``(N, 3)`` in array-axis order,

@@ -126,8 +126,9 @@ class LossConfig:
     # 'float32' for numeric tests.
     features_dtype: str = "float32"
     # rematerialize per-view render+VGG in the backward pass (views
-    # evaluated one at a time instead of one batch): cuts peak activation
-    # memory at the cost of recompute. Not ported yet.
+    # evaluated one at a time under torch.utils.checkpoint instead of one
+    # batch): cuts peak activation memory at the cost of recompute, for
+    # large renders (512²) x many views.
     remat_views: bool = False
 
 
@@ -161,8 +162,8 @@ class OptimConfig:
     # bound (cells) on per-step advection displacement inside the loss
     # pipeline. Non-None switches advection to the bounded-displacement
     # window formulation (ops/advect.py); displacements are clamped to
-    # +-max_disp (a CFL-style regularizer). None (the exact gather path)
-    # is not ported yet.
+    # +-max_disp (a CFL-style regularizer). None = the exact gather path
+    # (ops/interp.grid_sample), any displacement.
     max_disp: Optional[float] = 2.0
     # advection scheme for the recursive warm-start transport of the
     # OPTIMIZATION PARAM between frames (TNST §6): 'semi' = one
@@ -186,9 +187,10 @@ class OptimConfig:
     # Adam moments
     b1: float = 0.9
     b2: float = 0.999
-    # frames per dispatch for stylize_sequence: 0/1 = streaming (one
-    # frame at a time, per-frame observability); F>1 = fused multi-frame
-    # dispatch, not ported yet
+    # frames per chunk for stylize_sequence: 0/1 = streaming (param
+    # yielded with every frame); F>1 = param yielded at each chunk's end
+    # (the frames are stylized alike either way: eager torch has no
+    # dispatch to fuse)
     fused_frames: int = 0
 
 

@@ -2,10 +2,15 @@
 
 ``advect(field, vel)`` backtraces each cell centre by the velocity and
 samples the field there: ``out(x) = field(x - dt * v(x))``, differentiable
-in both ``field`` and ``vel``. Only the bounded-displacement (window)
-formulation is ported: displacements are clamped to ``+-max_disp`` cells.
+in both ``field`` and ``vel``. With ``max_disp=None`` it takes the exact
+path: one multilinear sample at the backtrace (``ops/interp.grid_sample``,
+a gather forward and one ``index_add`` for the field gradient), for any
+displacement. In clamp mode that path clamps the corner indices to the
+grid, while the window path clamps the backtrace coordinates, so the two
+differ at the boundary by design.
 
-Backends, as in the JAX package:
+With ``max_disp`` set, displacements are clamped to ``+-max_disp`` cells,
+on the backends the JAX package picks:
 
 - 3D clamp-mode fields go through :class:`AdvectWindow`, i.e. the CUDA
   kernels K1-K3b on a CUDA tensor and their plain twins on a CPU tensor
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from nfs_tpu_torch.ops.advect_kernels import AdvectWindow
+from nfs_tpu_torch.ops.interp import grid_sample, identity_coords
 from nfs_tpu_torch.ops.jaxgrad import jax_clip, jax_tent
 
 _IMPLS = ("auto", "xla", "pallas")
@@ -109,18 +115,19 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
       vel: ``(*spatial, ndim)``, channel i = cells/frame along array axis i.
       dt: timestep in frames (negative to advect backwards).
       mode: 'clamp' or 'zero' boundary.
-      max_disp: bound on the displacement (cells); required.
-      impl: 'auto' = K1-K3 for 3D clamp-mode fields, as the JAX package
-        picks its Pallas kernels there; 'pallas' (the config keeps the JAX
-        package's name) also checks that the field is a 3D scalar
-        clamp-mode one; 'xla' forces the window-tap sum.
+      max_disp: bound on the displacement (cells); None = the exact
+        gather path (any displacement).
+      impl: window-path backend. 'auto' = K1-K3 for 3D clamp-mode fields,
+        as the JAX package picks its Pallas kernels there; 'pallas' (the
+        config keeps the JAX package's name) also checks that the field
+        is a 3D scalar clamp-mode one; 'xla' forces the window-tap sum.
     """
-    if max_disp is None:
-        raise NotImplementedError(
-            "advect with max_disp=None (the exact grid_sample path, "
-            "ops/interp.py) is not ported yet: ROADMAP queue 1, item 12")
     if impl not in _IMPLS:
         raise ValueError(f"unknown advect impl {impl!r}")
+    if max_disp is None:
+        out = grid_sample(field, _backtrace(vel, dt, field.device),
+                          mode=mode)
+        return out.to(field.dtype)
     if impl == "xla":
         return _advect_window_taps(field, vel, dt, mode, max_disp)
     if impl == "pallas" and not (
@@ -129,6 +136,12 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
         raise ValueError(
             "impl='pallas' supports 3D scalar clamp-mode fields")
     return _advect_window(field, vel, dt, mode, max_disp)
+
+
+def _backtrace(vel: torch.Tensor, dt: float, device) -> torch.Tensor:
+    """Exact-path sample coordinates x - dt * v(x), (*spatial, ndim)."""
+    return (identity_coords(tuple(vel.shape[:-1]), device=device)
+            - dt * vel.to(torch.float32))
 
 
 def _pool_minmax(field: torch.Tensor, radius: int,
@@ -154,17 +167,42 @@ def advect_maccormack(field: torch.Tensor, vel: torch.Tensor,
                       max_disp: Optional[float] = None) -> torch.Tensor:
     """MacCormack/BFECC advection with min-max limiting:
     fwd = SL(field, v, dt); bwd = SL(fwd, v, -dt);
-    out = clip(fwd + 0.5 * (field - bwd), local min, local max), the
-    limiter pooling over the displacement neighbourhood."""
-    if max_disp is None:
-        raise NotImplementedError(
-            "advect_maccormack with max_disp=None (the exact grid_sample "
-            "path) is not ported yet: ROADMAP queue 1, item 12")
+    out = clip(fwd + 0.5 * (field - bwd), local min, local max).
+
+    With ``max_disp`` set the limiter pools over the displacement
+    neighbourhood; with None (the exact path) it takes the 2^ndim cells
+    around the backtraced point, their indices clamped to the grid. The
+    clip is ``minimum(maximum(out, mins), maxs)``, whose gradient splits
+    0.5/0.5 at a tie as ``jnp.clip``'s does; through the gathered corners
+    part of it reaches ``field``."""
     ndim = vel.shape[-1]
-    fwd = _advect_window(field, vel, dt, mode, max_disp)
-    bwd = _advect_window(fwd, vel, -dt, mode, max_disp)
+    if max_disp is not None:
+        fwd = _advect_window(field, vel, dt, mode, max_disp)
+        bwd = _advect_window(fwd, vel, -dt, mode, max_disp)
+        mins, maxs = _pool_minmax(field, int(math.ceil(max_disp)) + 1,
+                                  spatial_ndim=ndim)
+    else:
+        coords = _backtrace(vel, dt, field.device)
+        fwd = grid_sample(field, coords, mode=mode)
+        bwd = grid_sample(fwd, _backtrace(vel, -dt, field.device),
+                          mode=mode)
+        lo = torch.floor(coords).long()
+        spatial = tuple(vel.shape[:-1])
+        mins = maxs = None
+        for corner in itertools.product((0, 1), repeat=ndim):
+            v = field[tuple((lo[..., d] + corner[d]).clamp(0, spatial[d] - 1)
+                            for d in range(ndim))]
+            mins = v if mins is None else torch.minimum(mins, v)
+            maxs = v if maxs is None else torch.maximum(maxs, v)
     out = fwd + 0.5 * (field - bwd)
-    mins, maxs = _pool_minmax(field, int(math.ceil(max_disp)) + 1,
-                              spatial_ndim=ndim)
     return torch.minimum(torch.maximum(out, mins), maxs)
 
+
+def advect_chain(field: torch.Tensor, vels: torch.Tensor, dt: float = 1.0,
+                 mode: str = "clamp",
+                 max_disp: Optional[float] = None) -> torch.Tensor:
+    """Advect ``field`` through the velocity fields ``vels`` (T, *spatial,
+    ndim) in order 0..T-1: the transport of the window loss (TNST §6)."""
+    for v in vels:
+        field = advect(field, v, dt=dt, mode=mode, max_disp=max_disp)
+    return field

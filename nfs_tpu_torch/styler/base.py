@@ -26,12 +26,6 @@ from nfs_tpu_torch.render.camera import (
 from nfs_tpu_torch.render.transfer import resolve_transfer
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to nfs_tpu_torch yet: ROADMAP queue 1, "
-        f"{item}")
-
-
 class StylerBase:
     """Loss network, style/content targets, view pool and transfer
     function on ``device``."""

@@ -22,9 +22,9 @@ GPU.
 Random draws come from explicit ``torch.Generator`` objects; since torch
 cannot reproduce ``jax.random``, a per-iteration ``view_schedule`` of view
 pool indices can be injected to replay the JAX package's draws.
-
-Not ported yet: per-view rematerialization (``loss.remat_views`` raises
-``NotImplementedError`` naming its ROADMAP item).
+With ``loss.remat_views`` a 3D frame's views are evaluated one at a time
+under ``torch.utils.checkpoint``, so the backward holds one view's render
+and VGG activations at a time and recomputes them.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from nfs_tpu_torch.core.config import StyleConfig
 from nfs_tpu_torch.features.losses import gram_matrix, tv_loss
@@ -42,8 +43,9 @@ from nfs_tpu_torch.io.checkpoint import (
 from nfs_tpu_torch.ops.advect import advect, advect_maccormack
 from nfs_tpu_torch.ops.jaxgrad import jax_clip
 from nfs_tpu_torch.ops.resize import octave_shapes, resize
-from nfs_tpu_torch.render.raymarch import render2d, render_views
-from nfs_tpu_torch.styler.base import StylerBase, _not_ported
+from nfs_tpu_torch.render.raymarch import (
+    render2d, render_views, render_volume)
+from nfs_tpu_torch.styler.base import StylerBase
 from nfs_tpu_torch.styler.octave import Adam, run_octave
 
 
@@ -59,8 +61,6 @@ class GridStyler(StylerBase):
                  style_image: Optional[np.ndarray] = None,
                  content_image: Optional[np.ndarray] = None,
                  device="cuda"):
-        if cfg.loss.remat_views:
-            raise _not_ported("loss.remat_views", "item 10")
         super().__init__(cfg, vgg_params, style_image, content_image,
                          device)
         oc = cfg.optim
@@ -92,8 +92,30 @@ class GridStyler(StylerBase):
                             tf_nodes=tf, tf_max=rc.tf_max_density)
 
     def _render_loss(self, d_star, views, render_size, data, tf_nodes=None):
-        return self._image_loss(
-            self._render(d_star, views, render_size, tf_nodes), data)
+        """Image loss of the views of d_star. With loss.remat_views (3D
+        only) each view is rendered and evaluated on its own under
+        ``torch.utils.checkpoint``, and the loss is their mean, which
+        equals the batched loss (a mean over the batch) up to rounding."""
+        if d_star.ndim == 2 or not self.cfg.loss.remat_views:
+            return self._image_loss(
+                self._render(d_star, views, render_size, tf_nodes), data)
+        tf = self.tf_nodes if tf_nodes is None else tf_nodes
+        # nothing random is drawn inside a view's loss, so the RNG state
+        # (whose capture would synchronize the device) is not preserved
+        losses = [checkpoint(self._view_loss, d_star, v, render_size, data,
+                             tf, use_reentrant=False,
+                             preserve_rng_state=False) for v in views]
+        return torch.stack(losses).mean()
+
+    def _view_loss(self, d_star, view, render_size, data, tf):
+        rc = self.cfg.render
+        img = render_volume(d_star, view[0], view[1], transmit=rc.transmit,
+                            out_size=render_size, gamma=rc.gamma,
+                            method=rc.rotation, tf_nodes=tf,
+                            tf_max=rc.tf_max_density)
+        if tf is None:
+            img = img[..., None].expand(*img.shape, 3)
+        return self._image_loss(img[None], data)
 
     def _apply_param(self, opt_var, d_base: torch.Tensor) -> torch.Tensor:
         if isinstance(opt_var, dict):  # render.train_transfer
@@ -194,10 +216,17 @@ class GridStyler(StylerBase):
                     d_j = advect(d_j, -vels[window - j], max_disp=md,
                                  impl=impl)
                     states[window - j] = d_j
-                imgs = torch.stack([
-                    self._render(s, views[p], render_size, tf)
-                    for p, s in enumerate(states)])
-                total = self._image_loss_weighted(imgs, weights, data)
+                if cfg.loss.remat_views and ndim == 3:
+                    # one view at a time, position by position
+                    total = sum(weights[p] * self._render_loss(
+                        s, views[p], render_size, data, tf)
+                        for p, s in enumerate(states))
+                else:
+                    # every position's views through VGG in one batch
+                    imgs = torch.stack([
+                        self._render(s, views[p], render_size, tf)
+                        for p, s in enumerate(states)])
+                    total = self._image_loss_weighted(imgs, weights, data)
             if cfg.loss.w_tv:
                 field = (opt_var["field"] if isinstance(opt_var, dict)
                          else opt_var)

@@ -4,8 +4,9 @@ the CPU at a tiny size: the scene CLI (a 3D smoke, a 3D liquid and a 2D
 smoke), grid mode (a single frame, a 2-frame window sequence, a fused
 3-frame sequence over the scene's smoke, run twice: the rerun resumes
 from its manifest, and a 2D window sequence coloured by a transfer
-function with in-frame checkpoints) and particle mode (3 frames,
-keyframes 0 and 2, density and colour)."""
+function with in-frame checkpoints), particle mode (3 frames,
+keyframes 0 and 2, density and colour), then one job through the
+stylization service (``cli.serve``) and ``cli.render`` over its output."""
 
 import json
 import os
@@ -30,6 +31,9 @@ SCRIPT = textwrap.dedent("""
         nfs_tpu_torch.__path__, "nfs_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for name in ("eval.quality", "utils.flops", "utils.profiling",
+                 "utils.metrics", "cli.serve", "cli.render"):
+        assert "nfs_tpu_torch." + name in names, name
     from nfs_tpu_torch.cli import scene
     from nfs_tpu_torch.cli.stylize import main
     data, log = sys.argv[1], sys.argv[2]
@@ -59,6 +63,19 @@ SCRIPT = textwrap.dedent("""
     for _ in range(2):
         main(fused + ["--tag", "fused", "--num_frames", "3", "--window",
                       "1", "--fused", "2"])
+    from nfs_tpu_torch.cli import render, serve
+    spool = log + "/spool"
+    serve.submit_job(spool, {
+        "mode": "grid", "data_dir": data, "out_dir": log + "/served",
+        "frames": [0], "style_target": data + "/style.npy",
+        "config": {"render.render_size": [32, 32], "render.n_views": 2,
+                   "loss.style_layers": ["relu1_1"],
+                   "loss.style_layer_weights": [1.0],
+                   "optim.octave_n": 1, "optim.iters": 2}}, name="job")
+    serve.main(["--spool", spool, "--max_jobs", "1", "--poll", "0.01",
+                "--device", "cpu"])
+    render.main(["--data_dir", log + "/served", "--render_size", "32",
+                 "32", "--device", "cpu"])
     bad = sorted(m for m in sys.modules
                  if m == "nfs_tpu" or m.startswith("nfs_tpu."))
     print("MODULES", len(names), "JAX_PACKAGE", bad)
@@ -127,6 +144,13 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
         assert d.shape == (24, 16) and np.isfinite(d).all()
         assert (grid2d / f"preview_{t:04d}.png").exists()
     assert not (grid2d / "inframe_ckpt.npz").exists()
+    with open(tmp_path / "log" / "spool" / "done" / "job.json") as f:
+        assert json.load(f)["status"] == "ok"
+    served = tmp_path / "log" / "served"
+    d = FrameStore(str(served)).load_density(0)
+    assert d.shape == shape and np.isfinite(d).all()
+    assert [p.name for p in (served / "render").iterdir()
+            if p.name.startswith("frame_0000.png")]
     overflow = [json.loads(l)["splat_overflow"]
                 for l in (lnst / "metrics.jsonl").open()]
     # keyframes 0 and 2 log their parked particles per octave

@@ -214,18 +214,25 @@ def test_view_schedule_replays_jax_draws(vgg_np):
 
 
 def test_not_ported_options_raise(vgg_np):
-    """What the grid path still refuses: per-view rematerialization
-    (item 10) and the exact advection path, max_disp=None (item 12).
-    In-frame checkpoints are ported (tests/test_torch_checkpoint.py)."""
+    """Nothing of the grid path is refused any more: per-view
+    rematerialization (once item 10) and the exact advection path,
+    max_disp=None (once item 12), build and run (their parity is in
+    tests/test_torch_remat.py and tests/test_torch_advect_exact.py)."""
     from nfs_tpu_torch.ops.advect import advect
 
     _, ts = _stylers(vgg_np)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        GridStyler(replace(StyleConfig(), **{"loss.remat_views": True}),
-                   vgg_params=ts.vgg_params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        advect(torch.zeros(SHAPE), torch.zeros(SHAPE + (3,)),
-               max_disp=None)
+    style = np.random.default_rng(1).random((32, 32, 3), dtype=np.float32)
+    remat = GridStyler(
+        replace(StyleConfig(), **dict(OVER, **{
+            "loss.remat_views": True, "optim.max_disp": None,
+            "optim.octave_n": 1})),
+        vgg_params=ts.vgg_params, style_image=style, device="cpu")
+    d_star, _, info = remat.stylize_frame(_density(), vels=_velocities(2))
+    assert d_star.shape == SHAPE and torch.isfinite(d_star).all()
+    assert len(info["octave_losses"][0]) == OVER["optim.iters"]
+    out = advect(torch.ones(SHAPE), torch.full(SHAPE + (3,), 5.0),
+                 max_disp=None)
+    assert torch.equal(out, torch.ones(SHAPE))
 
 
 def test_tf32_off_from_styler_not_import(vgg_np):
