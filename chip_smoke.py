@@ -37,6 +37,11 @@ Phases, each printing one JSON line:
    allocation and launch alone); K2 and K3b also at max_disp 3 and on
    the swirl, the untiled pull at max_disp 9 and 12, K5 also at the
    coarsest octave.
+   kernels_batched — K1, K2 (tiled, and untiled at max_disp 9), K3 and
+   K3b on a batch of 4 frames at 112x64x112: one launch, bitwise the 4
+   single launches, against the batched plain twin at the same
+   tolerance; the batched call's ``ms`` and ``device_ms`` beside the 4
+   single calls'.
    reference — small runs of the grid and particle slices on the GPU
    against the same runs on the CPU (plain versions; the CPU port is held
    against the JAX package by the tests).
@@ -72,6 +77,14 @@ Phases, each printing one JSON line:
     the streaming path.
 12. cli — ``cli.stylize --fused 2`` over 4 of the scene's frames, then a
     rerun that the complete manifest turns into a no-op.
+    parallel — the joint sequence engine (``ParallelSequenceStyler``) on
+    a (1, 1) mesh at the density slice's config over 8 of the scene's
+    frames: s/iter, s/frame and peak memory; 2 K1 and 2 K2 launches per
+    iteration at T = 8 and at T = 2 (the frame batch reaches the
+    kernels); the same run inside a 1-rank NCCL process group, bitwise;
+    the streaming styler on the same frames (s/frame); the first
+    iteration on the card against the CPU port; config #4 through the
+    engine (K1, K2, K3 batched); one ``cli.stylize --parallel`` run.
 13. 2d — BASELINE config #1 (a 256x192 frame, bf16, 3 octaves x 30
     iterations), the 512^2 headline shape (3 x 10) and config #2 (a
     256x192 smoke_sequence, W=1, 2 x 20, 6 frames) through GridStyler,
@@ -99,15 +112,18 @@ Phases, each printing one JSON line:
     frames at the density slice's config: a grid job, the same job again
     (both caches hit, equal output), once more under
     ``utils.profiling.trace`` (the trace must hold K1), a particle job
-    at the particles_3d width, a "parallel" job that must fail naming
-    its ROADMAP item, then the stop marker.
+    at the particles_3d width, a "parallel" grid job (the joint engine)
+    held against the same job on a CPU worker, a "parallel" particle job
+    that must fail naming its ROADMAP item, then the stop marker.
 20. render_quality — ``cli.render`` over the served grid (grey and
     'fire') and particle outputs; ``eval``'s metrics of the served and
     raw frames; the density slice's FLOPs per iteration and MFU against
     the H100's dense bf16 peak.
 
 Then one JSON line with every kernel's route, error, launches on its main
-path, times and least time on the card, and as the last line
+path, times and least time on the card (the advection kernels also with
+their batch of 4 and their launches on the joint engine's path), and as
+the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, so the exit code is non-zero and no result is printed.
 Weights (VGG), style image and data are random, made from fixed seeds.
@@ -467,6 +483,70 @@ def _time_advect(key: str, case: str, md: float, card: str,
     emit({"phase": "kernel_time", "kernel": name, "inputs": case,
           "max_disp": md, "shape": list(SHAPE), **t, "card": card})
     return t
+
+
+# The frame batch of the batched kernel phase, and its cases: (key of
+# the record, launch key, max_disp). K2 at max_disp 9 takes the untiled
+# pull.
+BATCH = 4
+BATCH_CASES = (("fwd", "fwd", 2.0), ("bwd_field", "bwd_field", 2.0),
+               ("bwd_field_untiled", "bwd_field_untiled", 9.0),
+               ("bwd_vel", "bwd_vel", 1.0), ("bwd_fused", "bwd_fused", 2.0))
+
+
+def phase_batched_kernels(card: str):
+    """K1, K2 (tiled, and untiled at max_disp 9), K3 and K3b on a batch of
+    BATCH frames at SHAPE: the batched call is one launch and gives the
+    BATCH single launches' bits, and holds against the batched plain twin
+    at TOL. Times the batched call (``ms``, ``device_ms``) beside the
+    BATCH single calls it replaces. Returns {record key: numbers}."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+
+    pairs = _advect_pairs()
+    out = {}
+    for rec_key, key, md in BATCH_CASES:
+        kern, plain = pairs["bwd_field" if key.startswith("bwd_field")
+                            else key]
+        inputs = [_cuda_inputs("random", md, seed=40 + b)
+                  for b in range(BATCH)]
+        f, g, v = (torch.stack(x) for x in zip(*inputs))
+        before = ak.LAUNCHES[key]
+        batched = kern(f, g, v, md)
+        one_launch = ak.LAUNCHES[key] - before
+        singles = [kern(*x, md) for x in inputs]
+        single_launches = ak.LAUNCHES[key] - before - one_launch
+        single = (tuple(torch.stack(o) for o in zip(*singles))
+                  if isinstance(batched, tuple) else torch.stack(singles))
+        err = _max_err(batched, plain(f, g, v, md))
+        torch.cuda.synchronize()
+        tol = TOL["bwd_field" if key.startswith("bwd_field") else key]
+        if (one_launch, single_launches) != (1, BATCH):
+            raise AssertionError(f"{rec_key}: a batch of {BATCH} took "
+                                 f"{one_launch} launches, {BATCH} frames "
+                                 f"{single_launches}")
+        if not _equal(batched, single):
+            raise AssertionError(f"{rec_key}: the batched launch differs "
+                                 f"from {BATCH} single launches")
+        if not (_all_finite(batched) and err <= tol):
+            raise AssertionError(f"{rec_key}: batched kernel against its "
+                                 f"batched plain twin: {err} > {tol}")
+        # the untiled pull takes ~7 ms a frame: fewer timing runs
+        runs, reps = (5, 2) if key == "bwd_field_untiled" else (30, 10)
+        t = {"ms": _median_ms(lambda: kern(f, g, v, md), runs),
+             "single_x4_ms": _median_ms(
+                 lambda: [kern(*x, md) for x in inputs], runs),
+             "device_ms": _device_ms(lambda: kern(f, g, v, md), runs, reps),
+             "single_x4_device_ms": _device_ms(
+                 lambda: [kern(*x, md) for x in inputs], runs, reps),
+             "launches": one_launch, "single_launches": single_launches,
+             "max_abs_err": err}
+        emit({"phase": "kernels_batched", "kernel": rec_key, "batch": BATCH,
+              "shape": list(SHAPE), "max_disp": md, "tol": tol,
+              "bitwise_vs_single": True, **t, "card": card})
+        out[rec_key] = t
+    return out
 
 
 def _untiled(v, g, md):
@@ -2333,6 +2413,187 @@ def phase_remat(card: str):
     return on["losses"]
 
 
+class _FirstIteration(Exception):
+    """Raised by a callback to stop a run after its first iteration."""
+
+
+def _engine_first_loss(cfg, style, ds, vs, device: str) -> float:
+    """The loss of the joint engine's first iteration (coarsest octave;
+    ``cfg`` has log_every 1) on ``device``."""
+    from nfs_tpu_torch.parallel import ParallelSequenceStyler, make_mesh
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    first = []
+
+    def stop(done, loss, octave):
+        first.append(loss)
+        raise _FirstIteration
+
+    engine = ParallelSequenceStyler(
+        GridStyler(cfg, style_image=style, device=device), make_mesh(1, 1))
+    try:
+        engine.stylize(ds, vs, callback=stop)
+    except _FirstIteration:
+        pass
+    return first[0]
+
+
+def phase_parallel(card: str, root: str, smoke_dir: str):
+    """The joint sequence engine (``parallel.ParallelSequenceStyler``) on a
+    (1, 1) mesh at the density slice's config (5 iterations per octave)
+    over T = 8 of the scene's smoke3d frames: a warm-up run, a timed run
+    (s/iter, s/frame, peak memory), T = 2 (its peak memory too, for the
+    GiB per frame; K1 and K2 launches per iteration must not depend on
+    T: 2 each at W = 1), the same T = 8 run
+    inside a 1-rank NCCL process group (its collectives run on CUDA
+    tensors; bitwise the run without a group), the streaming styler on
+    the same frames (s/frame; another algorithm, so timing only), the
+    first iteration's loss on frames 0-1 against the CPU port (float32
+    features), config #4 through the engine at T = 2 (K1, K2, K3
+    batched), and one ``cli.stylize --parallel`` run. Returns the
+    launches of the T = 8 density run and of the velocity run."""
+    import torch
+    import torch.distributed as dist
+
+    from nfs_tpu_torch.cli.stylize import main as stylize
+    from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.parallel import ParallelSequenceStyler, make_mesh
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    T, iters = 8, 5
+    store = FrameStore(smoke_dir)
+    ds = np.stack([store.load_density(t) for t in range(T)])
+    vs = np.stack([store.load_velocity(t) for t in range(T)])
+    cfg = _northstar_cfg(**{"optim.iters": iters})
+    n_iter = iters * cfg.optim.octave_n
+    style = np.random.default_rng(1).random((256, 256, 3),
+                                            dtype=np.float32)
+    styler = GridStyler(cfg, style_image=style, device="cuda")
+
+    def run(n, mesh=None):
+        engine = ParallelSequenceStyler(styler, mesh or make_mesh(1, 1))
+        ak.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, p, info = engine.stylize(ds[:n], vs[:n])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, d, info, dict(ak.LAUNCHES),
+                engine.last_collectives)
+
+    run(T)                                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    wall, d_star, info, launches, _ = run(T)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    wall2, _, _, launches2, _ = run(2)
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n, got in ((T, launches), (2, launches2)):
+        per_iter = {k: got[k] / n_iter for k in ("fwd", "bwd_field")}
+        if per_iter != {"fwd": 2.0, "bwd_field": 2.0} or got["bwd_vel"]:
+            raise AssertionError(f"T={n}: launches {got} in {n_iter} "
+                                 f"iterations, not 2 K1 and 2 K2 each")
+    d_np = d_star.cpu().numpy()
+    if d_np.shape != (T,) + SHAPE or not np.isfinite(d_np).all() \
+            or d_np.min() < 0.0:
+        raise AssertionError(f"engine output {d_np.shape}, min "
+                             f"{d_np.min()}")
+    losses = [l.cpu().numpy() for l in info["octave_losses"]]
+    if not any(l[-1] < l[0] for l in losses):
+        raise AssertionError(f"no octave's loss fell: {losses}")
+
+    # a 1-rank NCCL group: the all_reduces and gathers run on the card
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        _, d_nccl, _, _, collectives = run(T, make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    if not torch.equal(d_nccl, d_star):
+        raise AssertionError(
+            f"the run in a 1-rank NCCL group differs from the run without "
+            f"one: {float((d_nccl - d_star).abs().max())}")
+    if collectives["all_reduce"] != n_iter + cfg.optim.octave_n:
+        raise AssertionError(f"NCCL run collectives {collectives}")
+
+    # the streaming styler on the same frames, timed alike
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    for _ in styler.stylize_sequence(ds, vs, fused=0):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    stream_s = np.diff(marks)
+
+    # the first iteration on the card against the CPU port, frames 0-1
+    f32 = _northstar_cfg(**{"optim.iters": iters,
+                            "loss.features_dtype": "float32"})
+    first = {dev: _engine_first_loss(f32, style, ds[:2], vs[:2], dev)
+             for dev in ("cuda", "cpu")}
+    first_rel = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+    if not first_rel <= 1e-4:
+        raise AssertionError(f"first iteration card {first['cuda']} vs "
+                             f"CPU {first['cpu']}")
+
+    # config #4 (velocity) through the engine: K1, K2 and K3 batched
+    vcfg = _northstar_cfg(**{"optim.parameterization": "velocity",
+                             "optim.octave_n": 2, "optim.iters": 3})
+    vengine = ParallelSequenceStyler(
+        GridStyler(vcfg, style_image=style, device="cuda"),
+        make_mesh(1, 1))
+    ak.reset_launches()
+    vd, vp, _ = vengine.stylize(ds[:2], vs[:2])
+    torch.cuda.synchronize()
+    vel_launches = dict(ak.LAUNCHES)
+    # per iteration: K1 for d* and the two taps, K2 for the taps, K3 for
+    # d*'s velocity; plus K1 for the final d*
+    if vel_launches["fwd"] != 3 * 6 + 1 or vel_launches["bwd_field"] != \
+            2 * 6 or vel_launches["bwd_vel"] != 6:
+        raise AssertionError(f"velocity engine launches {vel_launches}")
+    if not (torch.isfinite(vp).all() and float(vp.abs().max()) > 0.0
+            and tuple(vp.shape) == (2,) + SHAPE + (3,)):
+        raise AssertionError("velocity engine output")
+
+    # the CLI: 4 frames, 2 octaves x 2 iterations
+    style_path = os.path.join(root, "parallel_style.npy")
+    np.save(style_path, style)
+    log = os.path.join(root, "parallel_log")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        stylize(["--data_dir", smoke_dir, "--log_dir", log, "--tag", "par",
+                 "--style_target", style_path, "--num_frames", "4",
+                 "--window", "1", "--octave_n", "2", "--iter", "2",
+                 "--parallel"])
+    cli_s = time.perf_counter() - t0
+    out = FrameStore(os.path.join(log, "par"))
+    with open(os.path.join(log, "par", "metrics.jsonl")) as f:
+        metric = json.loads(f.readline())
+    if not (all(np.isfinite(out.load_density(t)).all() for t in range(4))
+            and metric["mesh"] == {"frames": 1, "views": 1}
+            and "[parallel] 4 frames" in buf.getvalue()):
+        raise AssertionError(f"cli --parallel: {metric} {buf.getvalue()}")
+
+    emit({"phase": "parallel", "frames": T, "shape": list(SHAPE),
+          "mesh": [1, 1], "window": cfg.optim.window,
+          "reduced": f"optim.iters {iters} per octave (config #3: 20), "
+                     f"{T} frames (north star: 200); random VGG weights "
+                     f"and style",
+          "joint_s_per_iter": wall / n_iter, "joint_s_per_frame": wall / T,
+          "joint_wall_s": wall, "t2_wall_s": wall2,
+          "peak_gib": peak, "peak_gib_t2": peak2,
+          "gib_per_frame": (peak - peak2) / (T - 2),
+          "launches_t8": launches, "launches_t2": launches2,
+          "k1_k2_per_iter": 2, "octave_losses": [l.tolist() for l in losses],
+          "nccl_1_rank_bitwise": True, "nccl_collectives": collectives,
+          "streaming_s_per_frame": float(stream_s[1:].mean()),
+          "streaming_frame_s": stream_s.tolist(),
+          "first_iter_loss": first, "first_iter_rel": first_rel,
+          "tol": {"first_iter_rel": 1e-4},
+          "velocity_t2_launches": vel_launches, "cli_wall_s": cli_s,
+          "card": card})
+    return launches, vel_launches
+
+
 def _serve_cfg():
     """The density slice's config as a serve job's overrides (JSON)."""
     return {"render.render_size": [256, 256], "render.n_views": 9,
@@ -2343,6 +2604,22 @@ def _serve_cfg():
             "loss.features_dtype": "bfloat16", "optim.octave_n": 3,
             "optim.octave_scale": 1.8, "optim.lr": 0.02, "optim.iters": 5,
             "optim.window": 1}
+
+
+def _serve_parallel_job(data_dir, out_dir, style):
+    """Job D: a "parallel" grid job over 2 frames at small widths (64^2
+    renders, 2 style layers, float32 features, style weight 1000 so that
+    the random VGG's gradients stay above Adam's eps), small enough to
+    run on the CPU too."""
+    return {"mode": "grid", "data_dir": data_dir, "frames": [0, 1],
+            "out_dir": out_dir, "style_target": style, "parallel": True,
+            "config": {"render.render_size": [64, 64], "render.n_views": 9,
+                       "render.view_pool": 32, "render.transmit": 0.5,
+                       "loss.style_layers": ["relu1_1", "relu2_1"],
+                       "loss.style_layer_weights": [1.0, 1.0],
+                       "loss.w_style": 1000.0, "optim.octave_n": 2,
+                       "optim.octave_scale": 2.0, "optim.lr": 0.02,
+                       "optim.iters": 3, "optim.window": 1}}
 
 
 def _serve_particle_cfg():
@@ -2357,7 +2634,7 @@ def _serve_particle_cfg():
 
 
 def phase_serve(card: str, root: str, smoke_dir: str):
-    """The stylization service in-process, ``serve(spool, max_jobs=5)``,
+    """The stylization service in-process, ``serve(spool, max_jobs=6)``,
     over the scene phase's smoke3d frames at the density slice's config
     (job overrides; 5 iterations per octave, W=1): (A) a grid job over
     frames 0-2; (B) the same job into another out_dir, which must hit
@@ -2365,12 +2642,17 @@ def phase_serve(card: str, root: str, smoke_dir: str):
     under ``utils.profiling.trace``, whose Chrome trace must hold
     advect_fwd_kernel; (C) a particle job at the particles_3d width (200
     000 particles, 96x64x96, 3 octaves x 4 iterations, keyframes 0 and
-    1); (D) a "parallel" job, which must fail naming ROADMAP item 21;
-    then the stop marker. K1 and K2 must launch in A, K4 and K5 in C
-    (counts reset before each job and read after it). Returns
-    (A's out_dir, C's out_dir, the style image path)."""
+    1); (D) a "parallel" grid job (the joint engine on the service's
+    (1, 1) mesh) over 2 frames of a 24x16x24 smoke3d scene at small
+    widths (float32 features), which must succeed and match the same job
+    through a CPU worker within 1e-3; (D2) a "parallel" particle job,
+    which must fail naming ROADMAP item 23; then the stop marker. K1 and
+    K2 must launch in A and D, K4 and K5 in C (counts reset before each
+    job and read after it). Returns (A's out_dir, C's out_dir, the style
+    image path)."""
     import torch
 
+    from nfs_tpu_torch.cli import scene
     from nfs_tpu_torch.cli import serve as serve_mod
     from nfs_tpu_torch.io.npz import FrameStore
     from nfs_tpu_torch.ops import advect_kernels as ak
@@ -2387,17 +2669,26 @@ def phase_serve(card: str, root: str, smoke_dir: str):
     for t, x in enumerate(_particle_frames(2)):
         store.save_particles(t, x=x, dens=np.ones(P_COUNT, np.float32))
     out = {k: os.path.join(root, "served", k)
-           for k in ("a", "b", "b2", "c", "d")}
+           for k in ("a", "b", "b2", "c", "d", "d2", "d_cpu")}
+    small_dir = os.path.join(root, "smoke3d_small")
+    style_d = os.path.join(root, "serve_style_64.npy")
+    np.save(style_d, np.random.default_rng(1).random((64, 64, 3),
+                                                      dtype=np.float32))
+    with contextlib.redirect_stdout(io.StringIO()):
+        scene.main(["--scene", "smoke3d", "--out", small_dir, "--res",
+                    "24", "16", "24", "--frames", "2"])
     grid_job = {"mode": "grid", "data_dir": smoke_dir, "frames": [0, 1, 2],
                 "style_target": style, "config": _serve_cfg()}
+    particle_job = {"mode": "particle", "data_dir": pdir, "frames": [0, 1],
+                    "style_target": style, "grid_shape": list(P_GRID),
+                    "config": _serve_particle_cfg()}
     jobs = {
         "a": dict(grid_job, out_dir=out["a"]),
         "b": dict(grid_job, out_dir=out["b"]),
         "b2": dict(grid_job, out_dir=out["b2"]),
-        "c": {"mode": "particle", "data_dir": pdir, "frames": [0, 1],
-              "out_dir": out["c"], "style_target": style,
-              "grid_shape": list(P_GRID), "config": _serve_particle_cfg()},
-        "d": dict(grid_job, out_dir=out["d"], parallel=True),
+        "c": dict(particle_job, out_dir=out["c"]),
+        "d": _serve_parallel_job(small_dir, out["d"], style_d),
+        "d2": dict(particle_job, out_dir=out["d2"], parallel=True),
     }
     for name, job in jobs.items():
         serve_mod.submit_job(spool, job, name=name)
@@ -2435,25 +2726,36 @@ def phase_serve(card: str, root: str, smoke_dir: str):
     for name in jobs:
         with open(os.path.join(spool, "done", f"{name}.json")) as f:
             results[name] = json.load(f)
-    for name in ("a", "b", "b2", "c"):
+    for name in ("a", "b", "b2", "c", "d"):
         if results[name]["status"] != "ok":
             raise AssertionError(f"job {name}: {results[name]}")
-    err_d = results["d"]
+    err_d = results["d2"]
     if not (err_d["status"] == "error"
             and err_d["error"].startswith("NotImplementedError")
-            and "ROADMAP queue 1, item 21" in err_d["error"]):
-        raise AssertionError(f"parallel job: {err_d}")
+            and "ROADMAP queue 1, item 23" in err_d["error"]):
+        raise AssertionError(f"parallel particle job: {err_d}")
+    # job D again through a CPU worker: the port's plain twins
+    cpu_job = dict(jobs["d"], out_dir=out["d_cpu"])
+    if serve_mod.StylizeWorker("cpu").run_job(cpu_job)["status"] != "ok":
+        raise AssertionError("job D on the CPU")
+    d_vs_cpu = max(float(np.abs(
+        FrameStore(out["d"]).load_density(t)
+        - FrameStore(out["d_cpu"]).load_density(t)).max()) for t in range(2))
+    if not d_vs_cpu <= 1e-3:
+        raise AssertionError(f"parallel job D departs from the CPU port: "
+                             f"{d_vs_cpu}")
     hb = [f for f in os.listdir(spool) if f.startswith("worker_")]
     with open(os.path.join(spool, hb[0])) as f:
         beat = json.load(f)
     if beat["status"] != "stopped" or stopped["jobs"] != 0:
         raise AssertionError(f"heartbeat {beat}, after stop {stopped}")
     if not (stats["styler_cache_hits"] >= 1
-            and stats["frame_cache_hits"] >= 1 and stats["jobs"] == 4
+            and stats["frame_cache_hits"] >= 1 and stats["jobs"] == 5
             and stats["errors"] == 1):
         raise AssertionError(f"worker stats {stats}")
-    a_l, c_l = per_job["a"], per_job["c"]
+    a_l, c_l, d_l = per_job["a"], per_job["c"], per_job["d"]
     if not (a_l["advect"]["fwd"] > 0 and a_l["advect"]["bwd_field"] > 0
+            and d_l["advect"]["fwd"] > 0 and d_l["advect"]["bwd_field"] > 0
             and c_l["binsplat"]["fwd"] > 0 and c_l["binsplat"]["bwd"] > 0):
         raise AssertionError(f"launches per job {per_job}")
 
@@ -2488,7 +2790,9 @@ def phase_serve(card: str, root: str, smoke_dir: str):
           "serve_s": serve_s, "stats": stats, "b_vs_a_max_abs": b_vs_a,
           "tol": {"b_vs_a_max_abs": 1e-3}, "launches": per_job,
           "trace_events": len(events), "trace_k1_events": k1_events,
-          "parallel_error": err_d["error"], "heartbeat": beat["status"],
+          "parallel_d_vs_cpu_max_abs": d_vs_cpu,
+          "parallel_particle_error": err_d["error"],
+          "heartbeat": beat["status"],
           "card": card})
     return out["a"], out["c"], style
 
@@ -2633,6 +2937,7 @@ def main(argv=None) -> int:
     phase_build()
     records = phase_kernels(card)
     far_record = phase_far_kernels(card)
+    batched = phase_batched_kernels(card)
     octaves = _octave_ks()
     bin_records = phase_bin_kernels(card, octaves[-1][1], octaves[0])
     phase_reference(card)
@@ -2665,6 +2970,9 @@ def main(argv=None) -> int:
         smoke_dir = phase_scene(card, tmp)
         phase_northstar(card, tmp)
         phase_cli(card, tmp, smoke_dir)
+        # the joint engine's path resets and reads its own counters
+        par_launches, par_vel_launches = phase_parallel(card, tmp,
+                                                        smoke_dir)
         phase_checkpoint(card, tmp, smoke_dir)
         a_dir, c_dir, style = phase_serve(card, tmp, smoke_dir)
         phase_render_quality(card, tmp, smoke_dir, a_dir, c_dir, style,
@@ -2680,6 +2988,13 @@ def main(argv=None) -> int:
                         ("max_abs_err", "ms", "plain_ms", "device_ms",
                          "host_us", "bound_ms")):
                 raise AssertionError(f"bad numbers in {rec}")
+    # the frame batch of each advection kernel, and its launches on the
+    # joint engine's path (T = 8 density run; K3 from its velocity run)
+    for rec, (key, _, _) in zip(records + [far_record],
+                                KERNELS + (UNTILED,)):
+        rec["batched_b4"] = batched[key]
+        rec["parallel_launches"] = (par_vel_launches if key == "bwd_vel"
+                                    else par_launches)[key]
     emit({"kernels": records + [far_record] + bin_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

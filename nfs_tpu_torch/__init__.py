@@ -7,7 +7,8 @@ per-view rematerialization, streaming, fused and block-streamed
 sequences with mid-sequence resume, in-frame checkpoints), the LNST
 particle path (2D and 3D, position, density and colour attributes,
 keyframes), the smoke and FLIP data generators, a spool-directory
-stylization service and quality metrics on PyTorch, with the
+stylization service, quality metrics and the joint multi-device
+sequence engine of the grid path on PyTorch, with the
 bounded-displacement advection kernels and the binned-splat window
 kernels written by hand in CUDA for Hopper (``csrc/advect.cu``,
 ``csrc/binsplat.cu``). The sub-packages mirror
@@ -29,6 +30,10 @@ kernels written by hand in CUDA for Hopper (``csrc/advect.cu``,
   its gate, Gram distance and convergence, stylization strength
 - :mod:`nfs_tpu_torch.utils`    — profiler traces, device-synchronized
   timers, JSONL metrics, analytic FLOPs and MFU against the H100's peak
+- :mod:`nfs_tpu_torch.parallel` — the multi-device layer of the grid
+  path on ``torch.distributed``: a (frames, views) mesh of ranks, the
+  launcher, ring halos, the sharded window step,
+  ``ParallelSequenceStyler``
 - :mod:`nfs_tpu_torch.cli`      — stylization (grid, particle), scene
   generation, the stylization service (``cli.serve``) and the renderer
   (``cli.render``)

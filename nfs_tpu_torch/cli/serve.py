@@ -23,8 +23,12 @@ Job JSON:
    "config": {"optim.iters": 30, ...},   # StyleConfig overrides
    "style_target": "path.png",
    "grid_shape": [128, 128],            # particle mode
-   "parallel": true}                    # not ported: the job fails,
-                                        # naming ROADMAP queue 1, item 21
+   "parallel": true}                    # grid: all frames jointly on the
+                                        # engine's mesh (one process: a
+                                        # (1, 1) mesh on one device);
+                                        # particle: not ported, the job
+                                        # fails naming ROADMAP queue 1,
+                                        # item 23
 
 Run:  python -m nfs_tpu_torch.cli.serve --spool /path/to/spool
       (``--device cuda`` by default; a missing GPU is an error)
@@ -200,11 +204,12 @@ class StylizeWorker:
         if sig in self._stylers:
             self.stats["styler_cache_hits"] += 1
             return self._stylers[sig]
-        if parallel:
-            raise NotImplementedError(
-                "\"parallel\" jobs are not ported to nfs_tpu_torch yet: "
-                "ROADMAP queue 1, item 21")
         if mode == "particle":
+            if parallel:
+                raise NotImplementedError(
+                    "\"parallel\" particle jobs (keyframe-parallel LNST) "
+                    "are not ported to nfs_tpu_torch yet: ROADMAP queue 1, "
+                    "item 23")
             from nfs_tpu_torch.styler.particle import ParticleStyler
 
             styler = ParticleStyler(cfg, grid_shape=grid_shape,
@@ -213,6 +218,12 @@ class StylizeWorker:
             from nfs_tpu_torch.styler.grid import GridStyler
 
             styler = GridStyler(cfg, device=self.device)
+            if parallel:
+                from nfs_tpu_torch.parallel import ParallelSequenceStyler
+
+                # the mesh of mesh_shape_for(world size): (1, 1) in the
+                # one process of the service
+                styler = ParallelSequenceStyler(styler)
         self._stylers[sig] = styler
         return styler
 
@@ -242,7 +253,13 @@ class StylizeWorker:
                 outputs.append(f"p_{t:04d}.npz")
         else:
             densities, vels = self._load_grid_cached(store, job, frames)
-            if len(frames) == 1 and cfg.optim.window == 0:
+            if job.get("parallel"):
+                # the mesh engine: all frames in one joint optimization
+                d_star, _, _ = styler.stylize(densities, vels)
+                for i, t in enumerate(frames):
+                    out_store.save_density(t, d_star[i].cpu().numpy())
+                    outputs.append(f"d_{t:04d}.npz")
+            elif len(frames) == 1 and cfg.optim.window == 0:
                 d_star, _, _ = styler.stylize_frame(densities[0])
                 out_store.save_density(frames[0], d_star.cpu().numpy())
                 outputs.append(f"d_{frames[0]:04d}.npz")

@@ -10,13 +10,21 @@ Usage:
       --data_dir data/liquid3d --num_frames 40 --grid_shape 96 64 96 \\
       --opt_density --keyframe_stride 10 --style_target style.npy
 
-The flags are the JAX CLI's grid- and particle-mode flags plus
-``--device`` (default ``cuda``; a missing GPU is an error); the mesh
-flags come with the ROADMAP slice that ports them. Grid mode runs a
-single 2D or 3D frame, or a sequence (``--num_frames`` > 1 or
-``--window`` > 0) on the streaming path or, with ``--fused F`` > 1, in
-chunks of F frames; ``--transfer_fn`` colours the renders and
-``--train_transfer`` trains its control points with the density.
+  torchrun --standalone --nproc_per_node 4 -m nfs_tpu_torch.cli.stylize \\
+      --parallel --mesh_frames 2 --mesh_views 2 --num_frames 16 \\
+      --window 1 --data_dir data/smoke3d --style_target style.npy
+
+The flags are the JAX CLI's flags plus ``--device`` (default ``cuda``; a
+missing GPU is an error). Grid mode runs a single 2D or 3D frame, or a
+sequence (``--num_frames`` > 1 or ``--window`` > 0) on the streaming path
+or, with ``--fused F`` > 1, in chunks of F frames; ``--transfer_fn``
+colours the renders and ``--train_transfer`` trains its control points
+with the density. ``--parallel`` optimizes all frames of a grid sequence
+jointly (``parallel.ParallelSequenceStyler``) on a (``--mesh_frames``,
+``--mesh_views``) mesh of ranks, by default ``mesh_shape_for`` of the
+world size: one process on one device, or one process per GPU under
+``torchrun`` (NCCL; gloo with ``--device cpu``), every rank passing
+``--device cuda``; rank 0 writes the frames and previews.
 Particle mode (LNST) reads ``p_%04d.npz`` frames (2D or 3D), optimizes
 keyframes, with ``--opt_color`` the particles' colours too, and
 interpolates between them (``ParticleStyler.stylize_keyframes``).
@@ -33,7 +41,7 @@ when fused). With ``--checkpoint_in_frame`` every grid frame writes
 iterations, and a rerun resumes the interrupted frame there with the
 bits of an uninterrupted run; the file is deleted when the frame
 completes. Not ported yet, and refused with the ROADMAP item that holds
-it: ``--parallel``.
+it: ``--parallel --mode particle`` (keyframe-parallel LNST).
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ import time
 import numpy as np
 
 from nfs_tpu_torch.core.config import (
-    DataConfig, LossConfig, OptimConfig, ParticleConfig, RenderConfig,
-    StyleConfig)
+    DataConfig, LossConfig, OptimConfig, ParallelConfig, ParticleConfig,
+    RenderConfig, StyleConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,6 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parallel", action="store_true",
                    help="jointly optimize all frames on a (frames, views) "
                         "device mesh (ParallelSequenceStyler)")
+    p.add_argument("--mesh_frames", type=int, default=None)
+    p.add_argument("--mesh_views", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda); a missing GPU is an "
@@ -200,15 +210,19 @@ def config_from_args(args) -> StyleConfig:
             optimize_color=args.opt_color,
             keyframe_stride=args.keyframe_stride,
             max_log_dens=args.max_log_dens),
+        parallel=ParallelConfig(
+            frames=args.mesh_frames or 1,
+            views=args.mesh_views or 1,
+            halo=args.window),
         seed=args.seed,
     )
 
 
 def _refuse_unported(args) -> None:
-    if args.parallel:
+    if args.parallel and args.mode == "particle":
         raise NotImplementedError(
-            "--parallel is not ported to nfs_tpu_torch yet: ROADMAP queue "
-            "1, item 21")
+            "--parallel --mode particle (keyframe-parallel LNST) is not "
+            "ported to nfs_tpu_torch yet: ROADMAP queue 1, item 23")
 
 
 def main(argv=None):
@@ -266,6 +280,10 @@ def main(argv=None):
 
     from nfs_tpu_torch.styler.grid import GridStyler
 
+    if args.parallel and len(frames) > 1:
+        _run_parallel(cfg, store, out_store, frames, preview, log_metric,
+                      device)
+        return
     styler = GridStyler(cfg, device=device)
     if cfg.optim.window > 0 or len(frames) > 1:
         _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
@@ -292,6 +310,49 @@ def main(argv=None):
         print(f"[frame {t}] {dt:.1f}s ({n_iters / dt:.2f} iters/s on "
               f"{device}) losses={losses}")
     print(f"done -> {out_dir}")
+
+
+def _run_parallel(cfg, store, out_store, frames, preview, log_metric,
+                  device) -> None:
+    """All frames jointly on a (frames, views) mesh of ranks: every rank
+    runs the engine on the whole sequence; rank 0 writes each frame and
+    its preview and logs the run, while the others wait at a barrier, so
+    that no rank exits before the files exist."""
+    import torch.distributed as dist
+
+    from nfs_tpu_torch.parallel import (
+        ParallelSequenceStyler, initialize_multihost, make_mesh,
+        mesh_shape_for)
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    joined = not dist.is_initialized()
+    world = initialize_multihost(device)
+    joined = joined and dist.is_initialized()
+    pc = cfg.parallel
+    mesh = (make_mesh(pc.frames, pc.views) if pc.frames > 1 or pc.views > 1
+            else make_mesh(*mesh_shape_for(world)))
+    engine = ParallelSequenceStyler(GridStyler(cfg, device=device), mesh)
+    densities = np.stack([store.load_density(t) for t in frames])
+    vels = None
+    if os.path.exists(os.path.join(cfg.data.data_dir,
+                                   cfg.data.v_path % frames[0])):
+        vels = np.stack([store.load_velocity(t) for t in frames])
+    t0 = time.time()
+    d_star, _, info = engine.stylize(densities, vels)
+    wall = time.time() - t0
+    if mesh.rank == 0:
+        for i, t in enumerate(frames):
+            out_store.save_density(t, d_star[i].cpu().numpy())
+            preview(t, d_star[i])
+        log_metric(frames=len(frames), wall_s=wall, mesh=dict(mesh.shape),
+                   final_loss=float(info["octave_losses"][-1][-1]))
+        print(f"[parallel] {len(frames)} frames in {wall:.1f}s on mesh "
+              f"{dict(mesh.shape)} of {world} rank(s)")
+        print(f"done -> {out_store.data_dir}")
+    if mesh.distributed:
+        dist.barrier()
+    if joined:
+        dist.destroy_process_group()
 
 
 def _checkpoint_path(args, out_dir):

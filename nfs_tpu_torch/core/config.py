@@ -263,11 +263,12 @@ class ParticleConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device-mesh layout (multi-device path, not ported yet).
+    """Device-mesh layout of the multi-device grid path
+    (``nfs_tpu_torch/parallel/``).
 
-    Axes: 'frames' shards independent frames / temporal windows (DP with
-    ppermute halos), 'views' shards camera views of one frame (psum gradient
-    reduction). See SURVEY.md §2 parallelism inventory.
+    Axes: 'frames' shards independent frames / temporal windows (data
+    parallel, with ring halos of sim velocities), 'views' shards the camera
+    views of one frame (gradients summed with all_reduce).
     """
 
     frames: int = 1

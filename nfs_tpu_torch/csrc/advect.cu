@@ -76,6 +76,16 @@
 // cell, its (2R+1)^3 sources read and backtraced straight from device
 // memory (6 859 per cell at R = 9), in the same order and arithmetic, so
 // it gives the tiled pull's bits wherever both run.
+//
+// Every kernel takes a batch of B frames, (B, D, H, W) fields and
+// (B, D, H, W, 3) displacements, in one launch (the joint sequence engine
+// advects all its local frames at once; the TPU package ran one launch per
+// frame under sequential_vmap). The frame index is folded into a grid
+// dimension the kernel does not otherwise use: grid.z for K1, K3 and the
+// untiled K2, and b * ceil(D / TZ) + tz in grid.z for the tiled K2 and K3b.
+// A block offsets its pointers to its frame and runs the per-cell
+// arithmetic of a single frame unchanged, so a batched launch gives the
+// bits of B single launches.
 
 #include <cuda_runtime.h>
 
@@ -127,6 +137,10 @@ __global__ void advect_fwd_kernel(const float* __restrict__ field,
   const int plane = H * W;
   const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   if (p >= plane) return;
+  const long long frame = static_cast<long long>(blockIdx.z) * D * plane;
+  field += frame;
+  vel += 3 * frame;
+  out += frame;
   const int y = p / W;
   const int x = p - y * W;
   const int z_begin = static_cast<int>(blockIdx.y) * kFwdCellsZ;
@@ -272,6 +286,11 @@ __global__ void __launch_bounds__(kVelThreads)
   const int plane = H * W;
   const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   if (p >= plane) return;
+  const long long frame = static_cast<long long>(blockIdx.z) * D * plane;
+  field += frame;
+  vel += 3 * frame;
+  g += frame;
+  grad_s += 3 * frame;
   const int y = p / W;
   const int x = p - y * W;
   const int z_begin = static_cast<int>(blockIdx.y) * kVelCellsZ;
@@ -307,7 +326,8 @@ __global__ void __launch_bounds__(kVelThreads)
   }
 }
 
-// K2 past the tile plan: one thread per output cell (blockIdx.y its z),
+// K2 past the tile plan: one thread per output cell (blockIdx.y its z,
+// blockIdx.z its frame),
 // its sources read and backtraced straight from device memory in
 // ascending (iz, iy, ix), each adding ((w_z * w_y) * w_x) * g, as the
 // tiled pull adds them: for finite g both give the same bits (the tiled
@@ -324,6 +344,10 @@ __global__ void __launch_bounds__(kUntiledThreads)
   const int plane = H * W;
   const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   if (p >= plane) return;
+  const long long frame = static_cast<long long>(blockIdx.z) * D * plane;
+  vel += 3 * frame;
+  g += frame;
+  grad_field += frame;
   const int y = p / W;
   const int x = p - y * W;
   const int z = static_cast<int>(blockIdx.y);
@@ -379,10 +403,24 @@ __device__ __forceinline__ int block_threads() {
   return blockDim.x * blockDim.y * blockDim.z;
 }
 
-// The tile of this block grown by ``halo`` cells on every side.
-__device__ __forceinline__ Box tile_box(int halo) {
+// This block's frame of the batch and its tile along z: blockIdx.z
+// numbers the tiles of frame b as b * ceil(D / TZ) + tz.
+struct BatchTile {
+  int b, tz;
+};
+
+__device__ __forceinline__ BatchTile batch_tile(int D) {
+  const int tiles_z = (D + static_cast<int>(blockDim.z) - 1) /
+                      static_cast<int>(blockDim.z);
+  const int bz = static_cast<int>(blockIdx.z);
+  return {bz / tiles_z, bz % tiles_z};
+}
+
+// The tile of this block (tile ``tz`` along z) grown by ``halo`` cells on
+// every side.
+__device__ __forceinline__ Box tile_box(int halo, int tz) {
   const int tx = kCellsX * static_cast<int>(blockDim.x);
-  return {static_cast<int>(blockIdx.z * blockDim.z) - halo,
+  return {tz * static_cast<int>(blockDim.z) - halo,
           static_cast<int>(blockIdx.y * blockDim.y) - halo,
           static_cast<int>(blockIdx.x) * tx - halo,
           static_cast<int>(blockDim.z) + 2 * halo,
@@ -502,7 +540,12 @@ __global__ void advect_bwd_field_kernel(const float* __restrict__ vel,
                                         int D, int H, int W, float max_disp,
                                         int R) {
   extern __shared__ float4 st[];
-  const Box src = tile_box(R);
+  const BatchTile bt = batch_tile(D);
+  const long long frame = static_cast<long long>(bt.b) * D * H * W;
+  vel += 3 * frame;
+  g += frame;
+  grad_field += frame;
+  const Box src = tile_box(R, bt.tz);
   stage_sources(vel, g, src, st, D, H, W, max_disp);
   __syncthreads();
   const int z = src.z0 + R + threadIdx.z;
@@ -528,8 +571,15 @@ __global__ void advect_bwd_fused_kernel(const float* __restrict__ field,
                                         int H, int W, float max_disp,
                                         int R) {
   extern __shared__ float4 st[];
-  const Box src = tile_box(R);
-  const Box fb = tile_box(R + 1);
+  const BatchTile bt = batch_tile(D);
+  const long long frame = static_cast<long long>(bt.b) * D * H * W;
+  field += frame;
+  vel += 3 * frame;
+  g += frame;
+  grad_field += frame;
+  grad_s += 3 * frame;
+  const Box src = tile_box(R, bt.tz);
+  const Box fb = tile_box(R + 1, bt.tz);
   float* s_f = reinterpret_cast<float*>(st + src.size());
   stage_sources(vel, g, src, st, D, H, W, max_disp);
   stage_field(field, fb, s_f, D, H, W);
@@ -568,46 +618,73 @@ bool fits_32_bit(int D, int H, int W) {
          static_cast<long long>(D) * H <= INT_MAX;
 }
 
+// The most blocks a launch may have along grid.y and grid.z.
+constexpr long long kMaxGridYZ = 65535;
+
 // Dynamic shared memory a kernel may use without opting in, and the most
 // a block may use on the H100.
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;
 
-// Launch geometry of K2 / K3b for a TZ x TY x TX tile of cells (TX a
-// multiple of kCellsX) staging ``smem_bytes`` (the wrapper's tile plan);
-// opts the kernel in to more than the default shared memory where the
-// plan needs it. cudaSuccess, or cudaErrorInvalidValue when the tile or
-// its shared memory is refused.
-cudaError_t tile_launch(const void* kernel, int D, int H, int W, int R,
-                        int TZ, int TY, int TX, int smem_bytes, dim3* grid,
-                        dim3* block) {
+// Launch geometry of K2 / K3b for a batch of B frames and a TZ x TY x TX
+// tile of cells (TX a multiple of kCellsX) staging ``smem_bytes`` (the
+// wrapper's tile plan); opts the kernel in to more than the default shared
+// memory where the plan needs it. cudaSuccess, or cudaErrorInvalidValue
+// when the tile, its shared memory or the grid is refused.
+cudaError_t tile_launch(const void* kernel, int B, int D, int H, int W,
+                        int R, int TZ, int TY, int TX, int smem_bytes,
+                        dim3* grid, dim3* block) {
   if (R < 0 || TZ < 1 || TY < 1 || TX < 1 || TX % kCellsX != 0 ||
       TZ * TY * (TX / kCellsX) > 1024 || smem_bytes > kMaxSmem) {
     return cudaErrorInvalidValue;
   }
+  const long long tiles_z = (D + TZ - 1) / TZ;
+  const long long tiles_y = (H + TY - 1) / TY;
+  if (static_cast<long long>(B) * tiles_z > kMaxGridYZ ||
+      tiles_y > kMaxGridYZ) {
+    return cudaErrorInvalidValue;
+  }
   *block = dim3(TX / kCellsX, TY, TZ);
-  *grid = dim3((W + TX - 1) / TX, (H + TY - 1) / TY, (D + TZ - 1) / TZ);
+  *grid = dim3((W + TX - 1) / TX, static_cast<unsigned>(tiles_y),
+               static_cast<unsigned>(B * tiles_z));
   if (smem_bytes <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes);
 }
 
+// Grid of K1, K3 and the untiled K2: ``threads``-thread blocks over the
+// (y, x) plane, ``rows`` blocks along grid.y (runs of planes), the B
+// frames along grid.z. False when a dimension is out of range.
+bool plane_grid(int B, int H, int W, long long rows, int threads,
+                dim3* grid) {
+  if (B > kMaxGridYZ || rows > kMaxGridYZ) return false;
+  *grid = dim3((H * W + threads - 1) / threads, static_cast<unsigned>(rows),
+               static_cast<unsigned>(B));
+  return true;
+}
+
 }  // namespace
 
 // Plain C entry points, called by the operators of ops.cpp once they have
-// checked the tensors. Each launches on ``stream`` of CUDA device
+// checked the tensors. Each takes a batch of B frames of D x H x W cells
+// (B = 1 for a single field), launches once on ``stream`` of CUDA device
 // ``device`` (made current for the launch when it is not already), does
 // not synchronise, and returns cudaGetLastError() (or the error that
-// refused the launch).
+// refused the launch). B = 0 launches nothing.
 extern "C" {
 
-int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
-                   int H, int W, float max_disp, int device, void* stream) {
-  if (!fits_32_bit(D, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+int nfs_advect_fwd(const void* field, const void* vel, void* out, int B,
+                   int D, int H, int W, float max_disp, int device,
+                   void* stream) {
+  dim3 grid;
+  if (B < 0 || !fits_32_bit(D, H, W) ||
+      !plane_grid(B, H, W, (D + kFwdCellsZ - 1) / kFwdCellsZ, kFwdThreads,
+                  &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return static_cast<int>(cudaSuccess);
   return nfs::on_device(device, [&] {
-    const dim3 grid((H * W + kFwdThreads - 1) / kFwdThreads,
-                    (D + kFwdCellsZ - 1) / kFwdCellsZ);
     advect_fwd_kernel<<<grid, kFwdThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(field), static_cast<const float*>(vel),
@@ -620,14 +697,16 @@ int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
 // memory, at most 232 448 on the H100: 16 bytes per source of the tile
 // with its R-halo.
 int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
-                         int D, int H, int W, float max_disp, int R, int TZ,
-                         int TY, int TX, int smem_bytes, int device,
+                         int B, int D, int H, int W, float max_disp, int R,
+                         int TZ, int TY, int TX, int smem_bytes, int device,
                          void* stream) {
+  if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
   return nfs::on_device(device, [&] {
     dim3 grid, block;
     const cudaError_t err = tile_launch(
-        reinterpret_cast<const void*>(advect_bwd_field_kernel), D, H, W, R,
-        TZ, TY, TX, smem_bytes, &grid, &block);
+        reinterpret_cast<const void*>(advect_bwd_field_kernel), B, D, H, W,
+        R, TZ, TY, TX, smem_bytes, &grid, &block);
     if (err != cudaSuccess) return err;
     advect_bwd_field_kernel<<<grid, block, smem_bytes,
                               static_cast<cudaStream_t>(stream)>>>(
@@ -639,14 +718,16 @@ int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
 
 // K2 past the tile plan, one thread per cell (any R >= 0).
 int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
-                                 void* grad_field, int D, int H, int W,
-                                 float max_disp, int R, int device,
+                                 void* grad_field, int B, int D, int H,
+                                 int W, float max_disp, int R, int device,
                                  void* stream) {
-  if (R < 0 || !fits_32_bit(D, H, W)) {
+  dim3 grid;
+  if (B < 0 || R < 0 || !fits_32_bit(D, H, W) ||
+      !plane_grid(B, H, W, D, kUntiledThreads, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (B == 0) return static_cast<int>(cudaSuccess);
   return nfs::on_device(device, [&] {
-    const dim3 grid((H * W + kUntiledThreads - 1) / kUntiledThreads, D);
     advect_bwd_field_untiled_kernel<<<grid, kUntiledThreads, 0,
                                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(vel), static_cast<const float*>(g),
@@ -656,12 +737,16 @@ int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
 }
 
 int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
-                       void* grad_s, int D, int H, int W, float max_disp,
-                       int device, void* stream) {
-  if (!fits_32_bit(D, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+                       void* grad_s, int B, int D, int H, int W,
+                       float max_disp, int device, void* stream) {
+  dim3 grid;
+  if (B < 0 || !fits_32_bit(D, H, W) ||
+      !plane_grid(B, H, W, (D + kVelCellsZ - 1) / kVelCellsZ, kVelThreads,
+                  &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return static_cast<int>(cudaSuccess);
   return nfs::on_device(device, [&] {
-    const dim3 grid((H * W + kVelThreads - 1) / kVelThreads,
-                    (D + kVelCellsZ - 1) / kVelCellsZ);
     advect_bwd_vel_kernel<<<grid, kVelThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(field), static_cast<const float*>(vel),
@@ -674,14 +759,16 @@ int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
 // K3b with a TZ x TY x TX tile; ``smem_bytes`` K2's and 4 bytes per cell
 // of f over the tile with an (R+1)-halo.
 int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
-                         void* grad_field, void* grad_s, int D, int H, int W,
-                         float max_disp, int R, int TZ, int TY, int TX,
-                         int smem_bytes, int device, void* stream) {
+                         void* grad_field, void* grad_s, int B, int D, int H,
+                         int W, float max_disp, int R, int TZ, int TY,
+                         int TX, int smem_bytes, int device, void* stream) {
+  if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
   return nfs::on_device(device, [&] {
     dim3 grid, block;
     const cudaError_t err = tile_launch(
-        reinterpret_cast<const void*>(advect_bwd_fused_kernel), D, H, W, R,
-        TZ, TY, TX, smem_bytes, &grid, &block);
+        reinterpret_cast<const void*>(advect_bwd_fused_kernel), B, D, H, W,
+        R, TZ, TY, TX, smem_bytes, &grid, &block);
     if (err != cudaSuccess) return err;
     advect_bwd_fused_kernel<<<grid, block, smem_bytes,
                               static_cast<cudaStream_t>(stream)>>>(

@@ -2,6 +2,10 @@
 // wrappers of nfs_tpu_torch/ops launch the CUDA kernels of advect.cu and
 // binsplat.cu on CUDA tensors.
 //
+// The advection operators take one field (D, H, W) or a batch of B fields
+// (B, D, H, W), with displacements of the same shape and a trailing 3, and
+// launch once either way.
+//
 // Each operator checks its tensors as the Python wrappers check CPU ones:
 // for each tensor in turn, TypeError unless it is float32, ValueError
 // unless it has its shape, lies on the first tensor's device and is
@@ -21,25 +25,27 @@
 
 #include <string>
 #include <tuple>
+#include <vector>
 
 extern "C" {
-int nfs_advect_fwd(const void* field, const void* vel, void* out, int D,
-                   int H, int W, float max_disp, int device, void* stream);
+int nfs_advect_fwd(const void* field, const void* vel, void* out, int B,
+                   int D, int H, int W, float max_disp, int device,
+                   void* stream);
 int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
-                         int D, int H, int W, float max_disp, int R, int TZ,
-                         int TY, int TX, int smem_bytes, int device,
+                         int B, int D, int H, int W, float max_disp, int R,
+                         int TZ, int TY, int TX, int smem_bytes, int device,
                          void* stream);
 int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
-                                 void* grad_field, int D, int H, int W,
-                                 float max_disp, int R, int device,
+                                 void* grad_field, int B, int D, int H,
+                                 int W, float max_disp, int R, int device,
                                  void* stream);
 int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
-                       void* grad_s, int D, int H, int W, float max_disp,
-                       int device, void* stream);
+                       void* grad_s, int B, int D, int H, int W,
+                       float max_disp, int device, void* stream);
 int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
-                         void* grad_field, void* grad_s, int D, int H, int W,
-                         float max_disp, int R, int TZ, int TY, int TX,
-                         int smem_bytes, int device, void* stream);
+                         void* grad_field, void* grad_s, int B, int D, int H,
+                         int W, float max_disp, int R, int TZ, int TY,
+                         int TX, int smem_bytes, int device, void* stream);
 int nfs_binsplat_fwd(const void* a, const void* pz, const void* py,
                      const void* px, void* out, int K, int Z, int Y, int X,
                      int device, void* stream);
@@ -73,20 +79,25 @@ void check(const char* name, const Tensor& t, at::IntArrayRef shape,
   TORCH_CHECK_VALUE(t.is_contiguous(), name, ": must be contiguous");
 }
 
-// The grid of a field (D, H, W), and the shapes of the field and of a
-// displacement on it (D, H, W, 3).
+// The grid of a field (D, H, W), or of a batch of B fields (B, D, H, W),
+// and the shapes of the field and of a displacement on it ((B,) D, H, W,
+// 3). A single field is a batch of one.
 struct Grid {
-  int D, H, W;
-  int64_t cells[3];
-  int64_t vec[4];
+  int B, D, H, W;
+  std::vector<int64_t> cells, vec;
 };
 
 Grid grid_of(const char* name, const Tensor& t) {
-  TORCH_CHECK_VALUE(t.dim() == 3, name, ": expected (D, H, W), got ",
+  TORCH_CHECK_VALUE(t.dim() == 3 || t.dim() == 4, name,
+                    ": expected (D, H, W) or (B, D, H, W), got ",
                     shape_str(t.sizes()));
-  const int64_t D = t.size(0), H = t.size(1), W = t.size(2);
-  return {static_cast<int>(D), static_cast<int>(H), static_cast<int>(W),
-          {D, H, W}, {D, H, W, 3}};
+  std::vector<int64_t> cells(t.sizes().begin(), t.sizes().end());
+  std::vector<int64_t> vec = cells;
+  vec.push_back(3);
+  const int64_t B = t.dim() == 4 ? t.size(0) : 1;
+  const int64_t D = t.size(-3), H = t.size(-2), W = t.size(-1);
+  return {static_cast<int>(B), static_cast<int>(D), static_cast<int>(H),
+          static_cast<int>(W), cells, vec};
 }
 
 void* current_stream(const at::Device& device) {
@@ -106,7 +117,7 @@ Tensor advect_fwd(const Tensor& field, const Tensor& vel, double max_disp) {
   check("vel", vel, n.vec, device);
   Tensor out = at::empty_like(field);
   raise_on(nfs_advect_fwd(field.data_ptr(), vel.data_ptr(), out.data_ptr(),
-                          n.D, n.H, n.W, static_cast<float>(max_disp),
+                          n.B, n.D, n.H, n.W, static_cast<float>(max_disp),
                           device.index(), current_stream(device)),
            "advect_fwd");
   return out;
@@ -120,12 +131,12 @@ Tensor advect_bwd_field(const Tensor& vel, const Tensor& g, double max_disp,
   check("g", g, n.cells, device);
   check("vel", vel, n.vec, device);
   Tensor out = at::empty_like(g);
-  raise_on(nfs_advect_bwd_field(vel.data_ptr(), g.data_ptr(), out.data_ptr(),
-                                n.D, n.H, n.W, static_cast<float>(max_disp),
-                                static_cast<int>(R), static_cast<int>(TZ),
-                                static_cast<int>(TY), static_cast<int>(TX),
-                                static_cast<int>(smem_bytes), device.index(),
-                                current_stream(device)),
+  raise_on(nfs_advect_bwd_field(
+               vel.data_ptr(), g.data_ptr(), out.data_ptr(), n.B, n.D, n.H,
+               n.W, static_cast<float>(max_disp), static_cast<int>(R),
+               static_cast<int>(TZ), static_cast<int>(TY),
+               static_cast<int>(TX), static_cast<int>(smem_bytes),
+               device.index(), current_stream(device)),
            "advect_bwd_field");
   return out;
 }
@@ -138,8 +149,8 @@ Tensor advect_bwd_field_untiled(const Tensor& vel, const Tensor& g,
   check("vel", vel, n.vec, device);
   Tensor out = at::empty_like(g);
   raise_on(nfs_advect_bwd_field_untiled(
-               vel.data_ptr(), g.data_ptr(), out.data_ptr(), n.D, n.H, n.W,
-               static_cast<float>(max_disp), static_cast<int>(R),
+               vel.data_ptr(), g.data_ptr(), out.data_ptr(), n.B, n.D, n.H,
+               n.W, static_cast<float>(max_disp), static_cast<int>(R),
                device.index(), current_stream(device)),
            "advect_bwd_field_untiled");
   return out;
@@ -154,7 +165,7 @@ Tensor advect_bwd_vel(const Tensor& field, const Tensor& vel, const Tensor& g,
   check("g", g, n.cells, device);
   Tensor out = at::empty_like(vel);
   raise_on(nfs_advect_bwd_vel(field.data_ptr(), vel.data_ptr(), g.data_ptr(),
-                              out.data_ptr(), n.D, n.H, n.W,
+                              out.data_ptr(), n.B, n.D, n.H, n.W,
                               static_cast<float>(max_disp), device.index(),
                               current_stream(device)),
            "advect_bwd_vel");
@@ -176,7 +187,7 @@ std::tuple<Tensor, Tensor> advect_bwd_fused(const Tensor& field,
   Tensor grad_s = at::empty_like(vel);
   raise_on(nfs_advect_bwd_fused(
                field.data_ptr(), vel.data_ptr(), g.data_ptr(),
-               grad_field.data_ptr(), grad_s.data_ptr(), n.D, n.H, n.W,
+               grad_field.data_ptr(), grad_s.data_ptr(), n.B, n.D, n.H, n.W,
                static_cast<float>(max_disp), static_cast<int>(R),
                static_cast<int>(TZ), static_cast<int>(TY),
                static_cast<int>(TX), static_cast<int>(smem_bytes),

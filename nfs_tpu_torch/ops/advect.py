@@ -20,6 +20,9 @@ on the backends the JAX package picks:
   :func:`_advect_window_taps`, the port of the JAX window-tap sum. Its
   tent and clip carry JAX's subgradients (abs'(0) = +1, 0.5 at ties), which
   torch's own ``abs`` and ``clamp`` do not.
+
+:func:`advect_frames` advects a batch of frames, each by its own
+velocity; on the K1-K3b path the whole batch is one launch per kernel.
 """
 
 from __future__ import annotations
@@ -92,16 +95,23 @@ def _advect_window_taps(field: torch.Tensor, vel: torch.Tensor, dt: float,
 
 
 def _advect_window(field: torch.Tensor, vel: torch.Tensor, dt: float,
-                   mode: str, max_disp: float) -> torch.Tensor:
+                   mode: str, max_disp: float,
+                   batched: bool = False) -> torch.Tensor:
     """Bounded-displacement advection on the fastest backend: the K1-K3
     path for 3D clamp-mode fields (per channel for a channelled field),
-    the window-tap sum otherwise."""
-    if vel.shape[-1] == 3 and mode == "clamp" and field.ndim in (3, 4):
+    the window-tap sum otherwise. ``batched``: field and vel carry a
+    leading frame axis, which the K1-K3 path takes in one launch and the
+    window-tap sum frame by frame."""
+    spatial_ndim = field.ndim - int(batched)
+    if vel.shape[-1] == 3 and mode == "clamp" and spatial_ndim in (3, 4):
         v = vel.to(torch.float32) * dt
-        if field.ndim == 3:
+        if spatial_ndim == 3:
             return AdvectWindow.apply(field, v, max_disp)
         return torch.stack([AdvectWindow.apply(field[..., c], v, max_disp)
                             for c in range(field.shape[-1])], dim=-1)
+    if batched:
+        return torch.stack([_advect_window_taps(f, u, dt, mode, max_disp)
+                            for f, u in zip(field, vel)])
     return _advect_window_taps(field, vel, dt, mode, max_disp)
 
 
@@ -136,6 +146,26 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
         raise ValueError(
             "impl='pallas' supports 3D scalar clamp-mode fields")
     return _advect_window(field, vel, dt, mode, max_disp)
+
+
+def advect_frames(fields: torch.Tensor, vels: torch.Tensor, dt: float = 1.0,
+                  mode: str = "clamp", max_disp: Optional[float] = None,
+                  impl: str = "auto") -> torch.Tensor:
+    """:func:`advect` over a batch of frames: ``fields`` (B, *spatial) or
+    (B, *spatial, C), ``vels`` (B, *spatial, ndim), frame b advected by
+    ``vels[b]``. On the window path a 3D clamp-mode batch goes through
+    K1-K3b with one launch per kernel for all B frames (per channel for a
+    channelled field); every other case runs :func:`advect` frame by
+    frame."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown advect impl {impl!r}")
+    if max_disp is None or impl == "xla" or (
+            impl == "pallas" and not (
+                fields.ndim == 4 and mode == "clamp"
+                and tuple(vels.shape) == tuple(fields.shape) + (3,))):
+        return torch.stack([advect(f, v, dt, mode, max_disp, impl)
+                            for f, v in zip(fields, vels)])
+    return _advect_window(fields, vels, dt, mode, max_disp, batched=True)
 
 
 def _backtrace(vel: torch.Tensor, dt: float, device) -> torch.Tensor:

@@ -18,10 +18,13 @@ Each wrapper (:func:`advect_fwd`, :func:`advect_bwd_field`,
 :func:`advect_bwd_vel`, :func:`advect_bwd_fused`) takes f32 contiguous
 tensors: a ``(D, H, W)`` field or cotangent and a ``(D, H, W, 3)``
 displacement (velocity already multiplied by ``dt``) in array-axis
-channel order. On a CPU tensor it
-runs its plain PyTorch twin (``*_plain``); on a CUDA tensor it launches
-the kernel and counts the launch in :data:`LAUNCHES`, or raises. There
-is no fallback from CUDA to the plain twin.
+channel order, or a batch of B frames of them, ``(B, D, H, W)`` and
+``(B, D, H, W, 3)``, frame b advected by displacement b. On a CPU tensor
+it runs its plain PyTorch twin (``*_plain``, once per frame of a batch);
+on a CUDA tensor it launches the kernel once, whatever B is, and counts
+the launch in :data:`LAUNCHES`, or raises. A batched launch gives the
+bits of B single ones (``advect.cu``). There is no fallback from CUDA to
+the plain twin.
 
 :class:`AdvectWindow`'s backward runs K2 for the field's gradient and K3
 for the displacement's, each only when it is asked for. With the module
@@ -132,8 +135,9 @@ def _axes(shape, device):
 
 
 def backtrace(vel: torch.Tensor, max_disp: float):
-    """Clamped backtrace coordinates (s_z, s_y, s_x), each (D, H, W)."""
-    shape = vel.shape[:3]
+    """Clamped backtrace coordinates (s_z, s_y, s_x), each (D, H, W)
+    (with vel's leading batch axis, if any)."""
+    shape = vel.shape[-4:-1]
     disp = vel.clamp(-max_disp, max_disp)
     idx = _axes(shape, vel.device)
     return [(idx[a] - disp[..., a]).clamp(0.0, shape[a] - 1)
@@ -151,8 +155,9 @@ def _clip_grad(x, lo, hi):
 def vel_grad_chain(grad_s: torch.Tensor, vel: torch.Tensor,
                    max_disp: float) -> torch.Tensor:
     """grad wrt the displacement from grad wrt s = clip(i - clip(v)):
-    ``-grad_s * outer * inner`` (pallas_advect.py:492-508, dt = 1)."""
-    D, H, W = vel.shape[:3]
+    ``-grad_s * outer * inner`` (pallas_advect.py:492-508, dt = 1), for
+    one displacement or a batch of them."""
+    D, H, W = vel.shape[-4:-1]
     idx = torch.stack(torch.broadcast_tensors(*_axes((D, H, W), vel.device)),
                       dim=-1)
     sizes = torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32,
@@ -171,6 +176,26 @@ def _corner(s, c, n):
     return c.clamp(0, n - 1).long(), w, ok
 
 
+def _per_frame(plain):
+    """Let a plain twin of one frame take a batch as well: with a
+    (B, D, H, W, 3) displacement among its arguments it runs once per
+    frame b on the b-th slice of every tensor argument and stacks the
+    results."""
+    @functools.wraps(plain)
+    def run(*args):
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if max(t.ndim for t in tensors) < 5:
+            return plain(*args)
+        outs = [plain(*(a[b] if isinstance(a, torch.Tensor) else a
+                        for a in args))
+                for b in range(tensors[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
+    return run
+
+
+@_per_frame
 def advect_fwd_plain(field: torch.Tensor, vel: torch.Tensor,
                      max_disp: float) -> torch.Tensor:
     """K1 on tensors: trilinear sample at s over the 8 corners, corners
@@ -190,6 +215,7 @@ def advect_fwd_plain(field: torch.Tensor, vel: torch.Tensor,
     return out
 
 
+@_per_frame
 def advect_bwd_field_plain(vel: torch.Tensor, g: torch.Tensor,
                            max_disp: float) -> torch.Tensor:
     """K2 on tensors: the adjoint of K1, scattered with ``index_add_``
@@ -209,6 +235,7 @@ def advect_bwd_field_plain(vel: torch.Tensor, g: torch.Tensor,
     return out.view(D, H, W)
 
 
+@_per_frame
 def advect_bwd_vel_plain(field: torch.Tensor, vel: torch.Tensor,
                          g: torch.Tensor, max_disp: float) -> torch.Tensor:
     """K3 on tensors: (D, H, W, 3) grad wrt s over the 27 taps
@@ -243,6 +270,7 @@ def advect_bwd_vel_plain(field: torch.Tensor, vel: torch.Tensor,
     return torch.stack([az * g, ay * g, ax * g], dim=-1)
 
 
+@_per_frame
 def advect_bwd_fused_plain(field: torch.Tensor, vel: torch.Tensor,
                            g: torch.Tensor, max_disp: float):
     """K3b on tensors: (K2's gradient wrt the field, K3's wrt s)."""
@@ -255,6 +283,15 @@ def advect_bwd_fused_plain(field: torch.Tensor, vel: torch.Tensor,
 # --------------------------------------------------------------------- #
 
 _check = _cuda_build.check
+
+
+def _shapes(name: str, t: torch.Tensor):
+    """(cells, displacement) shapes on the grid of ``t``: a field (D, H,
+    W) or a batch (B, D, H, W), as the operators take them."""
+    if t.ndim not in (3, 4):
+        raise ValueError(f"{name}: expected (D, H, W) or (B, D, H, W), got "
+                         f"{tuple(t.shape)}")
+    return tuple(t.shape), tuple(t.shape) + (3,)
 
 
 def _radius(max_disp: float) -> int:
@@ -309,20 +346,19 @@ def _pull_plan(R: int, fused: bool = False):
 
 def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
                max_disp: float) -> torch.Tensor:
-    """K1: advected field (D, H, W)."""
+    """K1: advected field, (D, H, W) or (B, D, H, W)."""
     if field.is_cuda:
         out = load_library().advect_fwd.default(field, vel, float(max_disp))
         LAUNCHES["fwd"] += 1
         return out
-    D, H, W = field.shape
     _check("advection kernels", ("field", "vel"), (field, vel),
-           ((D, H, W), (D, H, W, 3)))
+           _shapes("field", field))
     return advect_fwd_plain(field, vel, max_disp)
 
 
 def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
                      max_disp: float) -> torch.Tensor:
-    """K2: gradient wrt the advected field, (D, H, W). On CUDA, the tiled
+    """K2: gradient wrt the advected field, shaped as g. On CUDA, the tiled
     pull up to R = ceil(max_disp) = 8 and the untiled pull beyond
     (:func:`_pull_plan`), any max_disp >= 0."""
     if g.is_cuda:
@@ -337,30 +373,28 @@ def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
             vel, g, float(max_disp), R, *plan)
         LAUNCHES["bwd_field"] += 1
         return out
-    D, H, W = g.shape
-    _check("advection kernels", ("g", "vel"), (g, vel),
-           ((D, H, W), (D, H, W, 3)))
+    _check("advection kernels", ("g", "vel"), (g, vel), _shapes("g", g))
     return advect_bwd_field_plain(vel, g, max_disp)
 
 
 def advect_bwd_vel(field: torch.Tensor, vel: torch.Tensor,
                    g: torch.Tensor, max_disp: float) -> torch.Tensor:
-    """K3: gradient wrt the backtrace coordinates s, (D, H, W, 3)."""
+    """K3: gradient wrt the backtrace coordinates s, shaped as vel."""
     if field.is_cuda:
         out = load_library().advect_bwd_vel.default(field, vel, g,
                                                     float(max_disp))
         LAUNCHES["bwd_vel"] += 1
         return out
-    D, H, W = field.shape
+    cells, vec = _shapes("field", field)
     _check("advection kernels", ("field", "vel", "g"), (field, vel, g),
-           ((D, H, W), (D, H, W, 3), (D, H, W)))
+           (cells, vec, cells))
     return advect_bwd_vel_plain(field, vel, g, max_disp)
 
 
 def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
                      g: torch.Tensor, max_disp: float):
-    """K3b: (gradient wrt the field (D, H, W), gradient wrt s
-    (D, H, W, 3)) in one launch. On CUDA past K3b's tile plan (R =
+    """K3b: (gradient wrt the field, shaped as field, gradient wrt s,
+    shaped as vel) in one launch. On CUDA past K3b's tile plan (R =
     ceil(max_disp) > 7) it runs K2 and K3 instead, which give K3b's
     bits, and counts their launches."""
     if field.is_cuda:
@@ -373,16 +407,17 @@ def advect_bwd_fused(field: torch.Tensor, vel: torch.Tensor,
             field, vel, g, float(max_disp), R, *plan)
         LAUNCHES["bwd_fused"] += 1
         return grads
-    D, H, W = field.shape
+    cells, vec = _shapes("field", field)
     _check("advection kernels", ("field", "vel", "g"), (field, vel, g),
-           ((D, H, W), (D, H, W, 3), (D, H, W)))
+           (cells, vec, cells))
     return advect_bwd_fused_plain(field, vel, g, max_disp)
 
 
 class AdvectWindow(torch.autograd.Function):
     """Differentiable bounded-displacement advection of a 3D scalar field
     with a clamp boundary: ``AdvectWindow.apply(field, vel_times_dt,
-    max_disp)``. Counterpart of ``advect_pallas``' custom VJP. The
+    max_disp)``, or of a batch of frames, (B, D, H, W) fields with (B, D,
+    H, W, 3) displacements, each kernel launched once for the batch. Counterpart of ``advect_pallas``' custom VJP. The
     backward runs K2 only when the field needs a gradient and K3 only
     when the displacement does; with :data:`FUSED_BWD` a backward that
     needs both runs K3b once instead (the same values)."""

@@ -99,7 +99,17 @@ def rotate3d_shear(d: torch.Tensor, theta, phi,
     phi = torch.as_tensor(phi, dtype=torch.float32, device=d.device)
     single = theta.ndim == 0
     theta, phi = theta.reshape(-1), phi.reshape(-1)
-    vol = d[None].expand(theta.shape[0], *d.shape)
-    out = _rotate_plane(vol, 0, 2, theta, dtype)   # y: (z, x) plane
-    out = _rotate_plane(out, 0, 1, phi, dtype)     # x: (z, y) plane
+    out = rotate3d_shear_volumes(d[None].expand(theta.shape[0], *d.shape),
+                                 theta, phi, dtype)
     return out[0] if single else out
+
+
+def rotate3d_shear_volumes(vols: torch.Tensor, theta: torch.Tensor,
+                           phi: torch.Tensor,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """:func:`rotate3d_shear` of a batch of volumes ``(N, D, H, W)``, volume
+    n by the angles ``theta[n]``, ``phi[n]``: all N as one batch of
+    shears."""
+    out = _rotate_plane(vols, 0, 2, theta, dtype)   # y: (z, x) plane
+    return _rotate_plane(out, 0, 1, phi, dtype)     # x: (z, y) plane

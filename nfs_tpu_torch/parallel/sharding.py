@@ -1,0 +1,206 @@
+"""Sharded stylization on a (frames, views) mesh of ranks (counterpart of
+``nfs_tpu/parallel/sharding.py``): frame-parallel temporal windows with
+ring halos, view-parallel rendering with gradient all_reduces.
+
+:func:`make_sharded_window_step` returns the SPMD step every rank of the
+mesh runs on its shard: ``n_iters`` Adam iterations on all of its L local
+frames at once.
+
+- params, densities and sim velocities are split over ``frames``; each
+  rank fetches its +-W neighbour frames' velocities from its ring
+  neighbours once per call (:func:`halo_exchange`); a window deeper than
+  the local shard all-gathers the velocity stack instead;
+- camera views are split over ``views``: each rank renders its slice of
+  every frame's view set and computes a partial loss, and the gradients
+  (with the loss) are summed EXPLICITLY with ``all_reduce`` over the
+  views group before Adam. ``backward`` on a views rank gives only that
+  rank's partial gradient: without the reduction each rank would optimize
+  with its own views alone and still appear to learn;
+- Adam is local to a frame shard (the parameters are frame-local);
+- the frames-axis sum of the loss is only reported, so it runs once per
+  call over the stacked per-iteration losses.
+
+The JAX package draws each frame's view set on the device from PRNG keys
+inside its scanned step; here the caller passes the pool indices
+(``view_idx``), which is how the port takes every random draw.
+
+Each call counts the collectives it issues in the step's
+``collectives`` attribute (the counterpart of the JAX engine's
+``capture_collectives``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from nfs_tpu_torch.parallel.mesh import Mesh
+from nfs_tpu_torch.styler.octave import Adam, value_and_grad
+
+COLLECTIVES = ("all_reduce", "send", "recv", "all_gather", "broadcast")
+
+
+def _new_counts() -> Dict[str, int]:
+    return dict.fromkeys(COLLECTIVES, 0)
+
+
+def halo_exchange(x: torch.Tensor, halo: int, mesh: Mesh,
+                  axis: str = "frames", clamp_edges: bool = True,
+                  counts: Optional[Dict[str, int]] = None):
+    """Fetch ``halo`` boundary elements of the neighbouring shards along a
+    sharded leading axis.
+
+    Args:
+      x: (L, ...) local chunk of a global (n*L, ...) array split over
+        ``axis`` of ``mesh``.
+      halo: elements to fetch on each side. halo <= L is one ring
+        exchange per side (``batch_isend_irecv``); halo > L (a window
+        deeper than the local shard) all-gathers the array along the axis
+        and indexes it.
+      clamp_edges: out-of-range global positions replicate the global
+        first / last element (the sequence styler's clamp at the
+        boundary) instead of wrapping around; a message whose contents
+        the clamp would replace is not sent.
+      counts: optional dict whose "send", "recv" and "all_gather" counts
+        are raised by the operations issued.
+
+    Returns:
+      (left, right): (halo, ...) tensors, the ``halo`` elements just
+      before and just after this shard's global range. An axis of size 1
+      does no communication.
+    """
+    counts = counts if counts is not None else _new_counts()
+    x = x.contiguous()
+    n = mesh.shape[axis]
+    idx = mesh.axis_index(axis)
+    L = x.shape[0]
+    if halo <= L:
+        if n == 1:
+            left, right = x[-halo:], x[:halo]
+        else:
+            ranks = mesh.axis_ranks(axis)
+            prev, nxt = ranks[(idx - 1) % n], ranks[(idx + 1) % n]
+            first, last = idx == 0, idx == n - 1
+            left = torch.empty_like(x[:halo])
+            right = torch.empty_like(x[:halo])
+            group = mesh.group(axis)
+            ops = []
+            # my last elements are my right neighbour's left halo, my
+            # first its left neighbour's right halo
+            if not (clamp_edges and last):
+                ops.append(dist.P2POp(dist.isend, x[-halo:], nxt, group))
+            if not (clamp_edges and first):
+                ops.append(dist.P2POp(dist.irecv, left, prev, group))
+            if not (clamp_edges and first):
+                ops.append(dist.P2POp(dist.isend, x[:halo], prev, group))
+            if not (clamp_edges and last):
+                ops.append(dist.P2POp(dist.irecv, right, nxt, group))
+            for op in ops:
+                counts["send" if op.op is dist.isend else "recv"] += 1
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if clamp_edges:
+            if idx == 0:
+                left = x[:1].expand_as(left)
+            if idx == n - 1:
+                right = x[-1:].expand_as(right)
+        return left, right
+
+    # deep halo: the window is wider than the local shard
+    full = x
+    if n > 1:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=mesh.group(axis))
+        counts["all_gather"] += 1
+        full = torch.cat(parts)
+    total = n * L
+    start = idx * L
+    li = torch.arange(-halo, 0, device=x.device) + start
+    ri = torch.arange(0, halo, device=x.device) + start + L
+    if clamp_edges:
+        li, ri = li.clamp(0, total - 1), ri.clamp(0, total - 1)
+    else:
+        li, ri = li % total, ri % total
+    return full[li], full[ri]
+
+
+def make_sharded_window_step(mesh: Mesh, loss_frames: Callable,
+                             optimizer: Adam, window: int, n_views: int,
+                             n_iters: int = 1):
+    """Build the SPMD step of frame-parallel window stylization.
+
+    Args:
+      mesh: (frames, views) mesh from :func:`~nfs_tpu_torch.parallel.mesh.
+        make_mesh`; the step runs on a rank that holds a shard.
+      loss_frames: (params (L, ...), d (L, *spatial), vels_pad (L + 2W,
+        *spatial, ndim) or None, views (L, nv_local, C) or None, aux) ->
+        scalar: the sum over the L local frames of each frame's partial
+        loss under this rank's views. Frame i's velocity window (global
+        frames t-W .. t+W-1) is ``vels_pad[i : i + 2W]``. It must weight
+        its partial losses so that SUMMING them over the view shards gives
+        the full per-frame losses.
+      optimizer: the port's :class:`~nfs_tpu_torch.styler.octave.Adam`.
+      window: temporal half-width W (halo depth in frames).
+      n_views: views per frame; each views rank takes n_views / views.
+      n_iters: Adam iterations per call.
+
+    Returns:
+      step(params, opt_state, d, vels, pool, view_idx, aux, it0=0) ->
+      (params, opt_state, losses), on the local shard: params, d and vels
+      (sim velocities, or None without a window) hold this rank's L
+      frames; ``pool`` is the (P, n_views, C) view pool (C = 2 angles, or
+      3 with a per-view weight column), or None where the loss takes no
+      views (2D); ``view_idx`` (L, >= it0 + n_iters) pool indices, of
+      which iteration i takes column ``it0 + i``; ``losses`` is the
+      (n_iters,) per-iteration mean loss over all frames of the mesh. The
+      collectives of the last call are counted in ``step.collectives``.
+    """
+    f_shards = mesh.shape["frames"]
+    v_shards = mesh.shape["views"]
+    if n_views % v_shards != 0:
+        raise ValueError(
+            f"n_views={n_views} must divide the views mesh axis "
+            f"({v_shards}); pad the view pool with weight-0 views "
+            f"(ParallelSequenceStyler does this automatically)")
+    nv_local = n_views // v_shards
+
+    def step(params, opt_state, d, vels, pool, view_idx, aux, it0: int = 0):
+        counts = _new_counts()
+        vels_pad = None
+        if window > 0:
+            left, right = halo_exchange(vels, window, mesh, "frames",
+                                        counts=counts)
+            vels_pad = torch.cat([left, vels, right])
+        L = d.shape[0]
+        v0 = mesh.view_idx * nv_local
+        losses = []
+        for i in range(n_iters):
+            views = None
+            if pool is not None:
+                views = pool[view_idx[:, it0 + i]][:, v0:v0 + nv_local]
+            loss, grad = value_and_grad(
+                lambda p: loss_frames(p, d, vels_pad, views, aux), params)
+            if mesh.distributed:
+                # the views ranks' partial gradients and losses, summed
+                # in one buffer
+                buf = torch.cat([grad.reshape(-1),
+                                 loss.detach().reshape(1).to(grad.dtype)])
+                dist.all_reduce(buf, group=mesh.views_group)
+                counts["all_reduce"] += 1
+                grad, loss = buf[:-1].view_as(grad), buf[-1]
+            updates, opt_state = optimizer.update(grad, opt_state)
+            params = (params + updates).detach()
+            losses.append(loss.detach().to(torch.float32).reshape(()))
+        # the sum of the FULL per-frame losses over the local frames; the
+        # frames axis sums them over the whole sequence
+        losses = torch.stack(losses)
+        if mesh.distributed:
+            dist.all_reduce(losses, group=mesh.frames_group)
+            counts["all_reduce"] += 1
+        step.collectives = counts
+        return params, opt_state, losses / (L * f_shards)
+
+    step.collectives = _new_counts()
+    return step

@@ -24,7 +24,7 @@ import torch
 from nfs_tpu_torch.ops.jaxgrad import jax_clip, jax_maximum
 from nfs_tpu_torch.ops.resize import resize_axes
 from nfs_tpu_torch.ops.rotate import rotate3d_batch
-from nfs_tpu_torch.ops.shear import rotate3d_shear
+from nfs_tpu_torch.ops.shear import rotate3d_shear, rotate3d_shear_volumes
 from nfs_tpu_torch.render.transfer import transfer_colors
 
 
@@ -111,7 +111,12 @@ def render_views(d: torch.Tensor, thetas: torch.Tensor, phis: torch.Tensor,
     if color is not None:
         col = torch.stack([_rotate(color[..., c], thetas, phis, method)
                            for c in range(3)], dim=-1)
-    elif tf_nodes is not None:
+    return _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max, col)
+
+
+def _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max, col=None):
+    """(V, H, W, 3) images of V view-aligned volumes (V, D, H, W)."""
+    if col is None and tf_nodes is not None:
         col = transfer_colors(rot, tf_nodes, tf_max)
     img = _march(rot, transmit, axis=1, color=col)     # (V, H, W[, 3])
     if out_size is not None:
@@ -120,6 +125,33 @@ def render_views(d: torch.Tensor, thetas: torch.Tensor, phis: torch.Tensor,
     if col is not None:
         return img
     return img[..., None].expand(*img.shape, 3)
+
+
+def render_views_batch(ds: torch.Tensor, thetas: torch.Tensor,
+                       phis: torch.Tensor, transmit: float = 0.01,
+                       out_size: Optional[Tuple[int, int]] = None,
+                       gamma: float = 1.0, method: str = "shear",
+                       tf_nodes: Optional[torch.Tensor] = None,
+                       tf_max: float = 1.0) -> torch.Tensor:
+    """:func:`render_views` of a batch of volumes ``ds`` (S, D, H, W),
+    volume s under its own views ``thetas[s]``, ``phis[s]`` (S, V) ->
+    (S, V, H', W', 3). The shear rotations render every view of every
+    volume as one batch; 'gather' renders volume by volume."""
+    S, V = thetas.shape
+    if method not in ("shear", "shear_bf16"):
+        return torch.stack([
+            render_views(d, t, p, transmit=transmit, out_size=out_size,
+                         gamma=gamma, method=method, tf_nodes=tf_nodes,
+                         tf_max=tf_max)
+            for d, t, p in zip(ds, thetas, phis)])
+    vols = ds[:, None].expand(S, V, *ds.shape[1:]).reshape(
+        S * V, *ds.shape[1:])
+    rot = rotate3d_shear_volumes(
+        vols, thetas.reshape(-1).to(torch.float32),
+        phis.reshape(-1).to(torch.float32),
+        torch.bfloat16 if method == "shear_bf16" else None)
+    img = _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max)
+    return img.reshape(S, V, *img.shape[1:])
 
 
 def render2d(d: torch.Tensor, out_size: Optional[Tuple[int, int]] = None,

@@ -1,30 +1,41 @@
 """The port's CLIs: the stylization CLI runs grid and particle mode,
-``--parallel`` (not ported yet) is refused with its ROADMAP item before
-any work starts, and the mesh flags are not accepted; the transfer
-function, particle colour and in-frame checkpoint flags run; a fused
-grid sequence resumes from its manifest. The scene CLI writes the frames
-of the JAX package's solvers."""
+``--parallel`` grid sequences (in this process against the JAX CLI, and
+on two gloo ranks under ``torchrun``), refuses ``--parallel --mode
+particle`` with its ROADMAP item before any work starts, and takes the
+mesh flags into ``cfg.parallel``; the transfer function, particle colour
+and in-frame checkpoint flags run; a fused grid sequence resumes from its
+manifest. The scene CLI writes the frames of the JAX package's
+solvers."""
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from nfs_tpu.cli import stylize as jax_stylize
+from nfs_tpu.core.config import replace as jax_replace
+from nfs_tpu.features.vgg import init_vgg_params, save_vgg_params
 from nfs_tpu.io.uni import read_uni as jax_read_uni
+from nfs_tpu.utils import profiling as jax_profiling
 from nfs_tpu.sim import flip as jax_flip
 from nfs_tpu.sim import smoke as jax_smoke
 from nfs_tpu_torch.cli import scene
+from nfs_tpu_torch.cli import stylize as torch_stylize
 from nfs_tpu_torch.cli.stylize import build_parser, main
+from nfs_tpu_torch.core.config import replace
+from nfs_tpu_torch.io.image import save_image
 from nfs_tpu_torch.io.npz import FrameStore
 
 torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--parallel"], "item 21"),
-    (["--mode", "particle", "--parallel"], "item 21"),
+    (["--mode", "particle", "--parallel", "--num_frames", "3"], "item 23"),
+    (["--mode", "particle", "--parallel"], "item 23"),
 ])
 def test_unported_options_raise(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
@@ -33,24 +44,26 @@ def test_unported_options_raise(argv, item, tmp_path):
 
 
 @pytest.mark.parametrize("argv, field, value", [
-    (["--mesh_views", "2"], None, None),
-    (["--train_transfer"], "train_transfer", True),
-    (["--mesh_frames", "2"], None, None),
-    (["--transfer_fn", "fire"], "transfer_fn", "fire"),
+    (["--mesh_views", "2"], "parallel.views", 2),
+    (["--train_transfer"], "render.train_transfer", True),
+    (["--mesh_frames", "2"], "parallel.frames", 2),
+    (["--transfer_fn", "fire"], "render.transfer_fn", "fire"),
 ])
 def test_particle_mesh_and_transfer_flags_absent(argv, field, value):
-    """The mesh flags wait for --parallel (item 21) and are not accepted;
-    the transfer-function flags are ported and reach the render config."""
+    """The mesh flags reach ``cfg.parallel`` as the JAX CLI puts them
+    there (the halo depth is --window; an absent flag is an axis of 1);
+    the transfer-function flags reach the render config."""
     from nfs_tpu_torch.cli.stylize import config_from_args
 
-    if field is None:
-        with pytest.raises(SystemExit):
-            build_parser().parse_args(argv)
-        return
-    cfg = config_from_args(build_parser().parse_args(
-        argv + ["--tf_max_density", "1.5"]))
-    assert getattr(cfg.render, field) == value
+    args = argv + ["--tf_max_density", "1.5", "--window", "2"]
+    cfg = config_from_args(build_parser().parse_args(args))
+    jcfg = jax_stylize.config_from_args(
+        jax_stylize.build_parser().parse_args(args))
+    group, name = field.split(".")
+    assert getattr(getattr(cfg, group), name) == value
     assert cfg.render.tf_max_density == 1.5
+    assert vars(cfg.parallel) == vars(jcfg.parallel)
+    assert cfg.parallel.halo == 2
 
 
 def test_particle_flags_reach_the_config():
@@ -249,3 +262,90 @@ def test_checkpoint_in_frame_fused_sequence(tmp_path):
         np.testing.assert_array_equal(
             FrameStore(str(tmp_path / "ck")).load_density(t),
             FrameStore(str(tmp_path / "plain")).load_density(t))
+
+
+def _parallel_inputs(tmp_path):
+    """Two frames of a Gaussian plume (positive everywhere, as the serve
+    parity's data) with random velocities, a style PNG and one VGG
+    weights file. In cells of zero density the gradient is near zero
+    and Adam's normalized step carries f32 rounding into whole steps:
+    there the streaming styler too leaves JAX by ~4e-3 in 3 iterations."""
+    data = tmp_path / "data"
+    store = FrameStore(str(data))
+    shape = (12, 10, 12)
+    g = np.meshgrid(*[np.linspace(-1, 1, s) for s in shape], indexing="ij")
+    rng = np.random.default_rng(4)
+    for t in range(2):
+        store.save_density(t, (np.exp(-4 * sum(x ** 2 for x in g))
+                               * (1 + 0.1 * t)).astype(np.float32))
+        store.save_velocity(t, (0.5 * rng.standard_normal(
+            shape + (3,))).astype(np.float32))
+    save_image(str(data / "style.png"), np.random.default_rng(0).random(
+        (32, 32, 3), dtype=np.float32))
+    save_vgg_params(str(data / "vgg.npz"), init_vgg_params(0))
+    return data, ["--data_dir", str(data), "--render_size", "32", "32",
+                  "--n_views", "2", "--octave_n", "1", "--iter", "3",
+                  "--style_layer", "relu1_1,relu2_1", "--w_style", "1000",
+                  "--lr", "0.02", "--transmit", "0.5", "--num_frames", "2",
+                  "--window", "1", "--style_target",
+                  str(data / "style.png"), "--vgg_weights",
+                  str(data / "vgg.npz"), "--parallel"]
+
+
+def test_parallel_cli_matches_jax(tmp_path, monkeypatch, capsys):
+    """``--parallel`` through both CLIs with one view (render.view_pool
+    1): the port on its (1, 1) mesh, JAX on mesh_shape_for of the 8
+    virtual devices; every frame within 1e-3 (the serve parity's
+    tolerance), a preview per frame and one metrics line."""
+    monkeypatch.setattr(jax_profiling, "enable_compile_cache",
+                        lambda *a, **k: None)
+    for mod, rep in ((jax_stylize, jax_replace), (torch_stylize, replace)):
+        orig = mod.config_from_args
+        monkeypatch.setattr(
+            mod, "config_from_args",
+            lambda a, orig=orig, rep=rep: rep(orig(a),
+                                              **{"render.view_pool": 1}))
+    data, argv = _parallel_inputs(tmp_path)
+    log = tmp_path / "log"
+    jax_stylize.main(argv + ["--log_dir", str(log), "--tag", "jax"])
+    main(argv + ["--log_dir", str(log), "--tag", "torch", "--device",
+                 "cpu"])
+    out = capsys.readouterr().out
+    assert "[parallel] 2 frames" in out and "'frames': 1, 'views': 1" in out
+    for t in range(2):
+        j = FrameStore(str(log / "jax")).load_density(t)
+        d = FrameStore(str(log / "torch")).load_density(t)
+        assert d.shape == j.shape == (12, 10, 12)
+        assert np.abs(d - j).max() <= 1e-3
+        assert (log / "torch" / f"preview_{t:04d}.png").exists() or (
+            log / "torch" / f"preview_{t:04d}.png.npy").exists()
+    with open(log / "torch" / "metrics.jsonl") as f:
+        (line,) = [json.loads(x) for x in f]
+    assert line["frames"] == 2 and line["mesh"] == {"frames": 1,
+                                                    "views": 1}
+    assert np.isfinite(line["final_loss"])
+
+
+def test_parallel_cli_on_two_gloo_ranks(tmp_path):
+    """``torchrun --standalone`` with two ranks on the CPU (gloo), the
+    frames split over them: rank 0 writes every frame, which equal the
+    single-process run's."""
+    data, argv = _parallel_inputs(tmp_path)
+    log = tmp_path / "log"
+    main(argv + ["--log_dir", str(log), "--tag", "one", "--device", "cpu"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "nfs_tpu_torch.cli.stylize", *argv,
+         "--log_dir", str(log), "--tag", "two", "--device", "cpu",
+         "--mesh_frames", "2"], env=env, capture_output=True, text=True,
+        timeout=300, process_group=0)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("[parallel] 2 frames") == 1
+    assert "'frames': 2, 'views': 1} of 2 rank(s)" in proc.stdout
+    for t in range(2):
+        np.testing.assert_allclose(
+            FrameStore(str(log / "two")).load_density(t),
+            FrameStore(str(log / "one")).load_density(t),
+            rtol=1e-5, atol=1e-6)

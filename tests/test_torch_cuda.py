@@ -145,10 +145,11 @@ def test_k1_refuses_shapes_past_32_bit_indices(cuda_device):
     launches (the pointers are never read)."""
     lib = ctypes.CDLL(str(ak.build_library()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p]
+    lib.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i,
+                                   p]
     big = 1 << 16
     for shape in ((1, big, big), (big, big, 1)):
-        assert lib.nfs_advect_fwd(None, None, None, *shape, 2.0,
+        assert lib.nfs_advect_fwd(None, None, None, 1, *shape, 2.0,
                                   cuda_device.index, None) != 0
 
 
@@ -349,12 +350,19 @@ def test_k3_clamped_and_ragged(cuda_device, shape, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry,argtypes,args", [
-    ("nfs_advect_bwd_vel", "pppp iii f i p",
-     (None,) * 4 + (1, 1 << 16, 1 << 16, 2.0, 0, None)),
-    ("nfs_advect_bwd_field_untiled", "ppp iii f i i p",
-     (None,) * 3 + (1 << 16, 1 << 16, 1, 9.0, 9, 0, None)),
-    ("nfs_advect_bwd_field_untiled", "ppp iii f i i p",
-     (None,) * 3 + (2, 3, 4, 9.0, -1, 0, None)),
+    ("nfs_advect_bwd_vel", "pppp iiii f i p",
+     (None,) * 4 + (1, 1, 1 << 16, 1 << 16, 2.0, 0, None)),
+    ("nfs_advect_bwd_field_untiled", "ppp iiii f i i p",
+     (None,) * 3 + (1, 1 << 16, 1 << 16, 1, 9.0, 9, 0, None)),
+    ("nfs_advect_bwd_field_untiled", "ppp iiii f i i p",
+     (None,) * 3 + (1, 2, 3, 4, 9.0, -1, 0, None)),
+    # a batch past the grid's 65 535 blocks along z, or a negative one
+    ("nfs_advect_fwd", "ppp iiii f i p",
+     (None,) * 3 + (1 << 16, 1, 7, 9, 2.0, 0, None)),
+    ("nfs_advect_bwd_field", "ppp iiii f iiiii i p",
+     (None,) * 3 + (1 << 16, 1, 7, 9, 2.0, 2, 4, 8, 24, 17_000, 0, None)),
+    ("nfs_advect_bwd_vel", "pppp iiii f i p",
+     (None,) * 4 + (-1, 2, 3, 4, 2.0, 0, None)),
     ("nfs_binsplat_bwd", "ppppppppp iiii i p",
      (None,) * 9 + (1 << 10, 1 << 10, 1 << 10, 2, 0, None)),
 ])
@@ -362,7 +370,9 @@ def test_entry_points_refuse_past_32_bit_indices(cuda_device, entry,
                                                  argtypes, args):
     """K3, the untiled K2 and K5 index with 32-bit integers: their entry
     points refuse a shape past that (and the untiled K2 a negative
-    radius) before they launch; the pointers are never read."""
+    radius) before they launch; so do K1 and K2 a batch of frames past
+    the grid's limit and K3 a negative batch. The pointers are never
+    read."""
     lib = ctypes.CDLL(str((bk if "binsplat" in entry else ak)
                           .build_library()))
     types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
@@ -688,3 +698,76 @@ def test_k5_empty_live_and_signed(cuda_device, case):
         assert bool((da[dead] == 0).all())
         assert not bool(da[dead].signbit().any())
         assert all(bool(dp[dead].signbit().all()) for dp in dps)
+
+
+# (kernel wrapper, plain twin) of K1-K3b, each called as fn(f, g, v,
+# max_disp)
+_BATCHED = {
+    "fwd": (lambda f, g, v, d: ak.advect_fwd(f, v, d),
+            lambda f, g, v, d: ak.advect_fwd_plain(f, v, d)),
+    "bwd_field": (lambda f, g, v, d: ak.advect_bwd_field(v, g, d),
+                  lambda f, g, v, d: ak.advect_bwd_field_plain(v, g, d)),
+    "bwd_vel": (lambda f, g, v, d: ak.advect_bwd_vel(f, v, g, d),
+                lambda f, g, v, d: ak.advect_bwd_vel_plain(f, v, g, d)),
+    "bwd_fused": (lambda f, g, v, d: ak.advect_bwd_fused(f, v, g, d),
+                  lambda f, g, v, d: ak.advect_bwd_fused_plain(f, v, g, d)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", sorted(_BATCHED))
+@pytest.mark.parametrize("max_disp", [1.0, 2.0, 9.0])
+@pytest.mark.parametrize("shape", [(13, 7, 37), (1, 7, 9), (24, 16, 40)])
+def test_batched_launch_equals_single_launches(cuda_device, key, max_disp,
+                                               shape):
+    """A (3, D, H, W) batch is one launch of each advection kernel (K2
+    past its plan: the untiled pull; K3b past its plan: K2 + K3) and
+    gives the bits of three single launches, on ragged tiles too; it
+    holds against the batched plain twin."""
+    frames = [tuple(torch.from_numpy(a).to(cuda_device)
+                    for a in _inputs("random", max_disp, shape, seed=20 + b))
+              for b in range(3)]
+    f, g, v = (torch.stack(x) for x in zip(*frames))
+    kernel, plain = _BATCHED[key]
+    before = dict(ak.LAUNCHES)
+    batched = kernel(f, g, v, max_disp)
+    launched = sum(ak.LAUNCHES[k] - before[k] for k in before)
+    single = [kernel(*x, max_disp) for x in frames]
+    fused_split = key == "bwd_fused" and ak._pull_plan(
+        ak._radius(max_disp), fused=True) is None
+    assert launched == (2 if fused_split else 1)
+    if not isinstance(batched, tuple):
+        batched, single = (batched,), [(s,) for s in single]
+    for i, got in enumerate(batched):
+        assert torch.equal(got, torch.stack([s[i] for s in single]))
+    ref = plain(f, g, v, max_disp)
+    for got, want in zip(batched, ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_advect_window_batch_on_gpu_matches_cpu(cuda_device):
+    """advect_frames on a batch: the value and both gradients on the GPU
+    (one launch of K1, K2 and K3 each) equal the CPU's within the
+    tolerances."""
+    from nfs_tpu_torch.ops.advect import advect_frames
+
+    rng = np.random.default_rng(21)
+    f = rng.random((3, 20, 12, 28), dtype=np.float32)
+    v = (1.5 * rng.standard_normal((3, 20, 12, 28, 3))).astype(np.float32)
+    g = rng.standard_normal(f.shape).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        ft = torch.tensor(f, device=dev, requires_grad=True)
+        vt = torch.tensor(v, device=dev, requires_grad=True)
+        before = dict(ak.LAUNCHES)
+        out = advect_frames(ft, vt, max_disp=2.0)
+        (out * torch.tensor(g, device=dev)).sum().backward()
+        launched = {k: ak.LAUNCHES[k] - before[k] for k in before}
+        outs[str(dev)] = [t.detach().cpu() for t in (out, ft.grad, vt.grad)]
+    assert launched == {"fwd": 1, "bwd_field": 1, "bwd_field_untiled": 0,
+                        "bwd_vel": 1, "bwd_fused": 0}
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
+    for a, b in zip(gpu[1:], cpu[1:]):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)

@@ -1,7 +1,8 @@
 """nfs_tpu_torch needs no JAX: a fresh interpreter in which any import of
 ``jax`` fails imports every module of the port, then runs the CLIs on
 the CPU at a tiny size: the scene CLI (a 3D smoke, a 3D liquid and a 2D
-smoke), grid mode (a single frame, a 2-frame window sequence, a fused
+smoke), grid mode (a single frame, a 2-frame window sequence, the same
+frames jointly with ``--parallel``, a fused
 3-frame sequence over the scene's smoke, run twice: the rerun resumes
 from its manifest, and a 2D window sequence coloured by a transfer
 function with in-frame checkpoints), particle mode (3 frames,
@@ -32,7 +33,9 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("eval.quality", "utils.flops", "utils.profiling",
-                 "utils.metrics", "cli.serve", "cli.render"):
+                 "utils.metrics", "cli.serve", "cli.render",
+                 "parallel.engine", "parallel.mesh", "parallel.sharding",
+                 "parallel.multihost"):
         assert "nfs_tpu_torch." + name in names, name
     from nfs_tpu_torch.cli import scene
     from nfs_tpu_torch.cli.stylize import main
@@ -50,6 +53,8 @@ SCRIPT = textwrap.dedent("""
     main(common + ["--tag", "single"])
     main(common + ["--tag", "seq", "--num_frames", "2", "--window", "1",
                    "--parameterization", "velocity"])
+    main(common + ["--tag", "par", "--num_frames", "2", "--window", "1",
+                   "--parallel"])
     main(common + ["--tag", "lnst", "--mode", "particle", "--num_frames",
                    "3", "--keyframe_stride", "2", "--opt_density",
                    "--grid_shape", "12", "10", "12"])
@@ -125,6 +130,12 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
         assert np.isfinite(FrameStore(str(seq)).load_density(t)).all()
         with np.load(seq / f"param_{t:04d}.npz") as z:
             assert z["param"].shape == shape + (3,)
+    par = tmp_path / "log" / "par"
+    for t in range(2):
+        d = FrameStore(str(par)).load_density(t)
+        assert d.shape == shape and np.isfinite(d).all() and d.min() >= 0
+    (line,) = [json.loads(l) for l in (par / "metrics.jsonl").open()]
+    assert line["mesh"] == {"frames": 1, "views": 1}
     metrics = [json.loads(l) for l in
                (tmp_path / "log" / "single" / "metrics.jsonl").open()]
     assert metrics[0]["device"] == "cpu"

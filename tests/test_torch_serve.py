@@ -1,8 +1,9 @@
 """nfs_tpu_torch's stylization service (``cli/serve.py``) on the CPU: the
 cases of tests/test_serve.py (spool protocol, styler and frame caches,
-error isolation), a ``"parallel"`` job that fails naming its ROADMAP item
-while the worker carries on, and the same 2D and 3D jobs through the JAX
-package's worker and the port's, which share one VGG weights file.
+error isolation), ``"parallel"`` jobs (a grid one through both packages'
+workers; a particle one fails naming its ROADMAP item while the worker
+carries on), and the same 2D and 3D jobs through the JAX package's worker
+and the port's, which share one VGG weights file.
 """
 
 import json
@@ -133,18 +134,45 @@ def test_transfer_fn_job(setup):
 
 
 def test_parallel_job_fails_naming_item_21(setup):
-    """"parallel" is not ported: the job fails naming its ROADMAP item,
+    """"parallel" jobs: a grid one runs the joint engine (ParallelSequence
+    Styler on the service's (1, 1) mesh) and matches the JAX package's
+    worker on its default mesh of the 8 virtual devices, within 1e-3 with
+    one VGG weights file and one view (``render.view_pool`` 1); a particle
+    one (keyframe-parallel LNST, not ported) fails naming ROADMAP item 23,
     and the worker carries on with the next job and stops cleanly."""
     tmp_path, data, spool, style = setup
-    job = _job(data, str(tmp_path / "outp"), style, frames=(0, 1))
-    job["parallel"] = True
-    submit_job(spool, job, name="par")
+    _make_data(data, T=2, shape=(12, 10, 12))
+    weights = str(tmp_path / "vgg.npz")
+    save_vgg_params(weights, jax.tree.map(np.asarray, init_vgg_params(0)))
+    outs = {}
+    for name, worker in (("jax", JaxStylizeWorker()),
+                         ("torch", StylizeWorker("cpu"))):
+        job = _job(data, str(tmp_path / name), style, frames=(0, 1))
+        job["parallel"] = True
+        job["config"].update({
+            "loss.vgg_weights": weights, "loss.w_style": 1000.0,
+            "render.view_pool": 1, "render.transmit": 0.5,
+            "optim.window": 1, "optim.lr": 0.02})
+        res = worker.run_job(job)
+        assert res["status"] == "ok" and res["outputs"] == [
+            "d_0000.npz", "d_0001.npz"]
+        outs[name] = [np.load(os.path.join(str(tmp_path / name),
+                                           f"d_{t:04d}.npz"))["d"]
+                      for t in (0, 1)]
+    for t, j in zip(outs["torch"], outs["jax"]):
+        assert t.shape == j.shape == (12, 10, 12)
+        assert np.abs(t - j).max() <= 1e-3
+
+    pjob = {"mode": "particle", "data_dir": data, "frames": [0, 1],
+            "out_dir": str(tmp_path / "outp"), "parallel": True,
+            "grid_shape": [8, 8, 8], "config": {}}
+    submit_job(spool, pjob, name="par")
     submit_job(spool, _job(data, str(tmp_path / "ok"), style), name="z")
     stats = _serve(spool, max_jobs=2)
     res = _done(spool, "par")
     assert res["status"] == "error"
     assert res["error"].startswith("NotImplementedError")
-    assert "ROADMAP queue 1, item 21" in res["error"]
+    assert "ROADMAP queue 1, item 23" in res["error"]
     assert _done(spool, "z")["status"] == "ok"
     assert stats["errors"] == 1 and stats["jobs"] == 1
     # heartbeat file written and reports the final stats

@@ -125,7 +125,7 @@ def _ctypes_entry_points():
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     adv = ctypes.CDLL(str(ak.build_library()))
-    adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, i, p]
+    adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, i, f, i, p]
     bins = ctypes.CDLL(str(bk.build_library()))
     bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [i, p]
     return adv, bins
@@ -174,8 +174,8 @@ def host(card: str) -> None:
     def k1_ctypes():
         d = _ctypes_check((f, v), ((D, H, W), (D, H, W, 3)))
         o = torch.empty_like(f)
-        rc = adv.nfs_advect_fwd(f.data_ptr(), v.data_ptr(), o.data_ptr(), D,
-                                H, W, 2.0, d, raw_stream(d))
+        rc = adv.nfs_advect_fwd(f.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
+                                D, H, W, 2.0, d, raw_stream(d))
         if rc != 0:
             raise RuntimeError(rc)
         return o
@@ -191,10 +191,10 @@ def host(card: str) -> None:
             (f, v), ((D, H, W), (D, H, W, 3))),
         "ctypes route: stream (raw handle)": lambda: raw_stream(0),
         "ctypes route: call and launch": lambda: adv.nfs_advect_fwd(
-            *ptrs, D, H, W, 2.0, 0, raw_stream(0)),
+            *ptrs, 1, D, H, W, 2.0, 0, raw_stream(0)),
         "ctypes route: call refused before launching":
-            lambda: adv.nfs_advect_fwd(*ptrs, 1, 1 << 16, 1 << 16, 2.0, 0,
-                                       raw_stream(0)),
+            lambda: adv.nfs_advect_fwd(*ptrs, 1, 1, 1 << 16, 1 << 16, 2.0,
+                                       0, raw_stream(0)),
         "device guard (with torch.cuda.device)": lambda: _guard(dev),
         "stream as a torch.cuda.Stream object": lambda: (
             torch.cuda.current_stream(dev).cuda_stream),
