@@ -42,6 +42,10 @@ Phases, each printing one JSON line:
    single launches, against the batched plain twin at the same
    tolerance; the batched call's ``ms`` and ``device_ms`` beside the 4
    single calls'.
+   bin_kernels_batched — K4 and K5 on a batch of 4 keyframes' finest-
+   octave bins (the particles_3d particles of four seeds at 96x64x96,
+   the planned K): one launch each, bitwise the 4 single launches,
+   against the batched plain twins; timed beside the 4 single calls.
    reference — small runs of the grid and particle slices on the GPU
    against the same runs on the CPU (plain versions; the CPU port is held
    against the JAX package by the tests).
@@ -61,7 +65,8 @@ Phases, each printing one JSON line:
    ``ParticleStyler.stylize_keyframes`` over 11 frames of 200 000
    particles on a 96x64x96 grid (keyframes 0 and 10), 3 octaves x 20
    iterations, 9 views at 256^2.
-9. profile (only with ``--profile``) — the density slice at config #3's
+9. profile (only with ``--profile``; the keyframes phase then also traces
+   its five keyframes) — the density slice at config #3's
    20 iterations per octave: steady seconds per iteration and per frame,
    then two frames under ``torch.profiler`` for the device's kernel time
    per iteration by category and its idle share in that traced run; then
@@ -76,7 +81,9 @@ Phases, each printing one JSON line:
     config #3 widths (5 iterations per octave), frames 0-7 held against
     the streaming path.
 12. cli — ``cli.stylize --fused 2`` over 4 of the scene's frames, then a
-    rerun that the complete manifest turns into a no-op.
+    rerun that the complete manifest turns into a no-op; then
+    ``cli.stylize --parallel --mode particle`` over 3 particles_3d frames
+    (keyframes 0 and 2 through the keyframe engine).
     parallel — the joint sequence engine (``ParallelSequenceStyler``) on
     a (1, 1) mesh at the density slice's config over 8 of the scene's
     frames: s/iter, s/frame and peak memory; 2 K1 and 2 K2 launches per
@@ -85,6 +92,15 @@ Phases, each printing one JSON line:
     the streaming styler on the same frames (s/frame); the first
     iteration on the card against the CPU port; config #4 through the
     engine (K1, K2, K3 batched); one ``cli.stylize --parallel`` run.
+    keyframes — the keyframe-parallel LNST engine
+    (``ParallelKeyframeStyler``) on a (1, 1) mesh at the full
+    particles_3d width over 41 frames: keyframes 0, 10, 20, 30 and 40 in
+    one program (s per keyframe, s per output frame, peak memory; its K4
+    and K5 launches must equal one independent keyframe's), held within
+    rtol 4e-3 / atol 4e-4 of the five keyframes run as independent
+    ``stylize_frame`` calls (timed beside it), inside a 1-rank NCCL group
+    (bitwise), and small 3D colour and 2D keyframe runs against the CPU
+    port.
 13. 2d — BASELINE config #1 (a 256x192 frame, bf16, 3 octaves x 30
     iterations), the 512^2 headline shape (3 x 10) and config #2 (a
     256x192 smoke_sequence, W=1, 2 x 20, 6 frames) through GridStyler,
@@ -113,17 +129,18 @@ Phases, each printing one JSON line:
     (both caches hit, equal output), once more under
     ``utils.profiling.trace`` (the trace must hold K1), a particle job
     at the particles_3d width, a "parallel" grid job (the joint engine)
-    held against the same job on a CPU worker, a "parallel" particle job
-    that must fail naming its ROADMAP item, then the stop marker.
+    and a "parallel" particle job (the keyframe engine), each held
+    against the same job on a CPU worker, then the stop marker.
 20. render_quality — ``cli.render`` over the served grid (grey and
     'fire') and particle outputs; ``eval``'s metrics of the served and
     raw frames; the density slice's FLOPs per iteration and MFU against
     the H100's dense bf16 peak.
 
-Then one JSON line with every kernel's route, error, launches on its main
-path, times and least time on the card (the advection kernels also with
-their batch of 4 and their launches on the joint engine's path), and as
-the last line
+Then the script's whole time, one JSON line with every kernel's route,
+error, launches on its main path, times and least time on the card (the
+advection kernels also with their batch of 4 and their launches on the
+joint engine's path, K4 and K5 with their keyframe batch of 4 and their
+launches on the keyframe engine's path), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, so the exit code is non-zero and no result is printed.
 Weights (VGG), style image and data are random, made from fixed seeds.
@@ -795,6 +812,78 @@ def _time_bins(key: str, inputs, card: str) -> dict:
     return t
 
 
+def phase_bin_kernels_batched(card: str, K: int):
+    """K4 and K5 on a batch of BATCH keyframes' finest-octave bins (the
+    particles_3d bench particles of four seeds binned at 96x64x96 with
+    the planned K): the batched call is one launch and gives the BATCH
+    single launches' bits, and holds against the batched plain twins at
+    BIN_TOL. Times the batched call (``ms``, ``device_ms``) beside the
+    BATCH single calls it replaces, with the batch's least time. Returns
+    {launch key: numbers}."""
+    import torch
+
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+
+    inputs = [_bin_inputs("binned", K, seed=60 + b) for b in range(BATCH)]
+    a5 = torch.stack([x[0] for x in inputs])
+    p5 = [torch.stack([x[1][d] for x in inputs]) for d in range(3)]
+    g5 = torch.stack([x[2] for x in inputs])
+    singles = [(x[0], x[1], x[2]) for x in inputs]
+    calls = {
+        "fwd": (lambda: bk.binsplat_fwd(a5, *p5),
+                lambda: [bk.binsplat_fwd(a, *p) for a, p, _ in singles],
+                lambda: bk.window_fwd_plain(a5, *p5)),
+        "bwd": (lambda: bk.binsplat_bwd(a5, *p5, g5),
+                lambda: [bk.binsplat_bwd(a, *p, g) for a, p, g in singles],
+                lambda: bk.window_bwd_plain(a5, *p5, g5)),
+    }
+    occupied = sum(x[3] for x in inputs)
+    slots, cells = a5.numel(), g5.numel()
+    out = {}
+    for key, (batched_call, single_calls, plain) in calls.items():
+        before = bk.LAUNCHES[key]
+        batched = batched_call()
+        one_launch = bk.LAUNCHES[key] - before
+        single = single_calls()
+        single_launches = bk.LAUNCHES[key] - before - one_launch
+        single = (tuple(torch.stack(o) for o in zip(*single))
+                  if key == "bwd" else torch.stack(single))
+        err = _max_err(batched, plain())
+        torch.cuda.synchronize()
+        if (one_launch, single_launches) != (1, BATCH):
+            raise AssertionError(f"binsplat {key}: a batch of {BATCH} took "
+                                 f"{one_launch} launches, {BATCH} keyframes "
+                                 f"{single_launches}")
+        if not _equal(batched, single):
+            raise AssertionError(f"binsplat {key}: the batched launch "
+                                 f"differs from {BATCH} single launches")
+        if not (_all_finite(batched) and err <= BIN_TOL[key]):
+            raise AssertionError(f"binsplat {key}: batched kernel against "
+                                 f"its batched plain twin: {err}")
+        if key == "fwd":
+            occ = (a5 != 0).reshape(-1).nonzero().squeeze(1)
+            work = (4 * (slots + cells) + 32 * sum(_sectors(p, occ)
+                                                   for p in p5),
+                    OPS_PER_ELEMENT["binsplat_fwd"] * occupied)
+        else:
+            work = (4 * (8 * slots + cells),
+                    OPS_PER_ELEMENT["binsplat_bwd"] * slots)
+        t = {"ms": _median_ms(batched_call),
+             "single_x4_ms": _median_ms(single_calls),
+             "device_ms": _device_ms(batched_call),
+             "single_x4_device_ms": _device_ms(single_calls),
+             "launches": one_launch, "single_launches": single_launches,
+             "max_abs_err": err}
+        t["bound_ms"], t["bound_by"] = _bound(*work)
+        emit({"phase": "bin_kernels_batched",
+              "kernel": next(nm for k, nm, _ in BIN_KERNELS if k == key),
+              "batch": BATCH, "K": K, "padded_grid": list(g5.shape[1:]),
+              "occupied_slots": occupied, "tol": BIN_TOL[key],
+              "bitwise_vs_single": True, **t, "card": card})
+        out[key] = t
+    return out
+
+
 def _swirl_velocity(shape, t: int, cap: float = 1.5) -> np.ndarray:
     """Smooth swirl about the y axis plus a slow rise, |v| <= cap
     cells/frame, in array-axis channel order (vz, vy, vx)."""
@@ -1352,9 +1441,13 @@ def phase_northstar(card: str, root: str):
 def phase_cli(card: str, root: str, data_dir: str):
     """``cli.stylize --fused 2`` over 4 scene frames (2 octaves x 2
     iterations, W=1), then once more: the manifest is complete, so the
-    rerun stylizes nothing."""
+    rerun stylizes nothing; then ``cli.stylize --parallel --mode
+    particle`` over 3 frames of the particles_3d scene (keyframes 0 and
+    2 through the keyframe-parallel engine, 2 octaves x 2 iterations),
+    which must launch K4 and K5."""
     from nfs_tpu_torch.cli.stylize import main as stylize
     from nfs_tpu_torch.io.npz import FrameStore
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
 
     style = os.path.join(root, "style.npy")
     np.save(style, np.random.default_rng(1).random((256, 256, 3),
@@ -1384,8 +1477,36 @@ def phase_cli(card: str, root: str, data_dir: str):
     if ("all frames already stylized" not in runs[1][1]
             or "[frame" in runs[1][1]):
         raise AssertionError(f"the rerun stylized again: {runs[1][1]}")
+
+    pdata = os.path.join(root, "cli_particles")
+    pstore = FrameStore(pdata)
+    for t, x in enumerate(_particle_frames(3)):
+        pstore.save_particles(t, x=x, dens=np.ones(P_COUNT, np.float32))
+    buf = io.StringIO()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        stylize(["--data_dir", pdata, "--log_dir", log, "--tag", "lnst",
+                 "--style_target", style, "--mode", "particle", "--parallel",
+                 "--num_frames", "3", "--keyframe_stride", "2",
+                 "--opt_density", "--grid_shape", *map(str, P_GRID),
+                 "--octave_n", "2", "--iter", "2"])
+    particle_s = time.perf_counter() - t0
+    p_launches = dict(bk.LAUNCHES)
+    pout = FrameStore(os.path.join(log, "lnst"))
+    if not (all(np.isfinite(pout.load_particles(t)["x"]).all()
+                for t in range(3))
+            and "[parallel] 3 particle frames, keyframes [0, 2]"
+            in buf.getvalue()
+            and p_launches["fwd"] > 0 and p_launches["bwd"] > 0):
+        raise AssertionError(f"cli --parallel --mode particle: "
+                             f"{buf.getvalue()} {p_launches}")
     emit({"phase": "cli", "frames": 4, "fused": 2, "wall_s": runs[0][0],
-          "rerun_s": runs[1][0], "params_saved": params, "card": card})
+          "rerun_s": runs[1][0], "params_saved": params,
+          "parallel_particle": {"frames": 3, "keyframes": [0, 2],
+                                "wall_s": particle_s,
+                                "launches": p_launches},
+          "card": card})
 
 
 def _particle_frames(T: int):
@@ -2594,6 +2715,245 @@ def phase_parallel(card: str, root: str, smoke_dir: str):
     return launches, vel_launches
 
 
+def _keyframe_reference_run(dev: str, grid, color: bool):
+    """The keyframe engine at a small size on one device: 3 frames
+    (keyframes 0 and 2) of 1 500 particles, position + density (+ colour
+    in 3D: the 5-channel binned pass), 2 octaves x 3 iterations, float32
+    features, one view. Returns (losses, [(x, dens[, color])])."""
+    import torch
+
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.parallel import ParallelKeyframeStyler, make_mesh
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    rng = np.random.default_rng(16)
+    n = 1500
+    x0 = (rng.random((n, len(grid))) * (np.array(grid) - 4) + 2).astype(
+        np.float32)
+    col = rng.random((n, 3), dtype=np.float32) if color else None
+    frames = [ParticleSet(x=x0 + np.float32(0.1 * t),
+                          dens=np.ones(n, np.float32), color=col)
+              for t in range(3)]
+    cfg = _northstar_cfg(**{
+        "render.render_size": (32, 32), "render.min_render_size": 16,
+        "render.n_views": 2, "render.view_pool": 1, "render.transmit": 0.5,
+        "loss.style_layers": ("relu1_1", "relu2_1"),
+        "loss.style_layer_weights": (1.0, 1.0), "loss.w_style": 1000.0,
+        "loss.features_dtype": "float32", "optim.octave_n": 2,
+        "optim.octave_scale": 2.0, "optim.iters": 3, "optim.lr": 0.05,
+        "particle.optimize_density": True, "particle.optimize_color": color,
+        "particle.keyframe_stride": 2})
+    engine = ParallelKeyframeStyler(ParticleStyler(
+        cfg, grid_shape=grid, style_image=rng.random(
+            (32, 32, 3), dtype=np.float32), device=dev), make_mesh(1, 1))
+    outs = [tuple(a.cpu().numpy() for a in (p.x, p.dens)
+                  + ((p.color,) if color else ()))
+            for _, p in engine.stylize_keyframes(frames)]
+    losses = torch.cat([torch.cat(i["octave_losses"]).cpu() for _, i in
+                        sorted(engine.last_keyframe_infos.items())])
+    return losses.numpy(), outs
+
+
+def _profile_keyframes(card: str, styler, psets, n_keyframes: int):
+    """The keyframe engine's five keyframes once more under
+    torch.profiler: kernel time per joint iteration (all three octaves,
+    every keyframe) by category and the idle share of the traced run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nfs_tpu_torch.parallel import ParallelKeyframeStyler, make_mesh
+
+    oc = styler.cfg.optim
+    engine = ParallelKeyframeStyler(styler, make_mesh(1, 1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in engine.stylize_keyframes(psets):
+            pass
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    emit(dict({"phase": "profile", "slice": "keyframes",
+               "keyframes": n_keyframes, "grid": list(P_GRID),
+               "particles": P_COUNT},
+              **_trace_summary(prof, oc.octave_n * oc.iters, traced_wall),
+              card=card))
+
+
+def phase_keyframes(card: str, profile: bool = False):
+    """The keyframe-parallel LNST engine (``ParallelKeyframeStyler``) on a
+    (1, 1) mesh at the full particles_3d width (``_particle_cfg``: 200
+    000 particles, 96x64x96, 9 views at 256^2, 3 octaves x 20,
+    position + density, bf16 features) over 41 frames of the particle
+    phase's scene, keyframes 0, 10, 20, 30 and 40 in one program: a run
+    over 11 frames (2 keyframes; warm-up, and its peak memory for the GiB
+    per keyframe), the timed 41-frame run (s per keyframe, s per output
+    frame, peak memory, K4/K5 launches), the same five keyframes as five
+    independent ``ParticleStyler.stylize_frame`` calls with the engine's
+    generators and the bin-capacity plan cleared between them (timed;
+    the engine's particles must lie within rtol 4e-3 and atol 4e-4 of
+    theirs, positions compared as offsets from the input frame, and its
+    K4 and K5 launches must equal one of them: one
+    launch serves all five keyframes), the engine inside a 1-rank NCCL
+    group (bitwise the run without one), and small 3D colour and 2D
+    keyframe runs held against the CPU port; with ``profile``, the
+    41-frame run once more under torch.profiler. Returns the K4/K5
+    launches of the 41-frame run."""
+    import torch
+    import torch.distributed as dist
+
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+    from nfs_tpu_torch.parallel import ParallelKeyframeStyler, make_mesh
+    from nfs_tpu_torch.parallel.particles import keyframe_generator
+    from nfs_tpu_torch.styler.particle import (
+        ParticleStyler, interp_sequence, keyframe_indices)
+
+    T, T2 = 41, 11
+    cfg = _particle_cfg()
+    pc = cfg.particle
+    xs = _particle_frames(T)
+    dens = np.ones(P_COUNT, np.float32)
+    psets = [ParticleSet(x=x, dens=dens) for x in xs]
+    style = np.random.default_rng(1).random((256, 256, 3),
+                                            dtype=np.float32)
+    styler = ParticleStyler(cfg, grid_shape=P_GRID, style_image=style,
+                            device="cuda")
+    keyframes = keyframe_indices(T, pc.keyframe_stride)
+
+    def run(frames, mesh=None):
+        engine = ParallelKeyframeStyler(styler, mesh or make_mesh(1, 1))
+        bk.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = [(t, p.x.cpu().numpy(), p.dens.cpu().numpy())
+                for t, p in engine.stylize_keyframes(frames)]
+        wall = time.perf_counter() - t0
+        return (wall, outs, dict(bk.LAUNCHES),
+                torch.cuda.max_memory_allocated() / 2 ** 30, engine)
+
+    wall2, _, _, peak2, _ = run(psets[:T2])        # 2 keyframes, warm-up
+    wall, outs, launches, peak, engine = run(psets)
+    infos = engine.last_keyframe_infos
+    if [t for t, _, _ in outs] != list(range(T)) or sorted(infos) != \
+            keyframes:
+        raise AssertionError(f"engine frames {[o[0] for o in outs]}, "
+                             f"keyframes {sorted(infos)}")
+    for t, x, d in outs:
+        if not (x.shape == (P_COUNT, 3) and np.isfinite(x).all()
+                and np.isfinite(d).all()
+                and float(np.abs(x - xs[t]).max()) <= pc.max_offset):
+            raise AssertionError(f"engine frame {t}: bad output")
+    # each iteration draws its own views, so a single loss is noisy: the
+    # finest octave's first and last quarters, over all keyframes
+    finest = np.stack([i["octave_losses"][-1].cpu().numpy()
+                       for i in infos.values()])
+    q = max(1, finest.shape[1] // 4)
+    if not finest[:, -q:].mean() < finest[:, :q].mean():
+        raise AssertionError(f"the finest octave's loss did not drop: "
+                             f"{finest}")
+
+    # the five keyframes as independent single-keyframe runs
+    params, single_s, single_launches = {}, [], []
+    for kf in keyframes:
+        styler._k_cache.clear()
+        bk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, params[kf], _ = styler.stylize_frame(
+            psets[kf], generator=keyframe_generator(cfg.seed, kf))
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        single_launches.append(dict(bk.LAUNCHES))
+    if launches != single_launches[0] or launches["fwd"] <= 0 \
+            or launches["bwd"] <= 0:
+        raise AssertionError(f"the engine's K4/K5 launches {launches} for "
+                             f"{len(keyframes)} keyframes are not one "
+                             f"keyframe's {single_launches[0]}")
+    ref = {t: (p.x.cpu().numpy(), p.dens.cpu().numpy())
+           for t, p in interp_sequence(
+               psets, keyframes, params, float(pc.max_offset),
+               apply_fn=styler.apply_param)}
+    # positions are compared as offsets from the input frame: absolute
+    # positions near 90 cells would let rtol hide a wrong offset
+    err = {"dx_max_abs": 0.0, "dens_max_abs": 0.0, "dx_excess": 0.0,
+           "dens_excess": 0.0}
+    for t, x, d in outs:
+        for k, got, want in (("dx", x - xs[t], ref[t][0] - xs[t]),
+                             ("dens", d, ref[t][1])):
+            diff = np.abs(got - want)
+            err[k + "_max_abs"] = max(err[k + "_max_abs"], float(diff.max()))
+            # > 0 where assert_allclose(rtol=4e-3, atol=4e-4) would fail
+            err[k + "_excess"] = max(err[k + "_excess"], float(
+                (diff - 4e-4 - 4e-3 * np.abs(want)).max()))
+    if not (err["dx_excess"] <= 0.0 and err["dens_excess"] <= 0.0):
+        raise AssertionError(f"the engine departs from the independent "
+                             f"keyframes: {err}")
+
+    # a 1-rank NCCL group: the gather runs on the card
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        _, outs_nccl, _, _, eng_nccl = run(psets, make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    if not all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+               for a, b in zip(outs_nccl, outs)):
+        raise AssertionError("the engine in a 1-rank NCCL group differs "
+                             "from the run without one")
+    if eng_nccl.last_collectives["all_gather"] != 1:
+        raise AssertionError(f"NCCL run collectives "
+                             f"{eng_nccl.last_collectives}")
+
+    # small colour (3D) and 2D keyframe batches against the CPU port
+    reference = {}
+    for grid, color in (((16, 12, 16), True), ((24, 18), False)):
+        (lc, oc_), (lg, og) = (_keyframe_reference_run(dev, grid, color)
+                               for dev in ("cpu", "cuda"))
+        e = {"loss_rel": float(np.max(np.abs(lg - lc) / np.abs(lc)))}
+        for i, k in enumerate(("x", "dens", "color")[:len(og[0])]):
+            e[k + "_max_abs"] = max(float(np.abs(g[i] - c[i]).max())
+                                    for g, c in zip(og, oc_))
+        reference["x".join(map(str, grid))] = e
+        if not (all(np.isfinite(a).all() for o in og for a in o)
+                and e["loss_rel"] <= 1e-4
+                and max(v for k, v in e.items() if k != "loss_rel")
+                <= 1e-3):
+            raise AssertionError(f"keyframe engine on the card departs from "
+                                 f"the CPU: {grid} {e}")
+
+    B = len(keyframes)
+    emit({"phase": "keyframes", "frames": T, "keyframes": keyframes,
+          "particles": P_COUNT, "grid": list(P_GRID), "mesh": [1, 1],
+          "reduced": "nothing of the particles_3d bench widths: random VGG "
+                     "weights and style image (no downloads)",
+          "engine_wall_s": wall, "s_per_keyframe": wall / B,
+          "s_per_output_frame": wall / T,
+          "independent_keyframe_s": single_s,
+          "independent_s_per_keyframe": sum(single_s) / B,
+          "peak_gib": peak, "peak_gib_2_keyframes": peak2,
+          "gib_per_keyframe": (peak - peak2) / (B - 2),
+          "wall_2_keyframes_s": wall2,
+          "launches": launches,
+          "launches_independent_keyframes": single_launches,
+          "launches_per_finest_iter": {
+              k: v / cfg.optim.iters for k, v in launches.items()},
+          "octave_overflow": {kf: i["octave_overflow"]
+                              for kf, i in infos.items()},
+          "finest_loss_quarters": [float(finest[:, :q].mean()),
+                                   float(finest[:, -q:].mean())],
+          "vs_independent": err, "tol": {"rtol": 4e-3, "atol": 4e-4},
+          "nccl_1_rank_bitwise": True,
+          "nccl_collectives": eng_nccl.last_collectives,
+          "reference_vs_cpu": reference,
+          "reference_tol": {"loss_rel": 1e-4, "max_abs": 1e-3},
+          "card": card})
+    if profile:
+        _profile_keyframes(card, styler, psets, B)
+    return launches
+
+
 def _serve_cfg():
     """The density slice's config as a serve job's overrides (JSON)."""
     return {"render.render_size": [256, 256], "render.n_views": 9,
@@ -2622,6 +2982,25 @@ def _serve_parallel_job(data_dir, out_dir, style):
                        "optim.iters": 3, "optim.window": 1}}
 
 
+def _serve_keyframes_job(data_dir, out_dir, style):
+    """Job D2: a "parallel" particle job over 3 frames (keyframes 0 and
+    2) of 1 500 particles on a 16^3 grid at small widths (64^2 renders, 2
+    style layers, float32 features, style weight 1000, one view), small
+    enough to run on the CPU too."""
+    return {"mode": "particle", "data_dir": data_dir, "frames": [0, 1, 2],
+            "out_dir": out_dir, "style_target": style, "parallel": True,
+            "grid_shape": [16, 16, 16],
+            "config": {"render.render_size": [64, 64], "render.n_views": 2,
+                       "render.view_pool": 1, "render.transmit": 0.5,
+                       "loss.style_layers": ["relu1_1", "relu2_1"],
+                       "loss.style_layer_weights": [1.0, 1.0],
+                       "loss.w_style": 1000.0, "optim.octave_n": 2,
+                       "optim.octave_scale": 2.0, "optim.lr": 0.05,
+                       "optim.iters": 3,
+                       "particle.optimize_density": True,
+                       "particle.keyframe_stride": 2}}
+
+
 def _serve_particle_cfg():
     """The particles_3d bench config (``_particle_cfg``) at 4 iterations
     per octave as a serve job's overrides (JSON)."""
@@ -2631,6 +3010,56 @@ def _serve_particle_cfg():
             "particle.optimize_position": True,
             "particle.optimize_density": True,
             "particle.keyframe_stride": 10}
+
+
+def _particle_gap(dir_a, dir_b, n: int) -> float:
+    """Largest |difference| of the positions and densities of frames 0..n-1
+    written to two output directories."""
+    from nfs_tpu_torch.io.npz import FrameStore
+
+    gap = 0.0
+    for t in range(n):
+        a, b = (FrameStore(d).load_particles(t) for d in (dir_a, dir_b))
+        gap = max(gap, *(float(np.abs(a[k] - b[k]).max())
+                         for k in ("x", "dens")))
+    return gap
+
+
+def _d2_repeat(serve_mod, job, served_dir, root) -> dict:
+    """Whether the card repeats job D2 bit for bit: the job twice more
+    through one card worker of this process in each of three modes,
+    ``default``, ``cudnn_deterministic`` (``torch.backends.cudnn.
+    deterministic``) and ``deterministic``
+    (``torch.use_deterministic_algorithms(True, warn_only=True)``), with
+    the two runs' gap, the first run's gap to the served D2 and the ops
+    PyTorch warned of as having no deterministic implementation. A
+    report, not a check."""
+    import warnings
+
+    import torch
+
+    worker = serve_mod.StylizeWorker("cuda")
+    report = {}
+    for mode in ("default", "cudnn_deterministic", "deterministic"):
+        dirs = [os.path.join(root, f"d2_{mode}_{r}") for r in range(2)]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.backends.cudnn.deterministic = mode != "default"
+            torch.use_deterministic_algorithms(mode == "deterministic",
+                                               warn_only=True)
+            try:
+                for d in dirs:
+                    if worker.run_job(dict(job, out_dir=d))["status"] != "ok":
+                        raise AssertionError(f"job d2 again ({mode})")
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = False
+        report[mode] = {
+            "repeat_max_abs": _particle_gap(dirs[0], dirs[1], 3),
+            "vs_served_max_abs": _particle_gap(dirs[0], served_dir, 3),
+            "warned": sorted({str(w.message)[:120] for w in caught
+                              if "determinis" in str(w.message)})}
+    return report
 
 
 def phase_serve(card: str, root: str, smoke_dir: str):
@@ -2645,11 +3074,15 @@ def phase_serve(card: str, root: str, smoke_dir: str):
     1); (D) a "parallel" grid job (the joint engine on the service's
     (1, 1) mesh) over 2 frames of a 24x16x24 smoke3d scene at small
     widths (float32 features), which must succeed and match the same job
-    through a CPU worker within 1e-3; (D2) a "parallel" particle job,
-    which must fail naming ROADMAP item 23; then the stop marker. K1 and
-    K2 must launch in A and D, K4 and K5 in C (counts reset before each
-    job and read after it). Returns (A's out_dir, C's out_dir, the style
-    image path)."""
+    through a CPU worker within 1e-3; (D2) a "parallel" particle job (the
+    keyframe-parallel engine on that mesh) over 3 frames of 1 500
+    particles at small widths, which must succeed and match the same job
+    through a CPU worker within 1e-3; then the stop marker. K1 and K2
+    must launch in A and D, K4 and K5 in C and D2 (counts reset before
+    each job and read after it). D2 then runs six times more on a card
+    worker, whose bitwise repeatability is reported (``_d2_repeat``).
+    Returns (A's out_dir, C's out_dir, the
+    style image path)."""
     import torch
 
     from nfs_tpu_torch.cli import scene
@@ -2669,7 +3102,13 @@ def phase_serve(card: str, root: str, smoke_dir: str):
     for t, x in enumerate(_particle_frames(2)):
         store.save_particles(t, x=x, dens=np.ones(P_COUNT, np.float32))
     out = {k: os.path.join(root, "served", k)
-           for k in ("a", "b", "b2", "c", "d", "d2", "d_cpu")}
+           for k in ("a", "b", "b2", "c", "d", "d2", "d_cpu", "d2_cpu")}
+    small_pdir = os.path.join(root, "particles_small")
+    rng = np.random.default_rng(17)
+    x0 = (rng.random((1500, 3)) * 12 + 2).astype(np.float32)
+    for t in range(3):
+        FrameStore(small_pdir).save_particles(
+            t, x=x0 + np.float32(0.1 * t), dens=np.ones(1500, np.float32))
     small_dir = os.path.join(root, "smoke3d_small")
     style_d = os.path.join(root, "serve_style_64.npy")
     np.save(style_d, np.random.default_rng(1).random((64, 64, 3),
@@ -2688,7 +3127,7 @@ def phase_serve(card: str, root: str, smoke_dir: str):
         "b2": dict(grid_job, out_dir=out["b2"]),
         "c": dict(particle_job, out_dir=out["c"]),
         "d": _serve_parallel_job(small_dir, out["d"], style_d),
-        "d2": dict(particle_job, out_dir=out["d2"], parallel=True),
+        "d2": _serve_keyframes_job(small_pdir, out["d2"], style_d),
     }
     for name, job in jobs.items():
         serve_mod.submit_job(spool, job, name=name)
@@ -2726,37 +3165,47 @@ def phase_serve(card: str, root: str, smoke_dir: str):
     for name in jobs:
         with open(os.path.join(spool, "done", f"{name}.json")) as f:
             results[name] = json.load(f)
-    for name in ("a", "b", "b2", "c", "d"):
+    for name in jobs:
         if results[name]["status"] != "ok":
             raise AssertionError(f"job {name}: {results[name]}")
-    err_d = results["d2"]
-    if not (err_d["status"] == "error"
-            and err_d["error"].startswith("NotImplementedError")
-            and "ROADMAP queue 1, item 23" in err_d["error"]):
-        raise AssertionError(f"parallel particle job: {err_d}")
-    # job D again through a CPU worker: the port's plain twins
-    cpu_job = dict(jobs["d"], out_dir=out["d_cpu"])
-    if serve_mod.StylizeWorker("cpu").run_job(cpu_job)["status"] != "ok":
-        raise AssertionError("job D on the CPU")
+    # jobs D and D2 again through a CPU worker: the port's plain twins
+    cpu_worker = serve_mod.StylizeWorker("cpu")
+    for name in ("d", "d2"):
+        cpu_job = dict(jobs[name], out_dir=out[name + "_cpu"])
+        if cpu_worker.run_job(cpu_job)["status"] != "ok":
+            raise AssertionError(f"job {name} on the CPU")
     d_vs_cpu = max(float(np.abs(
         FrameStore(out["d"]).load_density(t)
         - FrameStore(out["d_cpu"]).load_density(t)).max()) for t in range(2))
     if not d_vs_cpu <= 1e-3:
         raise AssertionError(f"parallel job D departs from the CPU port: "
                              f"{d_vs_cpu}")
+    for t in range(3):
+        got = FrameStore(out["d2"]).load_particles(t)
+        if not (got["x"].shape == (1500, 3) and np.isfinite(got["x"]).all()):
+            raise AssertionError(f"job d2 frame {t}: bad output")
+    d2_vs_cpu = _particle_gap(out["d2"], out["d2_cpu"], 3)
+    if not d2_vs_cpu <= 1e-3:
+        raise AssertionError(f"parallel particle job D2 departs from the "
+                             f"CPU port: {d2_vs_cpu}")
+    d2_repeat = _d2_repeat(serve_mod, jobs["d2"], out["d2"],
+                           os.path.join(root, "served"))
     hb = [f for f in os.listdir(spool) if f.startswith("worker_")]
     with open(os.path.join(spool, hb[0])) as f:
         beat = json.load(f)
     if beat["status"] != "stopped" or stopped["jobs"] != 0:
         raise AssertionError(f"heartbeat {beat}, after stop {stopped}")
     if not (stats["styler_cache_hits"] >= 1
-            and stats["frame_cache_hits"] >= 1 and stats["jobs"] == 5
-            and stats["errors"] == 1):
+            and stats["frame_cache_hits"] >= 1 and stats["jobs"] == 6
+            and stats["errors"] == 0):
         raise AssertionError(f"worker stats {stats}")
     a_l, c_l, d_l = per_job["a"], per_job["c"], per_job["d"]
+    d2_l = per_job["d2"]
     if not (a_l["advect"]["fwd"] > 0 and a_l["advect"]["bwd_field"] > 0
             and d_l["advect"]["fwd"] > 0 and d_l["advect"]["bwd_field"] > 0
-            and c_l["binsplat"]["fwd"] > 0 and c_l["binsplat"]["bwd"] > 0):
+            and c_l["binsplat"]["fwd"] > 0 and c_l["binsplat"]["bwd"] > 0
+            and d2_l["binsplat"]["fwd"] > 0
+            and d2_l["binsplat"]["bwd"] > 0):
         raise AssertionError(f"launches per job {per_job}")
 
     grid_a, grid_b = FrameStore(out["a"]), FrameStore(out["b"])
@@ -2791,7 +3240,9 @@ def phase_serve(card: str, root: str, smoke_dir: str):
           "tol": {"b_vs_a_max_abs": 1e-3}, "launches": per_job,
           "trace_events": len(events), "trace_k1_events": k1_events,
           "parallel_d_vs_cpu_max_abs": d_vs_cpu,
-          "parallel_particle_error": err_d["error"],
+          "parallel_particle_d2_vs_cpu_max_abs": d2_vs_cpu,
+          "d2_repeat_on_card": d2_repeat,
+          "tol_vs_cpu": 1e-3,
           "heartbeat": beat["status"],
           "card": card})
     return out["a"], out["c"], style
@@ -2920,8 +3371,9 @@ def main(argv=None) -> int:
         description="Drive the PyTorch/CUDA port on one GPU")
     args.add_argument("--profile", action="store_true",
                       help="also profile the density slice at config #3's "
-                           "20 iterations per octave and keyframe 10 of "
-                           "the particle phase")
+                           "20 iterations per octave, keyframe 10 of the "
+                           "particle phase and the keyframe engine's five "
+                           "keyframes")
     args = args.parse_args(argv)
     import torch
 
@@ -2932,6 +3384,7 @@ def main(argv=None) -> int:
     # when the script stands alone
     import nfs_tpu_torch  # noqa: F401
 
+    started = time.perf_counter()
     kind, card = phase_device()
 
     phase_build()
@@ -2940,6 +3393,7 @@ def main(argv=None) -> int:
     batched = phase_batched_kernels(card)
     octaves = _octave_ks()
     bin_records = phase_bin_kernels(card, octaves[-1][1], octaves[0])
+    bin_batched = phase_bin_kernels_batched(card, octaves[-1][1])
     phase_reference(card)
     phase_reference_particle(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
@@ -2973,6 +3427,8 @@ def main(argv=None) -> int:
         # the joint engine's path resets and reads its own counters
         par_launches, par_vel_launches = phase_parallel(card, tmp,
                                                         smoke_dir)
+        # the keyframe engine's path resets and reads its own counters
+        kf_launches = phase_keyframes(card, args.profile)
         phase_checkpoint(card, tmp, smoke_dir)
         a_dir, c_dir, style = phase_serve(card, tmp, smoke_dir)
         phase_render_quality(card, tmp, smoke_dir, a_dir, c_dir, style,
@@ -2995,6 +3451,15 @@ def main(argv=None) -> int:
         rec["batched_b4"] = batched[key]
         rec["parallel_launches"] = (par_vel_launches if key == "bwd_vel"
                                     else par_launches)[key]
+    # the keyframe batch of K4 and K5, and their launches on the keyframe
+    # engine's path (five keyframes in one program)
+    for rec, (key, _, _) in zip(bin_records, BIN_KERNELS):
+        rec["batched_b4"] = bin_batched[key]
+        rec["keyframes_launches"] = kf_launches[key]
+        if rec["keyframes_launches"] <= 0:
+            raise AssertionError(f"{rec['name']} never launched on the "
+                                 f"keyframe engine's path")
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": records + [far_record] + bin_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -23,12 +23,10 @@ Job JSON:
    "config": {"optim.iters": 30, ...},   # StyleConfig overrides
    "style_target": "path.png",
    "grid_shape": [128, 128],            # particle mode
-   "parallel": true}                    # grid: all frames jointly on the
-                                        # engine's mesh (one process: a
-                                        # (1, 1) mesh on one device);
-                                        # particle: not ported, the job
-                                        # fails naming ROADMAP queue 1,
-                                        # item 23
+   "parallel": true}                    # all frames (grid) or all
+                                        # keyframes (particle) jointly on
+                                        # the engine's mesh (one process:
+                                        # a (1, 1) mesh on one device)
 
 Run:  python -m nfs_tpu_torch.cli.serve --spool /path/to/spool
       (``--device cuda`` by default; a missing GPU is an error)
@@ -205,15 +203,16 @@ class StylizeWorker:
             self.stats["styler_cache_hits"] += 1
             return self._stylers[sig]
         if mode == "particle":
-            if parallel:
-                raise NotImplementedError(
-                    "\"parallel\" particle jobs (keyframe-parallel LNST) "
-                    "are not ported to nfs_tpu_torch yet: ROADMAP queue 1, "
-                    "item 23")
             from nfs_tpu_torch.styler.particle import ParticleStyler
 
             styler = ParticleStyler(cfg, grid_shape=grid_shape,
                                     device=self.device)
+            if parallel:
+                from nfs_tpu_torch.parallel import ParallelKeyframeStyler
+
+                # every keyframe in one program on the (1, 1) mesh of
+                # the service's one process
+                styler = ParallelKeyframeStyler(styler)
         else:
             from nfs_tpu_torch.styler.grid import GridStyler
 

@@ -27,7 +27,11 @@ world size: one process on one device, or one process per GPU under
 ``--device cuda``; rank 0 writes the frames and previews.
 Particle mode (LNST) reads ``p_%04d.npz`` frames (2D or 3D), optimizes
 keyframes, with ``--opt_color`` the particles' colours too, and
-interpolates between them (``ParticleStyler.stylize_keyframes``).
+interpolates between them (``ParticleStyler.stylize_keyframes``, each
+keyframe warm-started from the one before); with ``--parallel`` all
+keyframes are optimized jointly and independently
+(``parallel.ParallelKeyframeStyler``) on ``--mesh_frames`` ranks, by
+default the world's, as in the grid path.
 Outputs land in ``<log_dir>/<tag>/``: stylized ``d_%04d.npz`` or
 ``p_%04d.npz`` frames, the carry ``param_%04d.npz`` of grid sequence
 frames (every frame when streaming, each chunk's last frame when fused),
@@ -161,7 +165,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bit-matches an uninterrupted run")
     p.add_argument("--parallel", action="store_true",
                    help="jointly optimize all frames on a (frames, views) "
-                        "device mesh (ParallelSequenceStyler)")
+                        "device mesh (ParallelSequenceStyler); in particle "
+                        "mode all keyframes, independently "
+                        "(ParallelKeyframeStyler)")
     p.add_argument("--mesh_frames", type=int, default=None)
     p.add_argument("--mesh_views", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -218,16 +224,8 @@ def config_from_args(args) -> StyleConfig:
     )
 
 
-def _refuse_unported(args) -> None:
-    if args.parallel and args.mode == "particle":
-        raise NotImplementedError(
-            "--parallel --mode particle (keyframe-parallel LNST) is not "
-            "ported to nfs_tpu_torch yet: ROADMAP queue 1, item 23")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     cfg = config_from_args(args)
 
     import torch
@@ -443,11 +441,26 @@ def _run_sequence(cfg, args, styler, store, out_store, out_dir, frames,
 def _run_particles(cfg, args, store, out_store, frames, preview, log_metric,
                    device) -> None:
     """LNST: keyframe optimization + attribute interpolation over the
-    particle frames, one ``p_%04d.npz`` and one preview per frame."""
+    particle frames, one ``p_%04d.npz`` and one preview per frame. With
+    ``--parallel`` and more than one frame the keyframes are optimized
+    jointly and independently (``ParallelKeyframeStyler``) on
+    ``make_mesh(--mesh_frames)``, or on the default mesh of the world's
+    ranks; every rank runs the engine, rank 0 writes and the others wait
+    at a barrier."""
     import torch
+    import torch.distributed as dist
 
     from nfs_tpu_torch.core.pytrees import ParticleSet
     from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    parallel = args.parallel and len(frames) > 1
+    joined = False
+    if parallel:
+        from nfs_tpu_torch.parallel import initialize_multihost
+
+        joined = not dist.is_initialized()
+        initialize_multihost(device)
+        joined = joined and dist.is_initialized()
 
     psets = []
     for t in frames:
@@ -458,18 +471,40 @@ def _run_particles(cfg, args, store, out_store, frames, preview, log_metric,
     grid_shape = (tuple(args.grid_shape) if args.grid_shape
                   else (128,) * ndim)
     styler = ParticleStyler(cfg, grid_shape=grid_shape, device=device)
+    engine, mesh = styler, None
+    if parallel:
+        from nfs_tpu_torch.parallel import ParallelKeyframeStyler, make_mesh
+
+        pc = cfg.parallel
+        engine = ParallelKeyframeStyler(
+            styler, make_mesh(pc.frames) if pc.frames > 1 else None)
+        mesh = engine.mesh
+    write = mesh is None or mesh.rank == 0
     t0 = time.time()
-    for i, styled in styler.stylize_keyframes(psets):
+    for i, styled in engine.stylize_keyframes(psets):
+        if not write:
+            continue
         t = frames[i]
         out_store.save_particles(
             t, x=styled.x.cpu().numpy(), dens=styled.dens.cpu().numpy(),
             **({"color": np.asarray(torch.as_tensor(styled.color).cpu())}
                if styled.color is not None else {}))
         preview(t, styler.rasterize(styled))
-        kf_info = styler.last_keyframe_infos.get(i, {})
+        kf_info = engine.last_keyframe_infos.get(i, {})
         log_metric(frame=t, wall_s=time.time() - t0,
-                   splat_overflow=kf_info.get("octave_overflow"))
+                   splat_overflow=kf_info.get("octave_overflow"),
+                   **({"mesh": dict(mesh.shape)} if mesh is not None
+                      else {}))
         t0 = time.time()
+    if mesh is not None:
+        if write:
+            print(f"[parallel] {len(frames)} particle frames, keyframes "
+                  f"{sorted(engine.last_keyframe_infos)} on mesh "
+                  f"{dict(mesh.shape)} of {mesh.world} rank(s)")
+        if mesh.distributed:
+            dist.barrier()
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@
 //   K5 binsplat_bwd_kernel <- _bwd_kernel (grads wrt attribute, positions)
 //
 // Inputs are four (K, Z, Y, X) f32 C-contiguous bin arrays over the PADDED
-// grid (Z, Y, X): the masked attribute a (0 in empty slots) and the raw
+// grid (Z, Y, X), or a keyframe batch of them, (B, K, Z, Y, X) with a
+// (B, Z, Y, X) splat: the masked attribute a (0 in empty slots) and the raw
 // position components p_z, p_y, p_x of the particle in each slot, in
 // unpadded grid coordinates. The slot (k, b) is bin b of rank k; its
 // offset from the bin is frac_d = p_d + PAD - b_d (PAD = 2), and its tap
@@ -60,6 +61,11 @@
 //   slot's sums in the first version's order and arithmetic. It stays
 //   deterministic (no atomics), its 32-bit indices come from a division
 //   by multiplication, and the eight bin arrays' bytes bound it.
+//   A keyframe batch is one launch of each kernel: the keyframe is a free
+//   grid dimension (K4 folds it into blockIdx.z, K5 takes blockIdx.y), and
+//   a block moves its pointers to its keyframe's arrays before anything
+//   else, so every keyframe's arithmetic is that of a single launch, bit
+//   for bit. The TPU engine runs its batch as B sequential kernel calls.
 
 #include <cuda_runtime.h>
 
@@ -95,7 +101,7 @@ __device__ __forceinline__ float dw1d(float u) {
 // K4: a warp owns kLanesX output cells along x (its 32 lanes cover them
 // and the 2 bins below them), a lane one column of kCellsZ cells along z;
 // a block holds kRows warps, one per row y (PERF.md gives the launches
-// tried). No shared memory and no barrier, so the SM keeps as many warps
+// tried); blockIdx.z runs over the keyframes, z_blocks blocks each. No shared memory and no barrier, so the SM keeps as many warps
 // in flight as registers allow; the launch bounds ask for kWarpsPerSm
 // warps per SM, which holds a thread to 40 registers.
 // ---------------------------------------------------------------------
@@ -123,14 +129,21 @@ __global__ void __launch_bounds__(32 * kRows, kWarpsPerSm / kRows)
                         const float* __restrict__ py,
                         const float* __restrict__ px,
                         float* __restrict__ out, int K, int Z, int Y,
-                        int X) {
+                        int X, int z_blocks) {
   const int lane = static_cast<int>(threadIdx.x);
   const int x = static_cast<int>(blockIdx.x) * kLanesX - 2 + lane;
   const int y = static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
-  const int z0 = static_cast<int>(blockIdx.z) * kCellsZ;
+  const int kf = static_cast<int>(blockIdx.z) / z_blocks;
+  const int z0 = (static_cast<int>(blockIdx.z) - kf * z_blocks) * kCellsZ;
   if (y >= Y) return;  // the whole warp: all its lanes share y
   const bool column = x >= 0 && x < X;
   const long long cells = static_cast<long long>(Z) * Y * X;
+  const long long bins = K * cells;  // one keyframe's slots
+  a += kf * bins;
+  pz += kf * bins;
+  py += kf * bins;
+  px += kf * bins;
+  out += kf * cells;
   float acc[kCellsZ];
 #pragma unroll
   for (int j = 0; j < kCellsZ; ++j) acc[j] = 0.0f;
@@ -192,7 +205,7 @@ __global__ void __launch_bounds__(32 * kRows, kWarpsPerSm / kRows)
 
 // ---------------------------------------------------------------------
 // K5: a warp takes a run of kBwdRun consecutive slots of the flat slot
-// index (k, z, y, x); kBwdWarps warps a block.
+// index (k, z, y, x) of keyframe blockIdx.y; kBwdWarps warps a block.
 // ---------------------------------------------------------------------
 
 constexpr int kBwdWarps = 8;
@@ -322,6 +335,17 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
                         float* __restrict__ dpz, float* __restrict__ dpy,
                         float* __restrict__ dpx, SlotGrid sg) {
   __shared__ int live[kBwdWarps][kBwdRun];
+  // this block's keyframe: its bins, its gradients and its cotangent
+  const long long bins = static_cast<long long>(blockIdx.y) * sg.n_slots;
+  a += bins;
+  pz += bins;
+  py += bins;
+  px += bins;
+  da += bins;
+  dpz += bins;
+  dpy += bins;
+  dpx += bins;
+  g += static_cast<long long>(blockIdx.y) * sg.cells.d;
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int warp = static_cast<int>(threadIdx.x) >> 5;
   const int run =
@@ -369,49 +393,57 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
 }  // namespace
 
 // Plain C entry points, called by the operators of ops.cpp once they have
-// checked the tensors. Each launches on ``stream`` of CUDA device
-// ``device`` (made current for the launch when it is not already), does
-// not synchronise, and returns cudaGetLastError() (or the error that
-// refused the launch).
+// checked the tensors. Each takes B keyframes of bins (B = 1 for one),
+// launches once on ``stream`` of CUDA device ``device`` (made current for
+// the launch when it is not already), does not synchronise, and returns
+// cudaGetLastError() (or the error that refused the launch).
 extern "C" {
 
+// K4; refuses Z * Y past INT_MAX (32-bit plane rows), and a negative
+// batch or one past the grid's 65 535 blocks along z.
 int nfs_binsplat_fwd(const void* a, const void* pz, const void* py,
-                     const void* px, void* out, int K, int Z, int Y, int X,
-                     int device, void* stream) {
-  if (static_cast<long long>(Z) * Y > INT_MAX) {
+                     const void* px, void* out, int B, int K, int Z, int Y,
+                     int X, int device, void* stream) {
+  const long long z_blocks = (Z + kCellsZ - 1) / kCellsZ;
+  if (static_cast<long long>(Z) * Y > INT_MAX || B < 0 ||
+      B * z_blocks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (B == 0) return static_cast<int>(cudaSuccess);
   return nfs::on_device(device, [&] {
     const dim3 grid((X + kLanesX - 1) / kLanesX, (Y + kRows - 1) / kRows,
-                    (Z + kCellsZ - 1) / kCellsZ);
+                    static_cast<unsigned int>(B * z_blocks));
     binsplat_fwd_kernel<<<grid, dim3(32, kRows), 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(a), static_cast<const float*>(pz),
         static_cast<const float*>(py), static_cast<const float*>(px),
-        static_cast<float*>(out), K, Z, Y, X);
+        static_cast<float*>(out), K, Z, Y, X,
+        static_cast<int>(z_blocks));
     return cudaGetLastError();
   });
 }
 
 // K5; refuses K * Z * Y * X past INT_MAX less a block's slots (32-bit
-// slot indices).
+// slot indices within a keyframe), and a negative batch or one past the
+// grid's 65 535 blocks along y.
 int nfs_binsplat_bwd(const void* a, const void* pz, const void* py,
                      const void* px, const void* g, void* da, void* dpz,
-                     void* dpy, void* dpx, int K, int Z, int Y, int X,
+                     void* dpy, void* dpx, int B, int K, int Z, int Y, int X,
                      int device, void* stream) {
   constexpr long long kBlockSlots = kBwdWarps * kBwdRun;
   const long long slots = static_cast<long long>(K) * Z * Y * X;
-  if (slots > INT_MAX - kBlockSlots) {
+  if (slots > INT_MAX - kBlockSlots || B < 0 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (slots == 0) return static_cast<int>(cudaSuccess);
+  if (slots == 0 || B == 0) return static_cast<int>(cudaSuccess);
   const SlotGrid sg = {fast_div(static_cast<unsigned int>(Z * Y * X)),
                        fast_div(static_cast<unsigned int>(X)),
                        fast_div(static_cast<unsigned int>(Y)),
                        Z, Y, X, static_cast<int>(slots)};
   return nfs::on_device(device, [&] {
-    const unsigned int blocks =
-        static_cast<unsigned int>((slots + kBlockSlots - 1) / kBlockSlots);
+    const dim3 blocks(
+        static_cast<unsigned int>((slots + kBlockSlots - 1) / kBlockSlots),
+        static_cast<unsigned int>(B));
     binsplat_bwd_kernel<<<blocks, 32 * kBwdWarps, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(a), static_cast<const float*>(pz),

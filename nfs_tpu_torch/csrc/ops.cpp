@@ -4,7 +4,8 @@
 //
 // The advection operators take one field (D, H, W) or a batch of B fields
 // (B, D, H, W), with displacements of the same shape and a trailing 3, and
-// launch once either way.
+// launch once either way; so do the binned-splat operators with one set of
+// (K, Zp, Yp, Xp) bins or a keyframe batch of them (B, K, Zp, Yp, Xp).
 //
 // Each operator checks its tensors as the Python wrappers check CPU ones:
 // for each tensor in turn, TypeError unless it is float32, ValueError
@@ -47,11 +48,11 @@ int nfs_advect_bwd_fused(const void* field, const void* vel, const void* g,
                          int W, float max_disp, int R, int TZ, int TY,
                          int TX, int smem_bytes, int device, void* stream);
 int nfs_binsplat_fwd(const void* a, const void* pz, const void* py,
-                     const void* px, void* out, int K, int Z, int Y, int X,
-                     int device, void* stream);
+                     const void* px, void* out, int B, int K, int Z, int Y,
+                     int X, int device, void* stream);
 int nfs_binsplat_bwd(const void* a, const void* pz, const void* py,
                      const void* px, const void* g, void* da, void* dpz,
-                     void* dpy, void* dpx, int K, int Z, int Y, int X,
+                     void* dpy, void* dpx, int B, int K, int Z, int Y, int X,
                      int device, void* stream);
 }
 
@@ -209,16 +210,41 @@ void check_bins(const Tensor& a, const Tensor& pz, const Tensor& py,
   check("p_x", px, a.sizes(), device);
 }
 
+// The bins of one keyframe (K, Zp, Yp, Xp), checked by check_bins, or of a
+// keyframe batch (B, K, Zp, Yp, Xp), checked alike; B (1 for one
+// keyframe), the bins' shape less B, and the splat's shape: (Zp, Yp, Xp)
+// or (B, Zp, Yp, Xp).
+struct Bins {
+  int B;
+  std::vector<int64_t> bins, cells;
+};
+
+Bins bins_of(const Tensor& a, const Tensor& pz, const Tensor& py,
+             const Tensor& px) {
+  if (a.dim() != 5) {
+    check_bins(a, pz, py, px);
+    return {1, a.sizes().vec(), a.sizes().slice(1).vec()};
+  }
+  const at::Device device = a.device();
+  check("a", a, a.sizes(), device);
+  check("p_z", pz, a.sizes(), device);
+  check("p_y", py, a.sizes(), device);
+  check("p_x", px, a.sizes(), device);
+  std::vector<int64_t> cells = a.sizes().slice(2).vec();
+  cells.insert(cells.begin(), a.size(0));
+  return {static_cast<int>(a.size(0)), a.sizes().slice(1).vec(), cells};
+}
+
 Tensor binsplat_fwd(const Tensor& a, const Tensor& pz, const Tensor& py,
                     const Tensor& px) {
-  check_bins(a, pz, py, px);
-  Tensor out = at::empty(a.sizes().slice(1), a.options());
+  const Bins n = bins_of(a, pz, py, px);
+  Tensor out = at::empty(n.cells, a.options());
   raise_on(nfs_binsplat_fwd(a.data_ptr(), pz.data_ptr(), py.data_ptr(),
-                            px.data_ptr(), out.data_ptr(),
-                            static_cast<int>(a.size(0)),
-                            static_cast<int>(a.size(1)),
-                            static_cast<int>(a.size(2)),
-                            static_cast<int>(a.size(3)), a.device().index(),
+                            px.data_ptr(), out.data_ptr(), n.B,
+                            static_cast<int>(n.bins[0]),
+                            static_cast<int>(n.bins[1]),
+                            static_cast<int>(n.bins[2]),
+                            static_cast<int>(n.bins[3]), a.device().index(),
                             current_stream(a.device())),
            "binsplat_fwd");
   return out;
@@ -227,17 +253,17 @@ Tensor binsplat_fwd(const Tensor& a, const Tensor& pz, const Tensor& py,
 std::tuple<Tensor, Tensor, Tensor, Tensor> binsplat_bwd(
     const Tensor& a, const Tensor& pz, const Tensor& py, const Tensor& px,
     const Tensor& g) {
-  check_bins(a, pz, py, px);
-  check("g", g, a.sizes().slice(1), a.device());
+  const Bins n = bins_of(a, pz, py, px);
+  check("g", g, n.cells, a.device());
   Tensor da = at::empty_like(a), dpz = at::empty_like(a),
          dpy = at::empty_like(a), dpx = at::empty_like(a);
   raise_on(nfs_binsplat_bwd(a.data_ptr(), pz.data_ptr(), py.data_ptr(),
                             px.data_ptr(), g.data_ptr(), da.data_ptr(),
                             dpz.data_ptr(), dpy.data_ptr(), dpx.data_ptr(),
-                            static_cast<int>(a.size(0)),
-                            static_cast<int>(a.size(1)),
-                            static_cast<int>(a.size(2)),
-                            static_cast<int>(a.size(3)), a.device().index(),
+                            n.B, static_cast<int>(n.bins[0]),
+                            static_cast<int>(n.bins[1]),
+                            static_cast<int>(n.bins[2]),
+                            static_cast<int>(n.bins[3]), a.device().index(),
                             current_stream(a.device())),
            "binsplat_bwd");
   return {da, dpz, dpy, dpx};

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,8 +96,16 @@ def _flat_base(p: torch.Tensor, shape: Sequence[int],
 
 
 def _bin_counts(p: torch.Tensor, shape, kernel: str) -> torch.Tensor:
-    flat = _flat_base(p.detach(), shape, kernel)
-    return torch.bincount(flat, minlength=math.prod(padded_shape(shape)))
+    """Particles per padded cell: (n_cells,) for (N, dim) positions, or
+    (B, n_cells) for a (B, N, dim) keyframe stack in one bincount."""
+    n_cells = math.prod(padded_shape(shape))
+    flat = _flat_base(p.detach().reshape(-1, p.shape[-1]), shape, kernel)
+    if p.ndim == 2:
+        return torch.bincount(flat, minlength=n_cells)
+    B = p.shape[0]
+    flat = flat + n_cells * torch.arange(
+        B, device=p.device).repeat_interleave(p.shape[1])
+    return torch.bincount(flat, minlength=B * n_cells).view(B, n_cells)
 
 
 def max_bin_count(p: torch.Tensor, shape: Sequence[int],
@@ -111,11 +119,13 @@ def bin_count_stats(p: torch.Tensor, shape: Sequence[int],
                     kcand: int = 16) -> torch.Tensor:
     """(1 + kcand,) int64: [max bin count, parked(1), ..., parked(kcand)],
     where parked(k) = sum over cells of max(count - k, 0), the particles a
-    capacity-k binning would park (feeds ParticleConfig.k_budget)."""
+    capacity-k binning would park (feeds ParticleConfig.k_budget). A
+    (B, N, dim) keyframe stack gives one row per keyframe, (B, 1 +
+    kcand)."""
     counts = _bin_counts(p, shape, kernel)
-    parked = torch.stack([torch.clamp(counts - k, min=0).sum()
-                          for k in range(1, kcand + 1)])
-    return torch.cat([counts.max()[None], parked])
+    parked = torch.stack([torch.clamp(counts - k, min=0).sum(dim=-1)
+                          for k in range(1, kcand + 1)], dim=-1)
+    return torch.cat([counts.max(dim=-1).values[..., None], parked], dim=-1)
 
 
 def bucket_k(k: int, cap: int = 4096) -> int:
@@ -127,36 +137,65 @@ def bucket_k(k: int, cap: int = 4096) -> int:
 
 
 def bin_particles(p: torch.Tensor, shape: Tuple[int, ...], K: int,
-                  kernel: str = "bspline") -> Binning:
+                  kernel: str = "bspline",
+                  capacity: Optional[torch.Tensor] = None) -> Binning:
     """Assign each particle slot = rank * n_cells + base cell; ranks >= K
     park it. Not differentiable (integer valued). The kernel decides the
-    base-cell rule, so binning and the splat must use the same one."""
+    base-cell rule, so binning and the splat must use the same one.
+
+    A (B, N, dim) keyframe stack is binned in one pass: the sort key
+    ``b * n_cells + cell`` keeps the keyframes apart and each one's
+    stable ranks (F7), so the Binning's slot (B, N), valid (B, n_slots)
+    and n_overflow (B,) rows are the B single binnings' bit for bit.
+    ``capacity`` (B,) gives each keyframe its own capacity (at most K):
+    keyframe b parks the particles of rank >= capacity[b], as a single
+    binning with K = capacity[b] parks them, in the layout of K ranks."""
     p = p.detach()
-    n = p.shape[0]
+    batched = p.ndim == 3
+    pb = p if batched else p[None]
+    B, n = pb.shape[0], pb.shape[1]
     n_cells = math.prod(padded_shape(shape))
     n_slots = n_cells * K
-    flat = _flat_base(p, shape, kernel)
-    flat_s, order = torch.sort(flat, stable=True)   # sorted by cell
-    ar = torch.arange(n, device=p.device)
-    new_seg = torch.ones(n, dtype=torch.bool, device=p.device)
-    new_seg[1:] = flat_s[1:] != flat_s[:-1]
+    dev = p.device
+    flat = _flat_base(pb.reshape(B * n, pb.shape[-1]), shape, kernel)
+    kf = torch.arange(B, device=dev).repeat_interleave(n)
+    key_s, order = torch.sort(flat + kf * n_cells, stable=True)
+    flat_s = key_s - kf * n_cells        # sorted by keyframe, then cell
+    ar = torch.arange(B * n, device=dev)
+    new_seg = torch.ones(B * n, dtype=torch.bool, device=dev)
+    new_seg[1:] = key_s[1:] != key_s[:-1]
     seg_start = torch.cummax(torch.where(new_seg, ar, 0), dim=0).values
     rank = ar - seg_start
-    ok = rank < K
+    ok = rank < (K if capacity is None
+                 else capacity.to(device=dev, dtype=torch.long)[kf])
     slot_sorted = torch.where(ok, rank.clamp(max=K - 1) * n_cells + flat_s,
-                              n_slots + order)      # park overflow
+                              n_slots + order - kf * n)   # park overflow
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted                       # canonical order
-    valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=p.device)
-    valid[torch.where(ok, slot_sorted, n_slots)] = True
-    return Binning(slot=slot, valid=valid[:n_slots],
-                   n_overflow=(~ok).sum())
+    valid = torch.zeros((B, n_slots + 1), dtype=torch.bool, device=dev)
+    valid.view(-1)[kf * (n_slots + 1) + torch.where(ok, slot_sorted,
+                                                    n_slots)] = True
+    n_over = (~ok).view(B, n).sum(dim=1)
+    if batched:
+        return Binning(slot=slot.view(B, n), valid=valid[:, :n_slots],
+                       n_overflow=n_over)
+    return Binning(slot=slot, valid=valid[0, :n_slots],
+                   n_overflow=n_over[0])
 
 
 def to_binned(binning: Binning, arr: torch.Tensor) -> torch.Tensor:
     """Canonical -> binned, slot-minor: (N,) -> (n_slots + N,) and (N, C)
-    -> (C, n_slots + N), empty slots zero. Differentiable in ``arr``."""
-    n_total = binning.valid.shape[0] + binning.slot.shape[0]
+    -> (C, n_slots + N), empty slots zero; with a keyframe batch's
+    Binning, (B, N) -> (B, n_slots + N) and (B, N, C) -> (B, C, n_slots
+    + N). Differentiable in ``arr``."""
+    n_total = binning.valid.shape[-1] + binning.slot.shape[-1]
+    if binning.slot.ndim == 2:
+        B = arr.shape[0]
+        if arr.ndim == 2:
+            return arr.new_zeros((B, n_total)).scatter(1, binning.slot, arr)
+        a = arr.transpose(1, 2)
+        return a.new_zeros((B, a.shape[1], n_total)).scatter(
+            2, binning.slot[:, None].expand(a.shape), a)
     zero = arr.new_zeros(n_total)
     if arr.ndim == 1:
         return zero.index_copy(0, binning.slot, arr)
@@ -167,19 +206,26 @@ def to_binned(binning: Binning, arr: torch.Tensor) -> torch.Tensor:
 
 def from_binned(binning: Binning, arr: torch.Tensor) -> torch.Tensor:
     """Binned -> canonical: (n_slots + N,) -> (N,), (C, n_slots + N) ->
-    (N, C). Exact inverse of ``to_binned`` for every particle, parked ones
-    included."""
+    (N, C), and per keyframe of a batch's Binning. Exact inverse of
+    ``to_binned`` for every particle, parked ones included."""
+    if binning.slot.ndim == 2:
+        if arr.ndim == 2:
+            return arr.gather(1, binning.slot)
+        idx = binning.slot[:, None].expand(-1, arr.shape[1], -1)
+        return arr.gather(2, idx).transpose(1, 2)
     if arr.ndim == 1:
         return arr[binning.slot]
     return arr[:, binning.slot].T
 
 
 def _shift_into(contrib: torch.Tensor, off, pshape) -> torch.Tensor:
-    """contrib[c, b] moved to cell b + off (front zero pad, end crop)."""
+    """contrib[..., b] moved to cell b + off (front zero pad, end crop)
+    over the trailing len(pshape) axes."""
     pads = []
     for o in reversed(off):
         pads += [o, 0]
-    crop = (slice(None),) + tuple(slice(0, s) for s in pshape)
+    lead = contrib.ndim - len(pshape)
+    crop = (slice(None),) * lead + tuple(slice(0, s) for s in pshape)
     return F.pad(contrib, pads)[crop]
 
 
@@ -197,19 +243,28 @@ def splat_binned(p_b: torch.Tensor, attr_b: torch.Tensor,
       valid: (n_slots,) bool from the Binning.
       shape: unpadded output grid shape.
 
+    A keyframe batch's binned arrays (a leading B on all three, ``valid``
+    (B, n_slots)) splat in one pass to (B, *shape[, C]), each keyframe
+    summed as a single call sums it.
+
     Returns: (*shape,) or (*shape, C) grid == the flat splat with the same
     kernel at support 1.
     """
     T = n_taps(kernel)
     ndim = len(shape)
     pshape = padded_shape(shape)
-    has_c = attr_b.ndim == 2
+    batched = valid.ndim == 2
+    if not batched:
+        p_b, attr_b, valid = p_b[None], attr_b[None], valid[None]
+    B = p_b.shape[0]
+    has_c = attr_b.ndim == 3
     if not has_c:
-        attr_b = attr_b[None]
-    C = attr_b.shape[0]
+        attr_b = attr_b[:, None]
+    C = attr_b.shape[1]
     n_slots = math.prod(pshape) * K
 
-    a = torch.where(valid, attr_b[:, :n_slots], 0.0).reshape((C, K) + pshape)
+    a = torch.where(valid[:, None], attr_b[..., :n_slots], 0.0).reshape(
+        (B, C, K) + pshape)
     # offset of each particle from its binned base cell, whose coordinate
     # is the slot's own index in the dense array
     frac = []
@@ -217,18 +272,19 @@ def splat_binned(p_b: torch.Tensor, attr_b: torch.Tensor,
         coord = torch.arange(pshape[d], dtype=torch.float32,
                              device=p_b.device).reshape(
             (pshape[d],) + (1,) * (ndim - 1 - d))
-        frac.append(p_b[d, :n_slots].reshape((K,) + pshape)
+        frac.append(p_b[:, d, :n_slots].reshape((B, K) + pshape)
                     + float(PAD) - coord)
     # factorized per-axis weights, shared by all T^ndim taps
     W = [[_kernel_weight_1d(float(o) - frac[d], kernel) for o in range(T)]
          for d in range(ndim)]
-    out = torch.zeros((C,) + pshape, dtype=a.dtype, device=a.device)
+    out = torch.zeros((B, C) + pshape, dtype=a.dtype, device=a.device)
     for off in itertools.product(range(T), repeat=ndim):
         w = W[0][off[0]]
         for d in range(1, ndim):
             w = w * W[d][off[d]]
-        contrib = (w[None] * a).sum(dim=1)          # contract over K
+        contrib = (w[:, None] * a).sum(dim=2)       # contract over K
         out = out + _shift_into(contrib, off, pshape)
-    out = out[(slice(None),) + tuple(slice(PAD, PAD + shape[d])
-                                     for d in range(ndim))]
-    return torch.movedim(out, 0, -1) if has_c else out[0]
+    out = out[(slice(None), slice(None)) + tuple(
+        slice(PAD, PAD + shape[d]) for d in range(ndim))]
+    out = torch.movedim(out, 1, -1) if has_c else out[:, 0]
+    return out if batched else out[0]

@@ -15,6 +15,9 @@ grid: the masked attribute ``a`` and the raw position components
 ``p_z, p_y, p_x`` (unpadded grid coordinates). :func:`binsplat_fwd`
 returns the padded ``(Zp, Yp, Xp)`` splat, :func:`binsplat_bwd` the
 gradients wrt the four arrays given the cotangent ``g`` of that splat.
+A keyframe batch, ``(B, K, Zp, Yp, Xp)`` bins and a ``(B, Zp, Yp, Xp)``
+splat, is one launch of each kernel with each keyframe's bits of a
+single launch (the keyframe-parallel engine, ``parallel/particles.py``).
 On a CPU tensor a wrapper runs its plain PyTorch version (``window_*_plain``);
 on a CUDA tensor it launches the kernel and counts the launch in
 :data:`LAUNCHES`, or raises. There is no fallback from CUDA to the plain
@@ -116,7 +119,11 @@ _OFFSETS = [(oz, oy, ox) for oz in range(3) for oy in range(3)
 
 def window_fwd_plain(a, pz, py, px) -> torch.Tensor:
     """K4 on tensors: out[q] = sum_k sum_off W_off[k, q - off] *
-    a[k, q - off], as 27 shifted adds over the bin arrays."""
+    a[k, q - off], as 27 shifted adds over the bin arrays; a keyframe
+    batch keyframe by keyframe."""
+    if a.ndim == 5:
+        return torch.stack([window_fwd_plain(*t)
+                            for t in zip(a, pz, py, px)])
     _, Z, Y, X = a.shape
     W = [[_w1d(float(o) - f) for o in range(3)] for f in _fracs(pz, py, px)]
     out = torch.zeros((Z, Y, X), dtype=torch.float32, device=a.device)
@@ -128,7 +135,11 @@ def window_fwd_plain(a, pz, py, px) -> torch.Tensor:
 
 def window_bwd_plain(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
     """K5 on tensors: (da, dp_z, dp_y, dp_x), each (K, Zp, Yp, Xp), with
-    the cotangent read at g[b + off] (zero beyond the grid)."""
+    the cotangent read at g[b + off] (zero beyond the grid); a keyframe
+    batch keyframe by keyframe."""
+    if a.ndim == 5:
+        return tuple(torch.stack(r) for r in zip(*(
+            window_bwd_plain(*t) for t in zip(a, pz, py, px, g))))
     _, Z, Y, X = a.shape
     fr = _fracs(pz, py, px)
     W = [[_w1d(float(o) - f) for o in range(3)] for f in fr]
@@ -150,16 +161,21 @@ def window_bwd_plain(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
 # --------------------------------------------------------------------- #
 
 def _check_bins(a, pz, py, px, *g):
-    """The bin arrays' checks, and g's when given (_cuda_build.check)."""
-    if a.ndim != 4:
-        raise ValueError(f"a: expected (K, Zp, Yp, Xp), got {tuple(a.shape)}")
+    """The bin arrays' checks, and g's when given (_cuda_build.check):
+    (K, Zp, Yp, Xp) bins and a (Zp, Yp, Xp) g, or a keyframe batch of
+    (B, K, Zp, Yp, Xp) bins and a (B, Zp, Yp, Xp) g."""
+    if a.ndim not in (4, 5):
+        raise ValueError(f"a: expected ([B,] K, Zp, Yp, Xp), got "
+                         f"{tuple(a.shape)}")
     s = a.shape
+    cells = s[:1] + s[2:] if a.ndim == 5 else s[1:]
     _cuda_build.check("binned-splat kernels", ("a", "p_z", "p_y", "p_x", "g"),
-                      (a, pz, py, px, *g), (s, s, s, s, s[1:]))
+                      (a, pz, py, px, *g), (s, s, s, s, cells))
 
 
 def binsplat_fwd(a, pz, py, px) -> torch.Tensor:
-    """K4: the padded (Zp, Yp, Xp) splat of the bins."""
+    """K4: the padded (Zp, Yp, Xp) splat of the bins ((B, Zp, Yp, Xp)
+    of a keyframe batch, in one launch)."""
     if a.is_cuda:
         out = load_library().binsplat_fwd.default(a, pz, py, px)
         LAUNCHES["fwd"] += 1
@@ -169,7 +185,8 @@ def binsplat_fwd(a, pz, py, px) -> torch.Tensor:
 
 
 def binsplat_bwd(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
-    """K5: (da, dp_z, dp_y, dp_x) given the padded splat's cotangent g."""
+    """K5: (da, dp_z, dp_y, dp_x) given the padded splat's cotangent g
+    (of a keyframe batch too, in one launch)."""
     if a.is_cuda:
         grads = load_library().binsplat_bwd.default(a, pz, py, px, g)
         LAUNCHES["bwd"] += 1
@@ -180,7 +197,8 @@ def binsplat_bwd(a, pz, py, px, g) -> Tuple[torch.Tensor, ...]:
 
 class BinWindow(torch.autograd.Function):
     """Differentiable binned window splat of four (K, Zp, Yp, Xp) bin
-    arrays to the padded (Zp, Yp, Xp) grid: ``BinWindow.apply(a, p_z,
+    arrays to the padded (Zp, Yp, Xp) grid (or of a keyframe batch's
+    (B, K, Zp, Yp, Xp) to (B, Zp, Yp, Xp)): ``BinWindow.apply(a, p_z,
     p_y, p_x)``. Counterpart of ``_window_pallas``' custom VJP: K4 forward,
     K5 backward (all four gradients in one launch, as on the TPU). Empty
     slots must carry a == 0, so their value and position gradient are
@@ -202,16 +220,20 @@ def splat_binned_window(p_b: torch.Tensor, attr_b: torch.Tensor,
     """Drop-in for ``ops.binsplat.splat_binned`` (3D, single-channel
     attribute, bspline) through :class:`BinWindow`: masks the attribute by
     ``valid``, runs the window on the dense slots viewed as (K, Zp, Yp, Xp)
-    and crops the PAD ring. Differentiable in ``p_b`` and ``attr_b``;
-    parked and empty slots get exactly zero gradient."""
-    if len(shape) != 3 or attr_b.ndim != 1:
+    and crops the PAD ring. A keyframe batch's (B, 3, S) positions, (B, S)
+    attributes and (B, n_slots) ``valid`` give (B, Z, Y, X) in one launch
+    of each kernel. Differentiable in ``p_b`` and ``attr_b``; parked and
+    empty slots get exactly zero gradient."""
+    lead = valid.ndim - 1
+    if len(shape) != 3 or attr_b.ndim != 1 + lead:
         raise ValueError("splat_binned_window takes 3D grids and a "
                          "single-channel attribute; use splat_binned for "
                          "2D grids or channels")
     pshape = padded_shape(shape)
     n_slots = math.prod(pshape) * K
-    a4 = torch.where(valid, attr_b[:n_slots], 0.0).view((K,) + pshape)
-    p4 = [p_b[d, :n_slots].view((K,) + pshape) for d in range(3)]
+    bins = attr_b.shape[:lead] + (K,) + pshape
+    a4 = torch.where(valid, attr_b[..., :n_slots], 0.0).view(bins)
+    p4 = [p_b[..., d, :n_slots].reshape(bins) for d in range(3)]
     out = BinWindow.apply(a4, *p4)
     Z, Y, X = shape
-    return out[PAD:PAD + Z, PAD:PAD + Y, PAD:PAD + X]
+    return out[..., PAD:PAD + Z, PAD:PAD + Y, PAD:PAD + X]

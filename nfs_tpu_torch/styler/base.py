@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from nfs_tpu_torch.core.config import StyleConfig
-from nfs_tpu_torch.features.losses import (
-    content_loss, semantic_loss, style_gram_targets, style_loss)
+from nfs_tpu_torch.features.losses import gram_matrix, style_gram_targets
 from nfs_tpu_torch.features.vgg import (
     get_vgg_params, params_to, vgg_features)
 from nfs_tpu_torch.io.image import load_image
@@ -137,18 +136,36 @@ class StylerBase:
                             pool=lc.pool, dtype=dtype)
 
     def _image_loss(self, imgs: torch.Tensor, data) -> torch.Tensor:
+        """The image loss of one (V, H, W, 3) view set."""
+        return self._image_losses(imgs[None], data)[0]
+
+    def _image_losses(self, imgs: torch.Tensor, data) -> torch.Tensor:
+        """The image loss of each of B view sets, imgs (B, V, H, W, 3),
+        pushed through VGG in one batch: (B,) losses, each the weighted
+        Gram MSE over the style layers plus the content (or semantic)
+        term, every one a mean over its set's V images."""
         lc = self.cfg.loss
-        feats = self._features(imgs, data)
-        total = torch.zeros((), dtype=torch.float32, device=imgs.device)
+        B = imgs.shape[0]
+        feats = self._features(imgs.reshape((-1,) + imgs.shape[2:]), data)
+        total = torch.zeros(B, dtype=torch.float32, device=imgs.device)
+
+        def per_set(x):
+            return torch.mean(x.reshape(B, -1), dim=1)
+
         if data["targets"] is not None and lc.w_style:
-            total = total + lc.w_style * style_loss(
-                feats, data["targets"], lc.style_layers,
-                lc.style_layer_weights)
+            style = 0.0
+            for layer, lw in zip(lc.style_layers, lc.style_layer_weights):
+                g = gram_matrix(feats[layer])
+                gt = data["targets"][layer].to(torch.float32)
+                style = style + lw * per_set((g - gt) ** 2)
+            total = total + lc.w_style * style
         if lc.content_layer and lc.w_content:
+            f = feats[lc.content_layer].to(torch.float32)
             if data["content"] is not None:
-                total = total + lc.w_content * content_loss(
-                    feats, data["content"], lc.content_layer)
+                t = data["content"][lc.content_layer].to(torch.float32)
+                total = total + lc.w_content * per_set((f - t) ** 2)
             else:
-                total = total + lc.w_content * semantic_loss(
-                    feats, lc.content_layer, lc.content_channel)
+                ch = (f if lc.content_channel is None
+                      else f[..., lc.content_channel])
+                total = total - lc.w_content * per_set(ch)
         return total

@@ -37,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from nfs_tpu_torch.core.config import StyleConfig
-from nfs_tpu_torch.features.losses import gram_matrix, tv_loss
+from nfs_tpu_torch.features.losses import tv_loss
 from nfs_tpu_torch.io.checkpoint import (
     load_checkpoint, read_meta, save_checkpoint)
 from nfs_tpu_torch.ops.advect import advect, advect_maccormack
@@ -131,32 +131,7 @@ class GridStyler(StylerBase):
         """Window-batched image loss: imgs (P, V, H, W, 3) holds every
         window position's views, pushed through VGG in one batch. Returns
         sum_p pos_weights[p] * image_loss(imgs[p])."""
-        lc = self.cfg.loss
-        P, V = imgs.shape[0], imgs.shape[1]
-        feats = self._features(imgs.reshape((P * V,) + imgs.shape[2:]),
-                               data)
-        total = torch.zeros((), dtype=torch.float32, device=imgs.device)
-        if data["targets"] is not None and lc.w_style:
-            for layer, lw in zip(lc.style_layers, lc.style_layer_weights):
-                g = gram_matrix(feats[layer])                 # (P*V,C,C)
-                gt = data["targets"][layer].to(torch.float32)
-                mse = torch.mean((g - gt) ** 2, dim=(-2, -1))
-                per_pos = torch.mean(mse.reshape(P, V), dim=1)
-                total = total + lc.w_style * lw * torch.sum(
-                    pos_weights * per_pos)
-        if lc.content_layer and lc.w_content:
-            f = feats[lc.content_layer].to(torch.float32)
-            dims = tuple(range(1, f.ndim))
-            if data["content"] is not None:
-                ft = data["content"][lc.content_layer].to(torch.float32)
-                mse = torch.mean((f - ft) ** 2, dim=dims)
-            else:
-                ch = (f if lc.content_channel is None
-                      else f[..., lc.content_channel])
-                mse = -torch.mean(ch, dim=tuple(range(1, ch.ndim)))
-            per_pos = torch.mean(mse.reshape(P, V), dim=1)
-            total = total + lc.w_content * torch.sum(pos_weights * per_pos)
-        return total
+        return torch.sum(pos_weights * self._image_losses(imgs, data))
 
     def _window_weights(self, window: int) -> torch.Tensor:
         oc = self.cfg.optim

@@ -119,7 +119,7 @@ def run_octave(param: Param, loss_fn: Callable, data,
         loss, grad = value_and_grad(loss_fn, param, views[i], data)
         updates, state = opt.update(grad, state)
         param = _leafwise(lambda p, u: (p + u).detach(), param, updates)
-        losses.append(loss.detach().to(torch.float32).reshape(()))
+        losses.append(loss.detach().to(torch.float32))
         done = i + 1
         if observed and (done % chunk == 0 or done == iters):
             if state_callback is not None:
@@ -144,7 +144,10 @@ def value_and_grad(loss_fn: Callable, param: Param, *args):
          else leaves[0])
     loss = loss_fn(p, *args)
     if loss.requires_grad:
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a vector of independent losses (a keyframe batch's): the
+        # gradient of their sum is each one's own
+        grads = torch.autograd.grad(loss.sum() if loss.ndim else loss,
+                                    leaves, allow_unused=True)
     else:  # the objective does not depend on the param
         grads = [None] * len(leaves)
     grads = [torch.zeros_like(l) if g is None else g

@@ -33,6 +33,12 @@ package:
 - flat: one ``index_add`` of every particle's taps (``ops/splat.py``),
   for other kernels or supports, or when the bins would not fit.
 
+Every route runs a keyframe batch, a leading B on the particles, the
+params and the views; one frame is a batch of one. The keyframe-parallel
+engine (``parallel/particles.py``) runs B keyframes as one program: one
+binning, one splat and one render per iteration for all of them, VGG
+over all their views, (B,) losses.
+
 The JAX package keeps the binned chunk state in the TPU kernels' shifted,
 tile-rounded layout when they run (``binned_layout='auto'``). That layout
 exists for the TPU's (8, 128) tiling and has no counterpart here:
@@ -46,6 +52,7 @@ grid is its own image and draws no views.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Dict, Optional, Tuple
 
@@ -62,7 +69,8 @@ from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
 from nfs_tpu_torch.ops.interp import grid_sample
 from nfs_tpu_torch.ops.resize import octave_shapes
 from nfs_tpu_torch.ops.splat import splat, splat_normalized
-from nfs_tpu_torch.render.raymarch import render2d, render_views
+from nfs_tpu_torch.render.raymarch import (
+    render2d, render_views, render_views_batch)
 from nfs_tpu_torch.styler.base import StylerBase
 from nfs_tpu_torch.styler.octave import (
     Adam, AdamState, run_octave, value_and_grad)
@@ -94,38 +102,64 @@ def _uses_window(pc, shape) -> bool:
 
 def _octave_max_counts(p, shps, base: float, kernel="bspline"):
     """Per-octave bin stats on the device: row o = [max count,
-    parked(1..16)] for octave shape o (feeds the K-budget selection)."""
-    return torch.stack([bin_count_stats(p * (s[0] / base), s, kernel)
-                        for s in shps])
+    parked(1..16)] for octave shape o (feeds the K-budget selection). A
+    (B, N, dim) keyframe stack gives (B, octaves, 17) in one pass."""
+    out = torch.stack([bin_count_stats(p * (s[0] / base), s, kernel)
+                       for s in shps])
+    return out if p.ndim == 2 else out.transpose(0, 1)
+
+
+def _sample_fields(g: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Each keyframe's field at its own points in one ``grid_sample``:
+    (B, *shape) fields at (B, N, dim) coordinates -> (B, N). The keyframe
+    is a leading integer coordinate, whose second corner carries weight
+    0."""
+    B, n = coords.shape[:2]
+    kf = torch.arange(B, dtype=coords.dtype, device=coords.device)
+    return grid_sample(g, torch.cat(
+        [kf.view(B, 1, 1).expand(B, n, 1), coords], dim=-1))
+
+
+def _capacities(ks):
+    """(K, capacity) of a keyframe batch's bin capacities ``ks``: the
+    layout's K and, where they differ, the (B,) capacities for
+    ``bin_particles``."""
+    return max(ks), (None if len(set(ks)) == 1 else torch.tensor(ks))
 
 
 def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
-                       data, loss_fn, optimizer: Adam, shape, K: int,
+                       data, loss_fn, optimizer: Adam, shape, ks,
                        scale: float, max_offset: float, has_dx: bool,
                        kernel: str = "bspline", return_state: bool = True):
-    """One rebin + len(views) optimizer iterations.
+    """One rebin + len(views) optimizer iterations of a keyframe batch
+    (``data['x']`` (B, N, dim), every leaf with a leading B).
 
-    Bins at the chunk-start positions, moves param AND Adam state into the
-    slot layout (Adam is elementwise, so permuting its moments with the
-    params is exact), runs the steps, and moves both back to canonical
-    particle order. ``opt_state=None`` starts Adam in the slot layout;
-    ``return_state=False`` skips moving the state back.
+    Bins every keyframe at the chunk-start positions, keyframe b at the
+    capacity ``ks[b]`` (``ops.binsplat.bin_particles``), moves param AND
+    Adam state into the slot layout (Adam is elementwise, so permuting
+    its moments with the params is exact), runs the steps, and moves both
+    back to canonical particle order. ``opt_state=None`` starts Adam in
+    the slot layout; ``return_state=False`` skips moving the state back.
+    The loss is (B,) per-keyframe losses, whose sum has no cross-keyframe
+    term, so each keyframe gets its own gradient. Returns the losses
+    (B, steps) and the parked counts (B,).
     """
     x, dens = data["x"], data["dens"]
-    n = x.shape[0]
+    n = x.shape[1]
+    K, capacity = _capacities(ks)
     with torch.no_grad():
         p = (x + _offset(param["dx"], max_offset)) * scale if has_dx \
             else x * scale
-    bn = bin_particles(p, shape, K, kernel=kernel)
-    n_slots = bn.valid.shape[0]
+    bn = bin_particles(p, shape, K, kernel=kernel, capacity=capacity)
+    n_slots = bn.valid.shape[-1]
 
-    def to_b(tree):         # canonical (N, ...) leaves -> binned
-        return {k: to_binned(bn, v) if v.ndim in (1, 2) and v.shape[0] == n
+    def to_b(tree):         # canonical (B, N, ...) leaves -> binned
+        return {k: to_binned(bn, v) if v.ndim in (2, 3) and v.shape[1] == n
                 else v for k, v in tree.items()}
 
     def from_b(tree):       # binned (slot-minor) leaves -> canonical
         return {k: from_binned(bn, v)
-                if v.ndim in (1, 2) and v.shape[-1] == n_slots + n else v
+                if v.ndim in (2, 3) and v.shape[-1] == n_slots + n else v
                 for k, v in tree.items()}
 
     param_b = to_b(param)
@@ -139,10 +173,11 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
         loss, grads = value_and_grad(loss_fn, param_b, v, data_b)
         updates, state_b = optimizer.update(grads, state_b)
         param_b = {k: (param_b[k] + updates[k]).detach() for k in param_b}
-        losses.append(loss.detach().to(torch.float32).reshape(()))
+        losses.append(loss.detach().to(torch.float32))
     state = (AdamState(state_b.count, from_b(state_b.mu),
                        from_b(state_b.nu)) if return_state else None)
-    return from_b(param_b), state, torch.stack(losses), bn.n_overflow
+    return (from_b(param_b), state, torch.stack(losses, dim=-1),
+            bn.n_overflow)
 
 
 class ParticleStyler(StylerBase):
@@ -245,20 +280,50 @@ class ParticleStyler(StylerBase):
                             method=rc.rotation, tf_nodes=tf,
                             tf_max=rc.tf_max_density, color=c_grid)
 
+    def _render_batch(self, d_grids: torch.Tensor, c_grids, views,
+                      render_size) -> torch.Tensor:
+        """:meth:`_render` of a keyframe batch -> (B, V, H, W, 3): each
+        3D density grid under its own (V, 2) views (``views`` (B, V, 2))
+        in one batched render; a colour volume or a 2D grid keyframe by
+        keyframe."""
+        rc = self.cfg.render
+        if d_grids.ndim == 4 and c_grids is None:
+            return render_views_batch(
+                d_grids, views[..., 0], views[..., 1], transmit=rc.transmit,
+                out_size=render_size, gamma=rc.gamma, method=rc.rotation,
+                tf_nodes=self.tf_nodes, tf_max=rc.tf_max_density)
+        return torch.stack([
+            self._render(d, None if c_grids is None else c_grids[i],
+                         None if views is None else views[i], render_size)
+            for i, d in enumerate(d_grids)])
+
+    def _splat_batch(self, param: Param, x, dens, scale: float, shape):
+        """:meth:`_splat_grids` of each keyframe of a batch, stacked:
+        (B, *shape) densities and (B, *shape, 3) colours or None."""
+        grids = [self._splat_grids({k: v[i] for k, v in param.items()},
+                                   {"x": x[i], "dens": dens[i]}, scale,
+                                   shape) for i in range(x.shape[0])]
+        return (torch.stack([d for d, _ in grids]),
+                None if grids[0][1] is None
+                else torch.stack([c for _, c in grids]))
+
     def _get_loss_fn(self, shape: Tuple[int, ...], scale: float):
-        """Loss of the flat-splat route."""
+        """Loss of the flat-splat route: (B,) per-keyframe losses, the
+        splat keyframe by keyframe."""
         rsize = self._octave_render_size(scale)
         sig = (shape, round(scale, 6), rsize)
         if sig in self._loss_cache:
             return self._loss_cache[sig]
 
         def loss_fn(param, views, data):
-            d_grid, c_grid = self._splat_grids(param, data, scale, shape)
-            total = self._image_loss(
-                self._render(d_grid, c_grid, views, rsize), data)
+            d_grid, c_grid = self._splat_batch(param, data["x"],
+                                               data["dens"], scale, shape)
+            total = self._image_losses(
+                self._render_batch(d_grid, c_grid, views, rsize), data)
             if "dx" in param:
                 # keep offsets small (LNST regularizes position changes)
-                total = total + 1e-3 * torch.mean(param["dx"] ** 2)
+                total = total + 1e-3 * torch.mean(param["dx"] ** 2,
+                                                  dim=(1, 2))
             return total
 
         self._loss_cache[sig] = loss_fn
@@ -266,9 +331,12 @@ class ParticleStyler(StylerBase):
 
     def _get_binned_loss_fn(self, shape: Tuple[int, ...], scale: float,
                             K: int):
-        """Loss over the binned slot layout; equals `_get_loss_fn` for the
-        'bspline' and 'linear' kernels at support 1. Density, colour and
-        the colour's normalization share one 5-channel window pass."""
+        """Loss over the binned slot layout of a keyframe batch (leading
+        B): (B,) per-keyframe losses, every splat and render one batched
+        call and VGG one pass over the B * V images. Equals `_get_loss_fn`
+        for the 'bspline' and 'linear' kernels at support 1. Density,
+        colour and the colour's normalization share one 5-channel window
+        pass."""
         rsize = self._octave_render_size(scale)
         pc = self.cfg.particle
         sig = ("binned", pc.splat_impl, pc.kernel, shape, round(scale, 6),
@@ -278,8 +346,8 @@ class ParticleStyler(StylerBase):
         window = _uses_window(pc, shape)
 
         def loss_fn(param_b, views, data_b):
-            # binned leaves are slot-minor: xb/dx (dim, S), densb (S,),
-            # color (3, S)
+            # binned leaves are slot-minor: xb/dx (B, dim, S), densb
+            # (B, S), color (B, 3, S)
             xb, densb, valid = data_b["xb"], data_b["densb"], data_b["valid"]
             if "dx" in param_b:
                 pb = (xb + _offset(param_b["dx"], pc.max_offset)) * scale
@@ -292,8 +360,9 @@ class ParticleStyler(StylerBase):
             c_grid = None
             if "color" in param_b:
                 colb = jax_clip(param_b["color"], 0.0, 1.0)
-                attr = torch.cat([dens_eff[None], colb,
-                                  torch.ones_like(dens_eff)[None]])
+                attr = torch.cat([dens_eff.unsqueeze(-2), colb,
+                                  torch.ones_like(dens_eff).unsqueeze(-2)],
+                                 dim=-2)
                 out = splat_binned(pb, attr, valid, shape, K,
                                    kernel=pc.kernel)
                 d_grid = out[..., 0]
@@ -304,12 +373,13 @@ class ParticleStyler(StylerBase):
                 d_grid = splat_binned(pb, dens_eff, valid, shape, K,
                                       kernel=pc.kernel)
             d_grid = d_grid * (scale ** 2)
-            total = self._image_loss(
-                self._render(d_grid, c_grid, views, rsize), data_b)
+            total = self._image_losses(
+                self._render_batch(d_grid, c_grid, views, rsize), data_b)
             if "dx" in param_b:
                 # parked + dense slots hold every particle once and empty
                 # slots are zero, so sum / N == the canonical mean
-                total = total + (1e-3 * torch.sum(param_b["dx"] ** 2)
+                total = total + (1e-3 * torch.sum(param_b["dx"] ** 2,
+                                                  dim=(1, 2))
                                  / data_b["n_dx"])
             return total
 
@@ -317,8 +387,9 @@ class ParticleStyler(StylerBase):
         return loss_fn
 
     def _get_grid_loss_fn(self, shape: Tuple[int, ...], scale: float):
-        """Loss of a grid-space coarse octave: a log-density field g over
-        the once-splatted octave density, d* = base_d * exp(g)."""
+        """Loss of a grid-space coarse octave: log-density fields g
+        (B, *shape) over the once-splatted octave densities, d* = base_d *
+        exp(g), to (B,) losses."""
         rsize = self._octave_render_size(scale)
         sig = ("grid_coarse", shape, round(scale, 6), rsize)
         if sig in self._loss_cache:
@@ -326,28 +397,29 @@ class ParticleStyler(StylerBase):
 
         def loss_fn(g, views, data):
             d_grid = data["base_d"] * torch.exp(g)
-            return self._image_loss(
-                self._render(d_grid, None, views, rsize), data)
+            return self._image_losses(
+                self._render_batch(d_grid, None, views, rsize), data)
 
         self._loss_cache[sig] = loss_fn
         return loss_fn
 
     @torch.no_grad()
     def _prep_splat(self, param: Param, x, dens, shape, scale: float,
-                    K: Optional[int]) -> torch.Tensor:
-        """The one splat of a grid-space coarse octave: binned (through
-        K4 where the window kernels apply) when a capacity K fits, flat
-        otherwise."""
+                    ks) -> torch.Tensor:
+        """The one splat of a grid-space coarse octave for a keyframe
+        batch (x (B, N, dim), ``ks`` a bin capacity or None per keyframe)
+        -> (B, *shape): binned in one pass (through K4 where the window
+        kernels apply) when every keyframe has a capacity, else flat."""
         pc = self.cfg.particle
-        if K is None:
-            return self._splat_grids(param, {"x": x, "dens": dens}, scale,
-                                     shape)[0]
+        if None in ks:
+            return self._splat_batch(param, x, dens, scale, shape)[0]
         if "dx" in param:
             x = x + _offset(param["dx"], pc.max_offset)
         if "ddens" in param:
             dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
         xs = x * scale
-        bn = bin_particles(xs, shape, K, kernel=pc.kernel)
+        K, capacity = _capacities(ks)
+        bn = bin_particles(xs, shape, K, kernel=pc.kernel, capacity=capacity)
         pb = to_binned(bn, xs)
         db = to_binned(bn, dens)
         if _uses_window(pc, shape):
@@ -358,29 +430,30 @@ class ParticleStyler(StylerBase):
         return base_d * (scale ** 2)
 
     def _grid_coarse_octave(self, param: Param, data, views, shape,
-                            scale: float, K=None, callback=None):
-        """One coarse octave in grid space, folded into per-particle ddens
-        (one splat and one trilinear sample per octave)."""
+                            scale: float, ks, callback=None):
+        """One coarse octave of a keyframe batch in grid space, folded
+        into per-particle ddens (one splat and one trilinear sample per
+        octave): B fields in one run of Adam, elementwise. Returns the
+        (B, iters) losses."""
         oc, pc = self.cfg.optim, self.cfg.particle
         shape = tuple(shape)
         base_d = self._prep_splat(param, data["x"], data["dens"], shape,
-                                  scale, K)
+                                  scale, ks)
         gdata = {"pool": data["pool"], "vgg": data["vgg"],
                  "targets": data["targets"], "content": data.get("content"),
                  "base_d": base_d}
-        g0 = torch.zeros(shape, dtype=torch.float32, device=self.device)
         g, losses, _ = run_octave(
-            g0, self._get_grid_loss_fn(shape, scale), gdata, views,
-            iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
+            torch.zeros_like(base_d), self._get_grid_loss_fn(shape, scale),
+            gdata, views, iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
             log_every=oc.log_every, callback=callback,
             optimizer=self._optimizer)
-        with torch.no_grad():
+        if "ddens" in param:
             x = data["x"]
             if "dx" in param:
                 x = x + _offset(param["dx"], pc.max_offset)
             param = dict(param, ddens=param["ddens"]
-                         + grid_sample(g, x * scale))
-        return param, losses
+                         + _sample_fields(g, x * scale))
+        return param, losses.T
 
     def _octave_ks(self, x, dx, shapes, kmaxes=None,
                    margin: int = 0) -> Optional[list]:
@@ -424,13 +497,15 @@ class ParticleStyler(StylerBase):
         return ks
 
     def _run_binned_octave(self, param: Param, data, views, shape,
-                           scale: float, K: int, callback=None):
-        """Binned octave: one rebin per chunk of `particle.rebin_every`
-        iterations; the callback gets each chunk's mean loss."""
+                           scale: float, ks, callback=None):
+        """Binned octave of a keyframe batch (``ks`` a bin capacity per
+        keyframe, laid out at the largest): one rebin per chunk of
+        `particle.rebin_every` iterations; the callback gets each chunk's
+        mean loss. Returns (B, iters) losses and (B,) parked counts."""
         oc, pc = self.cfg.optim, self.cfg.particle
-        loss_fn = self._get_binned_loss_fn(tuple(shape), scale, K)
+        loss_fn = self._get_binned_loss_fn(tuple(shape), scale, max(ks))
         has_dx = "dx" in param
-        dims = param["dx"].numel() if has_dx else 1
+        dims = math.prod(param["dx"].shape[-2:]) if has_dx else 1
         chunk_data = dict(data, n_dx=float(dims))
         # Adam state is fresh per octave: the first chunk starts it in the
         # slot layout, the last one does not move it back
@@ -442,7 +517,7 @@ class ParticleStyler(StylerBase):
             nst = min(chunk, oc.iters - done)
             param, opt_state, losses, n_over = _binned_chunk_core(
                 param, opt_state, views[done:done + nst], chunk_data,
-                loss_fn, self._optimizer, tuple(shape), K, scale,
+                loss_fn, self._optimizer, tuple(shape), ks, scale,
                 pc.max_offset, has_dx, kernel=pc.kernel,
                 return_state=done + nst < oc.iters)
             done += nst
@@ -450,8 +525,70 @@ class ParticleStyler(StylerBase):
             overflows.append(n_over)  # stays on the device
             if callback is not None:
                 callback(done, float(losses.mean()))
-        return (param, torch.cat(all_losses),
-                torch.stack(overflows).max())
+        return (param, torch.cat(all_losses, dim=-1),
+                torch.stack(overflows).amax(dim=0))
+
+    def _keyframe_views(self, generators, schedules, o: int):
+        """Per-iteration (B, V, 2) view sets of octave ``o`` for a
+        keyframe batch, keyframe b's from ``generators[b]`` or its
+        ``schedules[b]`` row (``schedules`` None: every keyframe draws);
+        None per iteration for a 2D grid (it is its own image)."""
+        iters = self.cfg.optim.iters
+        if len(self.grid_shape) == 2:
+            return [None] * iters
+        per_kf = [self._octave_views(
+            gen, None if schedules is None else schedules[b][o], iters, 1)
+            for b, gen in enumerate(generators)]
+        return [torch.stack([kf[it][0] for kf in per_kf])
+                for it in range(iters)]
+
+    def _optimize_keyframes(self, param: Param, x, dens, plan,
+                            generators, schedules=None, callback=None):
+        """The octave loop of a keyframe batch: x (B, N, dim), dens
+        (B, N), param leaves (B, N, ...), ``plan`` each keyframe's bin
+        capacity per octave (None entries: not binned), keyframe b drawing
+        its views from ``generators[b]`` (or ``schedules[b]``, (octave_n,
+        iters) pool indices). Per octave: a grid-space coarse octave, the
+        binned route when every keyframe has a capacity, else the flat
+        splat. Returns (param, per-octave (B, iters) losses, (B, octaves)
+        parked counts on the device)."""
+        oc, pc = self.cfg.optim, self.cfg.particle
+        shapes = [tuple(s) for s in octave_shapes(
+            self.grid_shape, oc.octave_n, oc.octave_scale)]
+        # grid-space coarse octaves: only the finest octave splats every
+        # iteration
+        grid_coarse = (pc.coarse_mode == "grid" and "ddens" in param
+                       and len(shapes) > 1)
+        data = {"x": x, "dens": dens, "pool": self.view_pool,
+                "vgg": self.vgg_params, "targets": self.gram_targets,
+                "content": self.content_feats}
+        losses, overs = [], []
+        for o, shape in enumerate(shapes):
+            scale = shape[0] / self.grid_shape[0]
+            views = self._keyframe_views(generators, schedules, o)
+            cb = None
+            if callback is not None:
+                def cb(done, loss, _o=o):
+                    callback(done, loss, octave=_o)
+            ks = [kf_plan[o] for kf_plan in plan]
+            n_over = torch.zeros(x.shape[0], dtype=torch.long,
+                                 device=self.device)
+            if grid_coarse and o < len(shapes) - 1:
+                param, ls = self._grid_coarse_octave(
+                    param, data, views, shape, scale, ks, callback=cb)
+            elif None not in ks:
+                param, ls, n_over = self._run_binned_octave(
+                    param, data, views, shape, scale, ks, callback=cb)
+            else:  # flat splat (other kernels or supports, huge K)
+                param, ls, _ = run_octave(
+                    param, self._get_loss_fn(shape, scale), data, views,
+                    iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
+                    log_every=oc.log_every, callback=cb,
+                    optimizer=self._optimizer)
+                ls = ls.T
+            losses.append(ls)
+            overs.append(n_over)
+        return param, losses, torch.stack(overs, dim=1)
 
     # ---------------------------------------------------------------- #
     # public API
@@ -488,15 +625,10 @@ class ParticleStyler(StylerBase):
                  if init_param is not None
                  else self.init_param(ParticleSet(x=x, dens=dens,
                                                   color=pset.color)))
-        info = {"octave_losses": [], "octave_overflow": []}
-
         shapes = octave_shapes(self.grid_shape, oc.octave_n,
                                oc.octave_scale)
-        # grid-space coarse octaves: only the finest octave splats every
-        # iteration; the coarse octaves' one splat runs binned too when a
+        # the coarse octaves' one grid-space splat runs binned too when a
         # capacity fits, so every octave is probed
-        grid_coarse = (pc.coarse_mode == "grid" and "ddens" in param
-                       and len(shapes) > 1)
         ksig = (x.shape[0], tuple(tuple(s) for s in shapes), "dx" in param,
                 pc.kernel, pc.splat_impl, pc.support)
         if ksig in self._k_cache:
@@ -508,45 +640,18 @@ class ParticleStyler(StylerBase):
             # margin 2: the plan is reused across frames
             ks = self._octave_ks(x, dx_now, shapes, margin=2)
             self._k_cache[ksig] = ks
-        for o, shape in enumerate(shapes):
-            shape = tuple(shape)
-            scale = shape[0] / self.grid_shape[0]
-            data = {"x": x, "dens": dens, "pool": self.view_pool,
-                    "vgg": self.vgg_params, "targets": self.gram_targets,
-                    "content": self.content_feats}
-            if len(shape) == 2:   # the grid is the image: no views
-                views = [None] * oc.iters
-            else:
-                views = [row[0] for row in self._octave_views(
-                    generator, None if view_schedule is None
-                    else view_schedule[o], oc.iters, 1)]
-            cb = None
-            if callback is not None:
-                def cb(done, loss, _o=o):
-                    callback(done, loss, octave=_o)
-            K = ks[o] if ks is not None else None
-            n_over = torch.zeros((), dtype=torch.long, device=self.device)
-            if grid_coarse and o < len(shapes) - 1:
-                param, losses = self._grid_coarse_octave(
-                    param, data, views, shape, scale, K=K, callback=cb)
-            elif K is not None:
-                param, losses, n_over = self._run_binned_octave(
-                    param, data, views, shape, scale, K, callback=cb)
-            else:  # flat splat (other kernels or supports, huge K)
-                param, losses, _ = run_octave(
-                    param, self._get_loss_fn(shape, scale), data, views,
-                    iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
-                    log_every=oc.log_every, callback=cb,
-                    optimizer=self._optimizer)
-            info["octave_losses"].append(losses)
-            info["octave_overflow"].append(n_over)
-
+        # one frame is a keyframe batch of one
+        param, losses, overs = self._optimize_keyframes(
+            {k: v[None] for k, v in param.items()}, x[None], dens[None],
+            [ks if ks is not None else [None] * len(shapes)], [generator],
+            None if view_schedule is None else [view_schedule], callback)
+        param = {k: v[0] for k, v in param.items()}
         # one sync per frame: parked particles are left out of the splat
         # until the next rebin, so a crowded frame must be visible. With a
         # K-budget, parking up to the budget is the deal; the threshold is
         # 4x the budget (drift headroom)
-        info["octave_overflow"] = [
-            int(v) for v in torch.stack(info["octave_overflow"]).cpu()]
+        info = {"octave_losses": [ls[0] for ls in losses],
+                "octave_overflow": [int(v) for v in overs[0].cpu()]}
         over_thresh = 4 * (int(pc.k_budget * x.shape[0])
                            if pc.k_budget else 0)
         if max(info["octave_overflow"]) > over_thresh:

@@ -1,6 +1,8 @@
 """nfs_tpu_torch splat ops against the JAX package on the CPU: binning,
 the flat and binned splats, the binned window (the plain versions of the
-CUDA kernels K4/K5 behind ``BinWindow``) and ``grid_sample``.
+CUDA kernels K4/K5 behind ``BinWindow``) and ``grid_sample``; and the
+keyframe batches of binning, the binned splats and the window against
+the single-keyframe calls, bit for bit.
 
 Inputs are made with numpy from a seed and handed to both packages. The
 JAX package's Pallas window runs as its own tests run it off a TPU
@@ -341,6 +343,8 @@ def _generic_padded(ts, K, pshape):
     ("g short", ValueError, "shape"),
     ("g float64", TypeError, "float32"),
     ("2D grid", ValueError, "3D grids"),
+    ("a batch, g unbatched", ValueError, "shape"),
+    ("a batch, p_z unbatched", ValueError, "shape"),
 ])
 def test_window_wrappers_check_inputs(bad, error, match):
     """The one-pass check of K4's and K5's wrappers raises on a wrong
@@ -372,6 +376,10 @@ def test_window_wrappers_check_inputs(bad, error, match):
         g = g[:, :, :6].contiguous()
     elif bad == "g float64":
         g = g.double()
+    elif bad.startswith("a batch"):
+        a, p = a[None].contiguous(), [t[None].contiguous() for t in p]
+        if bad == "a batch, p_z unbatched":
+            p[0], g = p[0][0], g[None]
     before = dict(BK.LAUNCHES)
     if error is None:
         BK.binsplat_fwd(a, *p)
@@ -379,10 +387,178 @@ def test_window_wrappers_check_inputs(bad, error, match):
     else:
         with pytest.raises(error, match=match):
             BK.binsplat_bwd(a, *p, g)
-        if not bad.startswith("g "):
+        if not bad.startswith("g ") and bad != "a batch, g unbatched":
             with pytest.raises(error, match=match):
                 BK.binsplat_fwd(a, *p)
     assert BK.LAUNCHES == before
+
+
+# ------------------------------------------------------------------ #
+# keyframe batches: bit for bit the single-keyframe calls
+# ------------------------------------------------------------------ #
+
+def _keyframes(shape, B=3, seed=11):
+    """B keyframes of one crowded cloud, each drifted differently (so
+    their bins and parked particles differ), as one (B, N, dim) stack."""
+    x, rng = _crowded(500, shape, 150, seed=seed)
+    return np.stack([x + (0.4 * b * rng.standard_normal(x.shape)).astype(
+        np.float32) for b in range(B)]), rng
+
+
+def _binnings(xs, shape, K, kernel):
+    batch = TB.bin_particles(torch.from_numpy(xs), shape, K, kernel=kernel)
+    singles = [TB.bin_particles(torch.from_numpy(x), shape, K,
+                                kernel=kernel) for x in xs]
+    return batch, singles
+
+
+@pytest.mark.parametrize("kernel,shape,K", [
+    ("bspline", (10, 8, 12), 2), ("linear", (10, 8, 12), 3),
+    ("bspline", (14, 12), 2)])
+def test_batched_binning_equals_single_binnings(kernel, shape, K):
+    """bin_particles of a (B, N, dim) stack: slot, valid and n_overflow
+    rows equal B single binnings (F7's stable ranks per keyframe);
+    bin_count_stats gives their rows; to_binned and from_binned of
+    (B, N) and (B, N, C) equal the single calls, and round-trip."""
+    xs, rng = _keyframes(shape)
+    batch, singles = _binnings(xs, shape, K, kernel)
+    assert all(int(s.n_overflow) > 0 for s in singles)
+    for b, single in enumerate(singles):
+        assert torch.equal(batch.slot[b], single.slot)
+        assert torch.equal(batch.valid[b], single.valid)
+        assert torch.equal(batch.n_overflow[b], single.n_overflow)
+    assert torch.equal(
+        TB.bin_count_stats(torch.from_numpy(xs), shape, kernel),
+        torch.stack([TB.bin_count_stats(torch.from_numpy(x), shape, kernel)
+                     for x in xs]))
+    for arr in (xs, rng.random(xs.shape[:2], dtype=np.float32)):
+        t = torch.from_numpy(arr)
+        got = TB.to_binned(batch, t)
+        want = torch.stack([TB.to_binned(s, a) for s, a in zip(singles, t)])
+        assert torch.equal(got, want)
+        assert torch.equal(TB.from_binned(batch, got), t)
+
+
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["single", "batch"])
+def test_binning_of_no_particles(lead):
+    """No particles bin to empty slots, and nothing parks."""
+    shape, K = (4, 5, 6), 2
+    bn = TB.bin_particles(torch.zeros(lead + (0, 3)), shape, K)
+    n_slots = math.prod(TB.padded_shape(shape)) * K
+    assert bn.slot.shape == lead + (0,)
+    assert bn.valid.shape == lead + (n_slots,) and not bool(bn.valid.any())
+    assert bn.n_overflow.shape == lead and not bool(bn.n_overflow.any())
+
+
+def test_batched_binning_at_per_keyframe_capacities():
+    """capacity gives each keyframe its own capacity within K ranks: a
+    keyframe parks what a single binning at its capacity parks, keeps the
+    same slots for the rest, and leaves the ranks past it empty."""
+    shape, K = (10, 8, 12), 3
+    xs, _ = _keyframes(shape, B=2, seed=14)
+    caps = [2, 3]
+    batch = TB.bin_particles(torch.from_numpy(xs), shape, K,
+                             capacity=torch.tensor(caps))
+    n_cells = math.prod(TB.padded_shape(shape))
+    for b, cap in enumerate(caps):
+        single = TB.bin_particles(torch.from_numpy(xs[b]), shape, cap)
+        assert int(single.n_overflow) > 0
+        assert torch.equal(batch.n_overflow[b], single.n_overflow)
+        dense = single.slot < cap * n_cells
+        assert torch.equal(batch.slot[b][dense], single.slot[dense])
+        assert bool((batch.slot[b][~dense] >= K * n_cells).all())
+        assert torch.equal(batch.valid[b][:cap * n_cells], single.valid)
+        assert not bool(batch.valid[b][cap * n_cells:].any())
+
+
+def _splat_grads(p_b, a_b, valid, shape, K, kernel, h):
+    """splat_binned's value and its gradients wrt positions and
+    attributes under the cotangent h."""
+    p_b, a_b = (t.detach().requires_grad_(True) for t in (p_b, a_b))
+    out = TB.splat_binned(p_b, a_b, valid, shape, K, kernel=kernel)
+    return out, torch.autograd.grad((out * h).sum(), (p_b, a_b))
+
+
+@pytest.mark.parametrize("kernel,shape,channels", [
+    ("bspline", (10, 8, 12), 0), ("bspline", (10, 8, 12), 5),
+    ("linear", (10, 8, 12), 0), ("bspline", (14, 12), 5)])
+def test_batched_splat_binned_equals_single_splats(kernel, shape,
+                                                   channels):
+    """The generic splat_binned of a keyframe batch (drifted positions,
+    parked overflow): its value and its gradients wrt positions and
+    attributes equal B single splats bit for bit."""
+    xs, rng = _keyframes(shape, seed=12)
+    K = 2
+    batch, singles = _binnings(xs, shape, K, kernel)
+    moved = torch.from_numpy(xs + (0.3 * rng.standard_normal(xs.shape))
+                             .astype(np.float32))
+    tail = (channels,) if channels else ()
+    attr = torch.from_numpy(rng.random(xs.shape[:2] + tail,
+                                       dtype=np.float32))
+    h = torch.from_numpy(rng.random((len(xs),) + shape + tail,
+                                    dtype=np.float32))
+    got, got_g = _splat_grads(TB.to_binned(batch, moved),
+                              TB.to_binned(batch, attr), batch.valid, shape,
+                              K, kernel, h)
+    for b, single in enumerate(singles):
+        out, grads = _splat_grads(TB.to_binned(single, moved[b]),
+                                  TB.to_binned(single, attr[b]),
+                                  single.valid, shape, K, kernel, h[b])
+        assert torch.equal(got[b], out)
+        for g, w in zip(got_g, grads):
+            assert torch.equal(g[b], w)
+
+
+def test_batched_window_equals_single_windows():
+    """K4's and K5's plain twins on (B, K, Zp, Yp, Xp) bins equal B single
+    calls bit for bit and count no launch on the CPU; splat_binned_window
+    of a keyframe batch (value and gradients) equals the single
+    windows."""
+    shape, K = (10, 8, 12), 2
+    xs, rng = _keyframes(shape, seed=13)
+    batch, singles = _binnings(xs, shape, K, "bspline")
+    moved = torch.from_numpy(xs + rng.uniform(-0.5, 0.5, xs.shape).astype(
+        np.float32))
+    attr = torch.from_numpy(rng.random(xs.shape[:2], dtype=np.float32))
+    pshape = TB.padded_shape(shape)
+    n_slots = math.prod(pshape) * K
+    g = torch.from_numpy(rng.standard_normal((len(xs),) + pshape,
+                                             dtype=np.float32))
+
+    def bins(bn, p, a):
+        p_b, a_b = TB.to_binned(bn, p), TB.to_binned(bn, a)
+        lead = tuple(a_b.shape[:-1])
+        a4 = torch.where(bn.valid, a_b[..., :n_slots], 0.0).reshape(
+            lead + (K,) + pshape)
+        return a4, [p_b[..., d, :n_slots].reshape(lead + (K,) + pshape)
+                    .contiguous() for d in range(3)]
+
+    before = dict(BK.LAUNCHES)
+    a5, p5 = bins(batch, moved, attr)
+    fwd = BK.binsplat_fwd(a5, *p5)
+    bwd = BK.binsplat_bwd(a5, *p5, g)
+    assert fwd.shape == (len(xs),) + pshape
+    for b, single in enumerate(singles):
+        a4, p4 = bins(single, moved[b], attr[b])
+        assert torch.equal(fwd[b], BK.binsplat_fwd(a4, *p4))
+        for got, want in zip(bwd, BK.binsplat_bwd(a4, *p4, g[b])):
+            assert torch.equal(got[b], want)
+    assert BK.LAUNCHES == before
+
+    h = torch.from_numpy(rng.random((len(xs),) + shape, dtype=np.float32))
+
+    def window(bn, p, a, hh):
+        p_b = TB.to_binned(bn, p).requires_grad_(True)
+        a_b = TB.to_binned(bn, a).requires_grad_(True)
+        out = BK.splat_binned_window(p_b, a_b, bn.valid, shape, K)
+        return out, torch.autograd.grad((out * hh).sum(), (p_b, a_b))
+
+    out, grads = window(batch, moved, attr, h)
+    for b, single in enumerate(singles):
+        o, gs = window(single, moved[b], attr[b], h[b])
+        assert torch.equal(out[b], o)
+        for gb, gw in zip(grads, gs):
+            assert torch.equal(gb[b], gw)
 
 
 @pytest.mark.parametrize("mode", ["clamp", "zero"])

@@ -1,8 +1,8 @@
 """The port's CLIs: the stylization CLI runs grid and particle mode,
 ``--parallel`` grid sequences (in this process against the JAX CLI, and
-on two gloo ranks under ``torchrun``), refuses ``--parallel --mode
-particle`` with its ROADMAP item before any work starts, and takes the
-mesh flags into ``cfg.parallel``; the transfer function, particle colour
+on two gloo ranks under ``torchrun``), ``--parallel --mode particle``
+(against the JAX CLI, and on two gloo ranks), and takes the mesh flags
+into ``cfg.parallel``; the transfer function, particle colour
 and in-frame checkpoint flags run; a fused grid sequence resumes from its
 manifest. The scene CLI writes the frames of the JAX package's
 solvers."""
@@ -33,14 +33,67 @@ from nfs_tpu_torch.io.npz import FrameStore
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--mode", "particle", "--parallel", "--num_frames", "3"], "item 23"),
-    (["--mode", "particle", "--parallel"], "item 23"),
-])
-def test_unported_options_raise(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        main(argv + ["--device", "cpu", "--log_dir", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+@pytest.mark.parametrize("argv", [
+    ["--num_frames", "3"],      # keyframes 0 and 2 through the engine
+    [],                         # one frame: nothing to run in parallel
+], ids=["three frames", "default frames"])
+def test_parallel_particle_mode_matches_jax_cli(argv, tmp_path,
+                                                monkeypatch, capsys):
+    """``--parallel --mode particle`` through both CLIs with one view
+    (render.view_pool 1) and one VGG weights file: over 3 frames the
+    port's ParallelKeyframeStyler on its (1, 1) mesh and JAX's on its
+    default mesh of the 8 virtual devices (it pads the 2 keyframes), over
+    the default single frame both CLIs' sequential path; every written
+    frame within the engines' parity tolerance (rtol 4e-3, atol 4e-4;
+    positions as offsets from the input frame), with a preview."""
+    monkeypatch.setattr(jax_profiling, "enable_compile_cache",
+                        lambda *a, **k: None)
+    for mod, rep in ((jax_stylize, jax_replace), (torch_stylize, replace)):
+        orig = mod.config_from_args
+        monkeypatch.setattr(
+            mod, "config_from_args",
+            lambda a, orig=orig, rep=rep: rep(orig(a),
+                                              **{"render.view_pool": 1}))
+    data = tmp_path / "data"
+    store = FrameStore(str(data))
+    rng = np.random.default_rng(7)
+    x0 = rng.random((300, 3)) * 8 + 2
+    for t in range(3):
+        store.save_particles(t, x=(x0 + 0.2 * t).astype(np.float32))
+    save_image(str(data / "style.png"), np.random.default_rng(0).random(
+        (32, 32, 3), dtype=np.float32))
+    save_vgg_params(str(data / "vgg.npz"), init_vgg_params(0))
+    flags = COMMON[2:] + [
+        "--data_dir", str(data), "--log_dir", str(tmp_path), "--mode",
+        "particle", "--parallel", "--keyframe_stride", "2", "--opt_density",
+        "--grid_shape", "12", "12", "12", "--w_style", "1000",
+        "--style_target", str(data / "style.png"), "--vgg_weights",
+        str(data / "vgg.npz")] + argv
+    jax_stylize.main(flags + ["--tag", "jax"])
+    main(flags + ["--tag", "torch", "--device", "cpu"])
+    parallel = bool(argv)
+    assert ("[parallel] 3 particle frames, keyframes [0, 2] on mesh "
+            "{'frames': 1, 'views': 1}" in capsys.readouterr().out) == parallel
+    n_frames = 3 if parallel else 1
+    moved = 0.0
+    for t in range(n_frames):
+        j = FrameStore(str(tmp_path / "jax")).load_particles(t)
+        p = FrameStore(str(tmp_path / "torch")).load_particles(t)
+        # positions as offsets from the input frame
+        x_in = (x0 + 0.2 * t).astype(np.float32)
+        np.testing.assert_allclose(p["x"] - x_in, j["x"] - x_in,
+                                   rtol=4e-3, atol=4e-4)
+        np.testing.assert_allclose(p["dens"], j["dens"], rtol=4e-3,
+                                   atol=4e-4)
+        moved = max(moved, float(np.abs(p["x"] - x_in).max()))
+        assert (tmp_path / "torch" / f"preview_{t:04d}.png").exists() or (
+            tmp_path / "torch" / f"preview_{t:04d}.png.npy").exists()
+    assert moved > 1e-5
+    assert not (tmp_path / "torch" / f"p_{n_frames:04d}.npz").exists()
+    with open(tmp_path / "torch" / "metrics.jsonl") as f:
+        lines = [json.loads(x) for x in f]
+    assert len(lines) == n_frames
+    assert ("mesh" in lines[0]) == parallel
 
 
 @pytest.mark.parametrize("argv, field, value", [
@@ -349,3 +402,40 @@ def test_parallel_cli_on_two_gloo_ranks(tmp_path):
             FrameStore(str(log / "two")).load_density(t),
             FrameStore(str(log / "one")).load_density(t),
             rtol=1e-5, atol=1e-6)
+
+
+def test_parallel_particle_cli_on_two_gloo_ranks(tmp_path):
+    """``--parallel --mode particle`` under ``torchrun --standalone`` with
+    two ranks on the CPU (gloo), keyframes 0, 2 and 4 split over them
+    (padded to 4): rank 0 writes every frame, which equal the
+    single-process run's."""
+    data = tmp_path / "data"
+    store = FrameStore(str(data))
+    rng = np.random.default_rng(8)
+    x0 = rng.random((250, 3)) * 8 + 2
+    for t in range(5):
+        store.save_particles(t, x=(x0 + 0.2 * t).astype(np.float32))
+    _style(data)
+    log = tmp_path / "log"
+    argv = COMMON + ["--data_dir", str(data), "--log_dir", str(log),
+                     "--mode", "particle", "--parallel", "--num_frames",
+                     "5", "--keyframe_stride", "2", "--opt_density",
+                     "--grid_shape", "12", "12", "12", "--style_target",
+                     str(data / "style.npy")]
+    main(argv + ["--tag", "one"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "nfs_tpu_torch.cli.stylize", *argv,
+         "--tag", "two", "--mesh_frames", "2"], env=env,
+        capture_output=True, text=True, timeout=300, process_group=0)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("[parallel] 5 particle frames, keyframes "
+                             "[0, 2, 4] on mesh {'frames': 2, 'views': 1} "
+                             "of 2 rank(s)") == 1
+    for t in range(5):
+        two = FrameStore(str(log / "two")).load_particles(t)
+        one = FrameStore(str(log / "one")).load_particles(t)
+        for k in ("x", "dens"):
+            np.testing.assert_allclose(two[k], one[k], rtol=1e-5, atol=1e-6)

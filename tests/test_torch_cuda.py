@@ -363,15 +363,23 @@ def test_k3_clamped_and_ragged(cuda_device, shape, kind):
      (None,) * 3 + (1 << 16, 1, 7, 9, 2.0, 2, 4, 8, 24, 17_000, 0, None)),
     ("nfs_advect_bwd_vel", "pppp iiii f i p",
      (None,) * 4 + (-1, 2, 3, 4, 2.0, 0, None)),
-    ("nfs_binsplat_bwd", "ppppppppp iiii i p",
-     (None,) * 9 + (1 << 10, 1 << 10, 1 << 10, 2, 0, None)),
+    ("nfs_binsplat_bwd", "ppppppppp iiiii i p",
+     (None,) * 9 + (1, 1 << 10, 1 << 10, 1 << 10, 2, 0, None)),
+    # a keyframe batch past the grid's 65 535 blocks (K4 along z, K5
+    # along y), or a negative one
+    ("nfs_binsplat_fwd", "ppppp iiiii i p",
+     (None,) * 5 + (1 << 15, 1, 8, 4, 30, 0, None)),
+    ("nfs_binsplat_bwd", "ppppppppp iiiii i p",
+     (None,) * 9 + (1 << 16, 1, 2, 3, 4, 0, None)),
+    ("nfs_binsplat_bwd", "ppppppppp iiiii i p",
+     (None,) * 9 + (-1, 1, 2, 3, 4, 0, None)),
 ])
 def test_entry_points_refuse_past_32_bit_indices(cuda_device, entry,
                                                  argtypes, args):
     """K3, the untiled K2 and K5 index with 32-bit integers: their entry
     points refuse a shape past that (and the untiled K2 a negative
-    radius) before they launch; so do K1 and K2 a batch of frames past
-    the grid's limit and K3 a negative batch. The pointers are never
+    radius) before they launch; so do K1, K2, K4 and K5 a batch past the
+    grid's limit and K3 and K5 a negative batch. The pointers are never
     read."""
     lib = ctypes.CDLL(str((bk if "binsplat" in entry else ak)
                           .build_library()))
@@ -586,9 +594,10 @@ def test_k4_refuses_shapes_past_32_bit_indices(cuda_device):
     never read)."""
     lib = ctypes.CDLL(str(bk.build_library()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [i, p]
-    assert lib.nfs_binsplat_fwd(None, None, None, None, None, 1, 1 << 16,
-                                1 << 16, 1, cuda_device.index, None) != 0
+    lib.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 5 + [i, p]
+    assert lib.nfs_binsplat_fwd(None, None, None, None, None, 1, 1,
+                                1 << 16, 1 << 16, 1, cuda_device.index,
+                                None) != 0
 
 
 @pytest.mark.cuda
@@ -767,6 +776,73 @@ def test_advect_window_batch_on_gpu_matches_cpu(cuda_device):
         outs[str(dev)] = [t.detach().cpu() for t in (out, ft.grad, vt.grad)]
     assert launched == {"fwd": 1, "bwd_field": 1, "bwd_field_untiled": 0,
                         "bwd_vel": 1, "bwd_fused": 0}
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
+    for a, b in zip(gpu[1:], cpu[1:]):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("shape", [(20, 14, 24), (7, 5, 9), (3, 1, 11)])
+def test_binsplat_batched_launch_equals_single_launches(cuda_device, shape,
+                                                        K):
+    """A batch of 3 keyframes' (K, Zp, Yp, Xp) bins is one launch of K4
+    and one of K5 and gives the bits of three single launches (the zero
+    signs too), on ragged grids; it holds against the batched plain
+    twins."""
+    rng = np.random.default_rng(40 + K)
+    n = 2 * int(np.prod(shape))
+    frames = [_bin_window((rng.random((n, 3)) * (np.array(shape) - 1))
+                          .astype(np.float32), shape, K, seed=b)
+              for b in range(3)]
+    a5 = torch.stack([a for a, _ in frames]).to(cuda_device)
+    p5 = [torch.stack([p[d] for _, p in frames]).to(cuda_device)
+          for d in range(3)]
+    g = torch.from_numpy(rng.standard_normal(
+        (3,) + tuple(a5.shape[2:])).astype(np.float32)).to(cuda_device)
+    before = dict(bk.LAUNCHES)
+    fwd = bk.binsplat_fwd(a5, *p5)
+    bwd = bk.binsplat_bwd(a5, *p5, g)
+    assert {k: bk.LAUNCHES[k] - before[k] for k in before} == {
+        "fwd": 1, "bwd": 1}
+    for b in range(3):
+        p4 = [p[b] for p in p5]
+        assert torch.equal(fwd[b], bk.binsplat_fwd(a5[b], *p4))
+        for got, want in zip(bwd, bk.binsplat_bwd(a5[b], *p4, g[b])):
+            assert torch.equal(got[b], want)
+            assert torch.equal(got[b].signbit(), want.signbit())
+    torch.testing.assert_close(fwd, bk.window_fwd_plain(a5, *p5),
+                               atol=VALUE_ATOL, rtol=0)
+    for got, want in zip(bwd, bk.window_bwd_plain(a5, *p5, g)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_batched_bin_window_on_gpu_matches_cpu(cuda_device):
+    """splat_binned_window of a keyframe batch on the GPU (one K4 and one
+    K5 launch) against the same batch on the CPU: value and gradients
+    wrt positions and attributes."""
+    shape, K = (12, 9, 14), 4
+    rng = np.random.default_rng(50)
+    xs = (rng.random((3, 1500, 3)) * (np.array(shape) - 1)).astype(
+        np.float32)
+    attr = (0.5 + rng.random((3, 1500))).astype(np.float32)
+    h = rng.standard_normal((3,) + shape).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        bn = B.bin_particles(torch.from_numpy(xs).to(dev), shape, K)
+        p_b = B.to_binned(bn, torch.from_numpy(xs).to(dev)
+                          ).requires_grad_(True)
+        a_b = B.to_binned(bn, torch.from_numpy(attr).to(dev)
+                          ).requires_grad_(True)
+        before = dict(bk.LAUNCHES)
+        out = bk.splat_binned_window(p_b, a_b, bn.valid, shape, K)
+        (out * torch.from_numpy(h).to(dev)).sum().backward()
+        launched = {k: bk.LAUNCHES[k] - before[k] for k in before}
+        outs[str(dev)] = [t.detach().cpu() for t in (out, p_b.grad,
+                                                    a_b.grad)]
+    assert launched == {"fwd": 1, "bwd": 1}
     cpu, gpu = outs["cpu"], outs[str(cuda_device)]
     torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
     for a, b in zip(gpu[1:], cpu[1:]):

@@ -6,8 +6,10 @@ frames jointly with ``--parallel``, a fused
 3-frame sequence over the scene's smoke, run twice: the rerun resumes
 from its manifest, and a 2D window sequence coloured by a transfer
 function with in-frame checkpoints), particle mode (3 frames,
-keyframes 0 and 2, density and colour), then one job through the
-stylization service (``cli.serve``) and ``cli.render`` over its output."""
+keyframes 0 and 2, density and colour), then a grid job and a
+``"parallel"`` particle job (the keyframe-parallel engine) through the
+stylization service (``cli.serve``) and ``cli.render`` over the grid
+job's output."""
 
 import json
 import os
@@ -35,7 +37,7 @@ SCRIPT = textwrap.dedent("""
     for name in ("eval.quality", "utils.flops", "utils.profiling",
                  "utils.metrics", "cli.serve", "cli.render",
                  "parallel.engine", "parallel.mesh", "parallel.sharding",
-                 "parallel.multihost"):
+                 "parallel.multihost", "parallel.particles"):
         assert "nfs_tpu_torch." + name in names, name
     from nfs_tpu_torch.cli import scene
     from nfs_tpu_torch.cli.stylize import main
@@ -77,7 +79,17 @@ SCRIPT = textwrap.dedent("""
                    "loss.style_layers": ["relu1_1"],
                    "loss.style_layer_weights": [1.0],
                    "optim.octave_n": 1, "optim.iters": 2}}, name="job")
-    serve.main(["--spool", spool, "--max_jobs", "1", "--poll", "0.01",
+    serve.submit_job(spool, {
+        "mode": "particle", "data_dir": data, "out_dir": log + "/pserved",
+        "frames": [0, 1, 2], "parallel": True, "grid_shape": [12, 10, 12],
+        "style_target": data + "/style.npy",
+        "config": {"render.render_size": [32, 32], "render.n_views": 2,
+                   "loss.style_layers": ["relu1_1"],
+                   "loss.style_layer_weights": [1.0],
+                   "optim.octave_n": 2, "optim.iters": 2,
+                   "particle.optimize_density": True,
+                   "particle.keyframe_stride": 2}}, name="pjob")
+    serve.main(["--spool", spool, "--max_jobs", "2", "--poll", "0.01",
                 "--device", "cpu"])
     render.main(["--data_dir", log + "/served", "--render_size", "32",
                  "32", "--device", "cpu"])
@@ -155,8 +167,13 @@ def test_port_imports_and_cli_run_without_jax(tmp_path):
         assert d.shape == (24, 16) and np.isfinite(d).all()
         assert (grid2d / f"preview_{t:04d}.png").exists()
     assert not (grid2d / "inframe_ckpt.npz").exists()
-    with open(tmp_path / "log" / "spool" / "done" / "job.json") as f:
-        assert json.load(f)["status"] == "ok"
+    for job in ("job", "pjob"):
+        with open(tmp_path / "log" / "spool" / "done" / f"{job}.json") as f:
+            assert json.load(f)["status"] == "ok"
+    pserved = FrameStore(str(tmp_path / "log" / "pserved"))
+    for t in range(3):
+        p = pserved.load_particles(t)
+        assert p["x"].shape == (300, 3) and np.isfinite(p["x"]).all()
     served = tmp_path / "log" / "served"
     d = FrameStore(str(served)).load_density(0)
     assert d.shape == shape and np.isfinite(d).all()

@@ -1,5 +1,6 @@
 """Rank worker of the port's multi-rank tests (``test_torch_parallel.py``,
-``test_torch_parallel_engine.py``); it defines no tests.
+``test_torch_parallel_engine.py``, ``test_torch_parallel_particles.py``);
+it defines no tests.
 
 Run as a script, one process per rank of a gloo world on the CPU:
 
@@ -7,7 +8,7 @@ Run as a script, one process per rank of a gloo world on the CPU:
 
 It reads ``DIR/SCENARIO_job.pkl`` (written by the test), joins the
 process group through the file store ``DIR/SCENARIO_store``, runs the
-scenario (``halo``, ``step`` or ``engine``) and writes what this rank
+scenario (``halo``, ``step``, ``engine`` or ``keyframes``) and writes what this rank
 computed to ``DIR/SCENARIO_RANK.pkl``. It imports the port and never JAX, so the
 ranks start quickly and need no accelerator.
 """
@@ -112,7 +113,29 @@ def _engine(job):
     return out
 
 
-SCENARIOS = {"halo": _halo, "step": _step, "engine": _engine}
+def _keyframes(job):
+    from nfs_tpu_torch.core.config import StyleConfig, replace
+    from nfs_tpu_torch.core.pytrees import ParticleSet
+    from nfs_tpu_torch.parallel import ParallelKeyframeStyler, make_mesh
+    from nfs_tpu_torch.styler.particle import ParticleStyler
+
+    out = []
+    for run in job["runs"]:
+        styler = ParticleStyler(replace(StyleConfig(), **run["over"]),
+                                grid_shape=run["shape"],
+                                style_image=run["style"], device="cpu")
+        engine = ParallelKeyframeStyler(styler, make_mesh(*run["mesh"]))
+        psets = [ParticleSet(x=x, dens=d, color=c)
+                 for x, d, c in run["frames"]]
+        outs = [(t, p.x.numpy(), p.dens.numpy(), None)
+                for t, p in engine.stylize_keyframes(psets)]
+        out.append({"outs": outs,
+                    "collectives": dict(engine.last_collectives)})
+    return out
+
+
+SCENARIOS = {"halo": _halo, "step": _step, "engine": _engine,
+             "keyframes": _keyframes}
 
 
 def run_ranks(scenario: str, job, world: int, tmp_dir, timeout=240):

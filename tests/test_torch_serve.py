@@ -1,9 +1,8 @@
 """nfs_tpu_torch's stylization service (``cli/serve.py``) on the CPU: the
 cases of tests/test_serve.py (spool protocol, styler and frame caches,
-error isolation), ``"parallel"`` jobs (a grid one through both packages'
-workers; a particle one fails naming its ROADMAP item while the worker
-carries on), and the same 2D and 3D jobs through the JAX package's worker
-and the port's, which share one VGG weights file.
+error isolation), ``"parallel"`` jobs (a grid one and a particle one
+through both packages' workers), and the same 2D and 3D jobs through the
+JAX package's worker and the port's, which share one VGG weights file.
 """
 
 import json
@@ -133,20 +132,51 @@ def test_transfer_fn_job(setup):
         assert np.isfinite(z["d"]).all()
 
 
-def test_parallel_job_fails_naming_item_21(setup):
-    """"parallel" jobs: a grid one runs the joint engine (ParallelSequence
-    Styler on the service's (1, 1) mesh) and matches the JAX package's
-    worker on its default mesh of the 8 virtual devices, within 1e-3 with
-    one VGG weights file and one view (``render.view_pool`` 1); a particle
-    one (keyframe-parallel LNST, not ported) fails naming ROADMAP item 23,
-    and the worker carries on with the next job and stops cleanly."""
+def _particle_job(data_dir, out_dir, style, weights):
+    """A "parallel" particle job over 3 frames (keyframes 0 and 2) at
+    small widths, one view (``render.view_pool`` 1), style weight 1000."""
+    return {"mode": "particle", "data_dir": data_dir, "frames": [0, 1, 2],
+            "out_dir": out_dir, "parallel": True, "grid_shape": [12, 12, 12],
+            "style_target": style,
+            "config": {"render.render_size": [32, 32], "render.n_views": 2,
+                       "render.view_pool": 1, "render.transmit": 0.5,
+                       "loss.style_layers": ["relu1_1"],
+                       "loss.style_layer_weights": [1.0],
+                       "loss.vgg_weights": weights, "loss.w_style": 1000.0,
+                       "optim.octave_n": 2, "optim.iters": 2,
+                       "particle.optimize_density": True,
+                       "particle.keyframe_stride": 2}}
+
+
+def test_parallel_jobs_match_jax_worker(setup):
+    """"parallel" jobs through both packages' workers, with one VGG
+    weights file and one view (``render.view_pool`` 1): a grid one runs
+    the joint engine (ParallelSequenceStyler on the service's (1, 1)
+    mesh) and a particle one the keyframe-parallel engine
+    (ParallelKeyframeStyler on that mesh), the JAX worker's on its
+    default mesh of the 8 virtual devices; the grid frames within 1e-3,
+    the particles within the engines' parity tolerance (rtol 4e-3, atol
+    4e-4; positions as offsets from the input frame). Then the particle
+    job through the spool, another job after it: both succeed, the
+    particle job writes the worker's frames again, and the worker stops
+    cleanly."""
+    from nfs_tpu_torch.io.npz import FrameStore
+
     tmp_path, data, spool, style = setup
     _make_data(data, T=2, shape=(12, 10, 12))
     weights = str(tmp_path / "vgg.npz")
     save_vgg_params(weights, jax.tree.map(np.asarray, init_vgg_params(0)))
-    outs = {}
+    pdata = str(tmp_path / "pdata")
+    rng = np.random.default_rng(7)
+    x0 = rng.random((300, 3)) * 8 + 2
+    for t in range(3):
+        FrameStore(pdata).save_particles(
+            t, x=(x0 + 0.2 * t).astype(np.float32),
+            dens=np.ones(300, np.float32))
+    outs, parts = {}, {}
+    torch_worker = StylizeWorker("cpu")
     for name, worker in (("jax", JaxStylizeWorker()),
-                         ("torch", StylizeWorker("cpu"))):
+                         ("torch", torch_worker)):
         job = _job(data, str(tmp_path / name), style, frames=(0, 1))
         job["parallel"] = True
         job["config"].update({
@@ -159,29 +189,41 @@ def test_parallel_job_fails_naming_item_21(setup):
         outs[name] = [np.load(os.path.join(str(tmp_path / name),
                                            f"d_{t:04d}.npz"))["d"]
                       for t in (0, 1)]
+        pout = str(tmp_path / ("p" + name))
+        res = worker.run_job(_particle_job(pdata, pout, style, weights))
+        assert res["status"] == "ok" and res["outputs"] == [
+            f"p_{t:04d}.npz" for t in range(3)]
+        parts[name] = [FrameStore(pout).load_particles(t) for t in range(3)]
     for t, j in zip(outs["torch"], outs["jax"]):
         assert t.shape == j.shape == (12, 10, 12)
         assert np.abs(t - j).max() <= 1e-3
+    for t, (p, j) in enumerate(zip(parts["torch"], parts["jax"])):
+        # positions as offsets from the input frame
+        x_in = (x0 + 0.2 * t).astype(np.float32)
+        np.testing.assert_allclose(p["x"] - x_in, j["x"] - x_in,
+                                   rtol=4e-3, atol=4e-4)
+        np.testing.assert_allclose(p["dens"], j["dens"], rtol=4e-3,
+                                   atol=4e-4)
+    assert max(float(np.abs(p["x"] - x0 - 0.2 * t).max())
+               for t, p in enumerate(parts["torch"])) > 1e-5
 
-    pjob = {"mode": "particle", "data_dir": data, "frames": [0, 1],
-            "out_dir": str(tmp_path / "outp"), "parallel": True,
-            "grid_shape": [8, 8, 8], "config": {}}
-    submit_job(spool, pjob, name="par")
+    submit_job(spool, _particle_job(pdata, str(tmp_path / "outp"), style,
+                                    weights), name="par")
     submit_job(spool, _job(data, str(tmp_path / "ok"), style), name="z")
     stats = _serve(spool, max_jobs=2)
-    res = _done(spool, "par")
-    assert res["status"] == "error"
-    assert res["error"].startswith("NotImplementedError")
-    assert "ROADMAP queue 1, item 23" in res["error"]
+    assert _done(spool, "par")["status"] == "ok"
     assert _done(spool, "z")["status"] == "ok"
-    assert stats["errors"] == 1 and stats["jobs"] == 1
+    assert stats["errors"] == 0 and stats["jobs"] == 2
+    for t, want in enumerate(parts["torch"]):
+        got = FrameStore(str(tmp_path / "outp")).load_particles(t)
+        np.testing.assert_array_equal(got["x"], want["x"])
     # heartbeat file written and reports the final stats
     hb = [f for f in os.listdir(spool) if f.startswith("worker_")]
     assert hb, os.listdir(spool)
     with open(os.path.join(spool, hb[0])) as f:
         beat = json.load(f)
     assert beat["status"] == "stopped"
-    assert beat["stats"]["jobs"] == 1
+    assert beat["stats"]["jobs"] == 2
 
 
 def test_json_list_config_values_hashable():

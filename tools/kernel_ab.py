@@ -127,7 +127,7 @@ def _ctypes_entry_points():
     adv = ctypes.CDLL(str(ak.build_library()))
     adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, i, f, i, p]
     bins = ctypes.CDLL(str(bk.build_library()))
-    bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [i, p]
+    bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 5 + [i, p]
     return adv, bins
 
 
@@ -216,7 +216,8 @@ def host(card: str) -> None:
         o = torch.empty((Z, Y, X), dtype=torch.float32, device=a4.device)
         rc = bins.nfs_binsplat_fwd(a4.data_ptr(),
                                    *(p.data_ptr() for p in p4),
-                                   o.data_ptr(), K, Z, Y, X, d, raw_stream(d))
+                                   o.data_ptr(), 1, K, Z, Y, X, d,
+                                   raw_stream(d))
         if rc != 0:
             raise RuntimeError(rc)
         return o
@@ -232,10 +233,10 @@ def host(card: str) -> None:
         "ctypes route: check in Python": lambda: _ctypes_check(
             (a4, *p4), (a4.shape,) * 4),
         "ctypes route: call and launch": lambda: bins.nfs_binsplat_fwd(
-            *bptrs, K, Z, Y, X, 0, raw_stream(0)),
+            *bptrs, 1, K, Z, Y, X, 0, raw_stream(0)),
         "ctypes route: call refused before launching":
-            lambda: bins.nfs_binsplat_fwd(*bptrs, K, 1 << 16, 1 << 16, X, 0,
-                                          raw_stream(0)),
+            lambda: bins.nfs_binsplat_fwd(*bptrs, 1, K, 1 << 16, 1 << 16, X,
+                                          0, raw_stream(0)),
     }
     _emit_host("binsplat_fwd (K4)", k4, card)
     _emit_turns("binsplat_fwd (K4)", {"wrapper": k4["wrapper (operator)"],
