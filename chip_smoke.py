@@ -111,9 +111,25 @@ Phases, each printing one JSON line:
 15. color — LNST colour at the particles_3d width on one keyframe (3 x 4
     iterations), the binned 5-channel colour pass timed alone, and a 2D
     particle run on the scene CLI's liquid2d frames.
+    spatial — spatial sharding at the density slice's width:
+    ``SpaceSlabs.advect`` (K1 with K2, K3, K3b, and a batch of two frames)
+    on the y-slabs of 2 and 4 space ranks, run one after another in one
+    process (``run_slabs``), against ``advect`` on the whole volume (the
+    output and the velocity gradient bitwise, the field gradient, halo
+    rows returned to their owners, within ``SLAB_TOL``; one launch per
+    slab and kernel); then, inside a 1-rank NCCL group,
+    ``stylize_frame_spatial`` (W = 1, and the velocity parameterization)
+    bitwise ``stylize_frame``, with s/iter and peak memory beside
+    ``persistent_state_bytes``, and the engine on a (1, 1, 1) mesh
+    bitwise the (1, 1) one (both one slab: one code path). Runs after
+    keyframes.
 16. checkpoint — the velocity slice's first frame interrupted after a
     chunk of octave 1 and resumed from its in-frame checkpoint, held
-    against two uninterrupted runs; a ``--checkpoint_in_frame`` CLI job
+    against two uninterrupted runs; the same frame at float32 features
+    (cuDNN's default convolutions differ run to run there): s/iter with
+    the default algorithms and inside the styler's deterministic scope,
+    and an interrupted, resumed checkpointed frame held bitwise to an
+    uninterrupted one; a ``--checkpoint_in_frame`` CLI job
     that completes and leaves no checkpoint.
 17. exact — the exact advection path (max_disp=None) at 112x64x112 on
     the swirl and on a velocity of up to 6 cells: ``advect`` and
@@ -139,8 +155,9 @@ Phases, each printing one JSON line:
 Then the script's whole time, one JSON line with every kernel's route,
 error, launches on its main path, times and least time on the card (the
 advection kernels also with their batch of 4 and their launches on the
-joint engine's path, K4 and K5 with their keyframe batch of 4 and their
-launches on the keyframe engine's path), and as the last line
+joint engine's and the spatial path, K4 and K5 with their keyframe batch
+of 4 and their launches on the keyframe engine's path), and as the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises, so the exit code is non-zero and no result is printed.
 Weights (VGG), style image and data are random, made from fixed seeds.
@@ -2293,6 +2310,7 @@ def phase_checkpoint(card: str, root: str, data_dir: str):
     if not (launches["fwd"] > 0 and launches["bwd_field"] > 0
             and launches["bwd_vel"] > 0):
         raise AssertionError(f"velocity checkpoint path launched {launches}")
+    f32 = _phase_checkpoint_f32(cfg, d, vels, root, stop, Interrupt)
 
     log = os.path.join(root, "log")
     buf = io.StringIO()
@@ -2314,8 +2332,66 @@ def phase_checkpoint(card: str, root: str, data_dir: str):
           "uninterrupted_gap_max_abs": gap,
           "resumed_vs_uninterrupted_max_abs": off,
           "frame_s": walls, "resume_s": resume_s, "launches": launches,
+          "float32_features": f32,
           "cli": {"wall_s": cli_s, "checkpoint_left": False},
           "card": card})
+
+
+def _phase_checkpoint_f32(cfg, d, vels, root: str, stop, interrupt):
+    """The checkpoint phase's frame at float32 features, where cuDNN's
+    default convolution algorithms differ from run to run: two runs with
+    the defaults (their gap), two inside the styler's deterministic scope
+    without a checkpoint (its cost in s/iter), one with a checkpoint
+    (which runs in that scope), then that frame interrupted after octave
+    1's first chunk and resumed, which must give the checkpointed run's
+    bits."""
+    import torch
+
+    from nfs_tpu_torch.core.config import replace
+    from nfs_tpu_torch.styler.grid import GridStyler, _deterministic_convs
+
+    styler = GridStyler(replace(cfg, **{"loss.features_dtype": "float32"}),
+                        style_image=np.random.default_rng(2).random(
+                            (256, 256, 3), dtype=np.float32),
+                        device="cuda")
+    n_iter = cfg.optim.octave_n * cfg.optim.iters
+    ckpt = os.path.join(root, "inframe_ckpt_f32.npz")
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_star, param, _ = styler.stylize_frame(d, vels=vels, **kw)
+        torch.cuda.synchronize()
+        return d_star, param, (time.perf_counter() - t0) / n_iter
+
+    default = [timed() for _ in range(2)]
+    with _deterministic_convs():
+        det = [timed() for _ in range(2)]
+    ref = timed(checkpoint_path=ckpt)
+    try:
+        styler.stylize_frame(d, vels=vels, checkpoint_path=ckpt,
+                             callback=stop)
+        raise AssertionError("the interrupting callback never ran")
+    except interrupt:
+        pass
+    resumed = timed(checkpoint_path=ckpt)
+    if os.path.exists(ckpt):
+        raise AssertionError("the completed f32 frame left its checkpoint")
+    if not (torch.equal(resumed[0], ref[0])
+            and torch.equal(resumed[1], ref[1])):
+        raise AssertionError(
+            f"float32 features: the resumed frame differs from the "
+            f"uninterrupted one by {float((resumed[0] - ref[0]).abs().max())}")
+    if not (torch.equal(det[0][0], det[1][0])
+            and torch.equal(det[0][0], ref[0])):
+        raise AssertionError("float32 features: two deterministic runs "
+                             "differ")
+    return {"resumed_bitwise": True,
+            "default_runs_gap_max_abs":
+                float((default[0][0] - default[1][0]).abs().max()),
+            "s_per_iter_default": [r[2] for r in default],
+            "s_per_iter_deterministic": [r[2] for r in det],
+            "s_per_iter_checkpointed": ref[2]}
 
 
 def _exact_inputs(case: str):
@@ -2713,6 +2789,222 @@ def phase_parallel(card: str, root: str, smoke_dir: str):
           "velocity_t2_launches": vel_launches, "cli_wall_s": cli_s,
           "card": card})
     return launches, vel_launches
+
+
+# the spatial phase: the y-slabs of 2 and 4 space ranks (the octave y
+# sizes 64, 36 and 20 divide by both)
+SPACE_SIZES = (2, 4)
+SLAB_TOL = {"bwd_field": 1e-4}
+# name: (max_disp, gradients taken, FUSED_BWD, frames in a batch (0: one
+# volume), each slab's launches): K1 + K2 at the window's max_disp 2, K1 +
+# K3 at the velocity parameter's param_max_disp 1, K1 + K3b, and a batch
+# of two frames through K1 + K2 + K3 as the engine advects its frames
+SLAB_RUNS = {
+    "field": (2.0, ("field",), False, 0, {"fwd": 1, "bwd_field": 1}),
+    "vel": (1.0, ("vel",), False, 0, {"fwd": 1, "bwd_vel": 1}),
+    "fused": (2.0, ("field", "vel"), True, 0, {"fwd": 1, "bwd_fused": 1}),
+    "batched": (2.0, ("field", "vel"), False, 2,
+                {"fwd": 1, "bwd_field": 1, "bwd_vel": 1}),
+}
+
+
+def _slab_run(f, v, g, md: float, n: int, grads, lead: int):
+    """``SpaceSlabs.advect`` itself on each of the ``n`` y-slabs of (f, v),
+    forward and the gradients ``grads`` of the cotangent g, the slabs run
+    one after another in this process (``parallel.spatial.run_slabs``:
+    the halo rows a rank would receive come from the slab that sent
+    them). Returns the outputs assembled into the volume and each slab's
+    kernel launches in the round whose results are kept."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.parallel.spatial import SpaceSlabs, run_slabs
+
+    def one(ring):
+        space = SpaceSlabs(None, f.shape[lead:], lead=lead, ring=ring)
+        fs = space.slab(f).requires_grad_("field" in grads)
+        vs = space.slab(v).requires_grad_("vel" in grads)
+        before = dict(ak.LAUNCHES)
+        y = space.advect(fs, vs, max_disp=md)
+        outs = (y.detach(),) + torch.autograd.grad(
+            y, [t for t in (fs, vs) if t.requires_grad], space.slab(g))
+        return outs, {k: c - before[k] for k, c in ak.LAUNCHES.items()
+                      if c != before[k]}
+
+    results = run_slabs(one, n)
+    whole = [torch.cat(parts, dim=lead + 1)
+             for parts in zip(*(r[0] for r in results))]
+    return whole, [r[1] for r in results]
+
+
+def _far_rows(H: int, n: int, md: float):
+    """The rows of an H-row volume on n slabs whose field gradient takes
+    nothing from another slab: ceil(md) rows or more from every cut."""
+    r, h = int(math.ceil(md)), H // n
+    return [y for y in range(H) if (y % h >= r or y < h)
+            and (h - 1 - y % h >= r or y >= H - h)]
+
+
+def _slab_checks(card: str):
+    """(1) of :func:`phase_spatial`: one record per (run, space size)."""
+    import torch
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.ops.advect import advect, advect_frames
+
+    H = SHAPE[1]
+    slabs = []
+    for name, (md, grads, fused, frames, per_slab) in SLAB_RUNS.items():
+        inputs = [_cuda_inputs("random", md, seed=11 + i)
+                  for i in range(max(frames, 1))]
+        f, g, v = (torch.stack(x) if frames else x[0]
+                   for x in zip(*inputs))
+        lead = 1 if frames else 0
+        fused_before, ak.FUSED_BWD = ak.FUSED_BWD, fused
+        try:
+            fw = f.clone().requires_grad_("field" in grads)
+            vw = v.clone().requires_grad_("vel" in grads)
+            y = (advect_frames if frames else advect)(fw, vw, max_disp=md)
+            want = [y.detach()] + list(torch.autograd.grad(
+                y, [t for t in (fw, vw) if t.requires_grad], g))
+            for n in SPACE_SIZES:
+                got, launches = _slab_run(f, v, g, md, n, grads, lead)
+                torch.cuda.synchronize()
+                if launches != [per_slab] * n:
+                    raise AssertionError(f"{name} on {n} slabs launched "
+                                         f"{launches}")
+                errs = {}
+                labels = ["out"] + [k for k in ("field", "vel")
+                                    if k in grads]
+                far = _far_rows(H, n, md)
+                for label, a, b in zip(labels, got, want):
+                    err = float((a - b).abs().max())
+                    errs[label] = err
+                    if label == "field":
+                        if not err <= SLAB_TOL["bwd_field"]:
+                            raise AssertionError(f"{name} on {n} slabs: "
+                                                 f"field gradient {err}")
+                        if not torch.equal(a[..., far, :], b[..., far, :]):
+                            raise AssertionError(
+                                f"{name} on {n} slabs: the field "
+                                f"gradient differs away from the cuts")
+                    elif err != 0.0:
+                        raise AssertionError(
+                            f"{name} on {n} slabs: {label} differs from "
+                            f"the whole volume by {err}")
+                slabs.append({"run": name, "space": n, "max_disp": md,
+                              "frames": frames, "launches_per_slab":
+                              per_slab, "max_abs_err": errs})
+        finally:
+            ak.FUSED_BWD = fused_before
+    return slabs
+
+
+def phase_spatial(card: str):
+    """Spatial sharding (``parallel/spatial.py``) at the density slice's
+    full width. (1) One process, space 2 and 4 (:func:`_slab_checks`):
+    ``SpaceSlabs.advect`` on each y-slab (its halo through ``SlabHalo``,
+    its offset through ``AdvectWindow``'s origin) against ``advect`` on
+    the whole volume: the output and the velocity gradient bitwise, the
+    field gradient, its halo rows' gradients returned to their owners,
+    within SLAB_TOL (bitwise on the rows that take nothing from another
+    slab); K1-K3b one launch per slab each. (2) Inside a 1-rank NCCL
+    group: ``stylize_frame_spatial`` on ``spatial_mesh(1)`` over frame 0
+    (W = 1, 3 octaves x 5 iterations) and the velocity parameterization
+    (2 x 3) bitwise ``GridStyler.stylize_frame``, timed (s/iter, peak
+    memory beside ``persistent_state_bytes``), their K1-K3 launches read;
+    the engine on a (1, 1, 1) mesh bitwise the (1, 1) mesh's over 2
+    frames (one code path: both meshes are one slab). Two ranks on one
+    card are refused by NCCL, so the gathers and the exchange between
+    ranks run only on gloo in the CPU tests. Returns the launches of the
+    spatial runs."""
+    import torch
+    import torch.distributed as dist
+
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.parallel import (
+        ParallelSequenceStyler, make_mesh, persistent_state_bytes,
+        spatial_mesh, stylize_frame_spatial)
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    slabs = _slab_checks(card)
+
+    cfg = _northstar_cfg(**{"optim.iters": 5})
+    vcfg = _northstar_cfg(**{"optim.parameterization": "velocity",
+                             "optim.octave_n": 2, "optim.iters": 3})
+    style = np.random.default_rng(4).random((256, 256, 3),
+                                            dtype=np.float32)
+    rng = np.random.default_rng(5)
+    ds = np.stack([_plume_density(SHAPE, t, rng) for t in range(2)])
+    vs = np.stack([_swirl_velocity(SHAPE, t) for t in range(2)])
+    vels = np.stack([vs[0], vs[0]])     # frame 0's W = 1 context
+    runs, launches = {}, {}
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = spatial_mesh(1)
+        for name, c, kw in (("density", cfg, {"vels": vels}),
+                            ("velocity", vcfg, {})):
+            styler = GridStyler(c, style_image=style, device="cuda")
+            n_iter = c.optim.octave_n * c.optim.iters
+            styler.stylize_frame(ds[0], **kw)               # warm-up
+            out = {}
+            for mode in ("unsharded", "spatial"):
+                ak.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "spatial":
+                    d, p, info = stylize_frame_spatial(styler, ds[0], mesh,
+                                                       **kw)
+                else:
+                    d, p, info = styler.stylize_frame(ds[0], **kw)
+                torch.cuda.synchronize()
+                out[mode] = (d, p, (time.perf_counter() - t0) / n_iter,
+                             torch.cuda.max_memory_allocated() / 2 ** 30)
+                if mode == "spatial":
+                    launches[name] = dict(ak.LAUNCHES)
+            (d0, p0, s0, m0), (d1, p1, s1, m1) = (out["unsharded"],
+                                                  out["spatial"])
+            if not (torch.equal(d0, d1) and torch.equal(p0, p1)):
+                raise AssertionError(
+                    f"{name}: stylize_frame_spatial on spatial_mesh(1) "
+                    f"differs from stylize_frame: "
+                    f"{float((d0 - d1).abs().max())}")
+            if not (torch.isfinite(d1).all() and float(d1.min()) >= 0.0):
+                raise AssertionError(f"{name}: spatial output")
+            runs[name] = {"s_per_iter": s1, "unsharded_s_per_iter": s0,
+                          "peak_gib": m1, "unsharded_peak_gib": m0,
+                          "persistent_state_gib": persistent_state_bytes(
+                              SHAPE, c.optim.parameterization) / 2 ** 30,
+                          "launches": launches[name],
+                          "collectives": info["collectives"],
+                          "bitwise_unsharded": True}
+        if not (launches["density"]["fwd"] and launches["density"][
+                "bwd_field"] and launches["velocity"]["bwd_vel"]):
+            raise AssertionError(f"spatial runs launched {launches}")
+        # the engine on a space axis of one: the same one slab as (1, 1)
+        ecfg = _northstar_cfg(**{"optim.iters": 5})
+        engine_out = []
+        for m in ((1, 1), (1, 1, 1)):
+            styler = GridStyler(ecfg, style_image=style, device="cuda")
+            d, p, _ = ParallelSequenceStyler(styler, make_mesh(*m)).stylize(
+                ds, vs)
+            torch.cuda.synchronize()
+            engine_out.append((d, p))
+        if not (torch.equal(engine_out[0][0], engine_out[1][0])
+                and torch.equal(engine_out[0][1], engine_out[1][1])):
+            raise AssertionError("the (1, 1, 1) engine differs from the "
+                                 "(1, 1) one")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "spatial", "shape": list(SHAPE), "slabs": slabs,
+          "tol": SLAB_TOL, "runs": runs, "engine_1_1_1_bitwise": True,
+          "reduced": "one card: the slabs of 2 and 4 ranks run in one "
+                     "process, the styler and engine on a 1-rank NCCL "
+                     "group; 5 iterations per octave (config #3: 20)",
+          "card": card})
+    return launches
 
 
 def _keyframe_reference_run(dev: str, grid, color: bool):
@@ -3429,6 +3721,8 @@ def main(argv=None) -> int:
                                                         smoke_dir)
         # the keyframe engine's path resets and reads its own counters
         kf_launches = phase_keyframes(card, args.profile)
+        # the spatial path resets and reads its own counters
+        sp_launches = phase_spatial(card)
         phase_checkpoint(card, tmp, smoke_dir)
         a_dir, c_dir, style = phase_serve(card, tmp, smoke_dir)
         phase_render_quality(card, tmp, smoke_dir, a_dir, c_dir, style,
@@ -3451,6 +3745,12 @@ def main(argv=None) -> int:
         rec["batched_b4"] = batched[key]
         rec["parallel_launches"] = (par_vel_launches if key == "bwd_vel"
                                     else par_launches)[key]
+        # launches of the spatial runs (density W = 1 and velocity)
+        rec["spatial_launches"] = sum(l[key] for l in sp_launches.values())
+        if key in ("fwd", "bwd_field", "bwd_vel") and \
+                rec["spatial_launches"] <= 0:
+            raise AssertionError(f"{rec['name']} never launched on the "
+                                 f"spatial path")
     # the keyframe batch of K4 and K5, and their launches on the keyframe
     # engine's path (five keyframes in one program)
     for rec, (key, _, _) in zip(bin_records, BIN_KERNELS):

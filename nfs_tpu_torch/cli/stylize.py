@@ -43,9 +43,9 @@ the last saved param (at most F-1 finished frames are stylized again
 when fused). With ``--checkpoint_in_frame`` every grid frame writes
 {param, Adam state} to ``inframe_ckpt.npz`` after each ``log_every``
 iterations, and a rerun resumes the interrupted frame there with the
-bits of an uninterrupted run; the file is deleted when the frame
-completes. Not ported yet, and refused with the ROADMAP item that holds
-it: ``--parallel --mode particle`` (keyframe-parallel LNST).
+bits of an uninterrupted run (such a frame runs with cuDNN's
+deterministic convolutions); the file is deleted when the frame
+completes.
 """
 
 from __future__ import annotations

@@ -57,24 +57,30 @@ def _shift_zero(x: torch.Tensor, offsets, ndim_space: int) -> torch.Tensor:
 
 
 def _advect_window_taps(field: torch.Tensor, vel: torch.Tensor, dt: float,
-                        mode: str, max_disp: float) -> torch.Tensor:
+                        mode: str, max_disp: float,
+                        origin=None) -> torch.Tensor:
     """Window-tap sum of the JAX package's ``_advect_window``: the
     (2K+1)^ndim static shifts of the field with per-cell tent weights,
     K = ceil(max_disp) + 1, for 2D or 3D fields with optional trailing
-    channels."""
+    channels. ``origin = (axis, offset)``: the field is a slab whose cell
+    i along ``axis`` is the volume's ``i + offset``; the backtrace is
+    taken in the volume's indices, so it rounds as the volume's does."""
     ndim = vel.shape[-1]
     spatial = tuple(field.shape[:ndim])
     K = int(math.ceil(max_disp)) + 1
     disp = jax_clip(dt * vel.to(torch.float32), -max_disp, max_disp)
+    lo = [0] * ndim
+    if origin is not None:
+        lo[origin[0]] = origin[1]
     idx = []
     for a in range(ndim):
         view = [1] * ndim
         view[a] = spatial[a]
-        idx.append(torch.arange(spatial[a], dtype=torch.float32,
-                                device=field.device).view(view)
+        idx.append((torch.arange(spatial[a], dtype=torch.float32,
+                                 device=field.device) + lo[a]).view(view)
                    .expand(spatial))
     if mode == "clamp":
-        s = [jax_clip(idx[a] - disp[..., a], 0.0, spatial[a] - 1)
+        s = [jax_clip(idx[a] - disp[..., a], lo[a], lo[a] + spatial[a] - 1)
              for a in range(ndim)]
     elif mode == "zero":  # raw backtrace; outside support falls to zero
         s = [idx[a] - disp[..., a] for a in range(ndim)]
@@ -95,29 +101,31 @@ def _advect_window_taps(field: torch.Tensor, vel: torch.Tensor, dt: float,
 
 
 def _advect_window(field: torch.Tensor, vel: torch.Tensor, dt: float,
-                   mode: str, max_disp: float,
-                   batched: bool = False) -> torch.Tensor:
+                   mode: str, max_disp: float, batched: bool = False,
+                   origin=None) -> torch.Tensor:
     """Bounded-displacement advection on the fastest backend: the K1-K3
     path for 3D clamp-mode fields (per channel for a channelled field),
     the window-tap sum otherwise. ``batched``: field and vel carry a
     leading frame axis, which the K1-K3 path takes in one launch and the
-    window-tap sum frame by frame."""
+    window-tap sum frame by frame. ``origin``: as :func:`advect`'s."""
     spatial_ndim = field.ndim - int(batched)
     if vel.shape[-1] == 3 and mode == "clamp" and spatial_ndim in (3, 4):
         v = vel.to(torch.float32) * dt
         if spatial_ndim == 3:
-            return AdvectWindow.apply(field, v, max_disp)
-        return torch.stack([AdvectWindow.apply(field[..., c], v, max_disp)
+            return AdvectWindow.apply(field, v, max_disp, origin)
+        return torch.stack([AdvectWindow.apply(field[..., c], v, max_disp,
+                                               origin)
                             for c in range(field.shape[-1])], dim=-1)
     if batched:
-        return torch.stack([_advect_window_taps(f, u, dt, mode, max_disp)
+        return torch.stack([_advect_window_taps(f, u, dt, mode, max_disp,
+                                                origin)
                             for f, u in zip(field, vel)])
-    return _advect_window_taps(field, vel, dt, mode, max_disp)
+    return _advect_window_taps(field, vel, dt, mode, max_disp, origin)
 
 
 def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
            mode: str = "clamp", max_disp: Optional[float] = None,
-           impl: str = "auto") -> torch.Tensor:
+           impl: str = "auto", origin=None) -> torch.Tensor:
     """Semi-Lagrangian advection.
 
     Args:
@@ -131,6 +139,11 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
         as the JAX package picks its Pallas kernels there; 'pallas' (the
         config keeps the JAX package's name) also checks that the field
         is a 3D scalar clamp-mode one; 'xla' forces the window-tap sum.
+      origin: window path only: ``(axis, offset)`` when ``field`` and
+        ``vel`` are a slab of a volume whose cell i along spatial ``axis``
+        is the volume's ``i + offset`` (``parallel/spatial.py``); each
+        output cell whose backtrace stays inside the slab is then the
+        volume's, bit for bit.
     """
     if impl not in _IMPLS:
         raise ValueError(f"unknown advect impl {impl!r}")
@@ -139,33 +152,34 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
                           mode=mode)
         return out.to(field.dtype)
     if impl == "xla":
-        return _advect_window_taps(field, vel, dt, mode, max_disp)
+        return _advect_window_taps(field, vel, dt, mode, max_disp, origin)
     if impl == "pallas" and not (
             field.ndim == 3 and mode == "clamp"
             and tuple(vel.shape) == tuple(field.shape) + (3,)):
         raise ValueError(
             "impl='pallas' supports 3D scalar clamp-mode fields")
-    return _advect_window(field, vel, dt, mode, max_disp)
+    return _advect_window(field, vel, dt, mode, max_disp, origin=origin)
 
 
 def advect_frames(fields: torch.Tensor, vels: torch.Tensor, dt: float = 1.0,
                   mode: str = "clamp", max_disp: Optional[float] = None,
-                  impl: str = "auto") -> torch.Tensor:
+                  impl: str = "auto", origin=None) -> torch.Tensor:
     """:func:`advect` over a batch of frames: ``fields`` (B, *spatial) or
     (B, *spatial, C), ``vels`` (B, *spatial, ndim), frame b advected by
     ``vels[b]``. On the window path a 3D clamp-mode batch goes through
     K1-K3b with one launch per kernel for all B frames (per channel for a
     channelled field); every other case runs :func:`advect` frame by
-    frame."""
+    frame. ``origin``: as :func:`advect`'s, for every frame."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown advect impl {impl!r}")
     if max_disp is None or impl == "xla" or (
             impl == "pallas" and not (
                 fields.ndim == 4 and mode == "clamp"
                 and tuple(vels.shape) == tuple(fields.shape) + (3,))):
-        return torch.stack([advect(f, v, dt, mode, max_disp, impl)
+        return torch.stack([advect(f, v, dt, mode, max_disp, impl, origin)
                             for f, v in zip(fields, vels)])
-    return _advect_window(fields, vels, dt, mode, max_disp, batched=True)
+    return _advect_window(fields, vels, dt, mode, max_disp, batched=True,
+                          origin=origin)
 
 
 def _backtrace(vel: torch.Tensor, dt: float, device) -> torch.Tensor:

@@ -153,19 +153,46 @@ def _clip_grad(x, lo, hi):
 
 
 def vel_grad_chain(grad_s: torch.Tensor, vel: torch.Tensor,
-                   max_disp: float) -> torch.Tensor:
+                   max_disp: float, kernel_vel=None) -> torch.Tensor:
     """grad wrt the displacement from grad wrt s = clip(i - clip(v)):
     ``-grad_s * outer * inner`` (pallas_advect.py:492-508, dt = 1), for
-    one displacement or a batch of them."""
+    one displacement or a batch of them. ``kernel_vel``: the displacement
+    the kernels were given in place of ``vel`` (:func:`slab_displacement`),
+    whose backtrace the outer clip reads; the inner clip reads ``vel``."""
     D, H, W = vel.shape[-4:-1]
     idx = torch.stack(torch.broadcast_tensors(*_axes((D, H, W), vel.device)),
                       dim=-1)
     sizes = torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32,
                          device=vel.device)
     v = vel.to(torch.float32)
-    outer = _clip_grad(idx - v.clamp(-max_disp, max_disp), 0.0, sizes)
+    k = v if kernel_vel is None else kernel_vel
+    outer = _clip_grad(idx - k.clamp(-max_disp, max_disp), 0.0, sizes)
     inner = _clip_grad(v, -max_disp, max_disp)
     return -grad_s * outer * inner
+
+
+def slab_displacement(vel: torch.Tensor, max_disp: float, axis: int,
+                      offset: int) -> torch.Tensor:
+    """The displacement K1-K3b take on a slab of a volume whose cell i
+    along spatial ``axis`` is cell ``i + offset`` of the whole volume: the
+    component along ``axis`` becomes ``g - (g - clip(v))`` in float32, g
+    the cell's index in the whole volume. That is exact, so a kernel's
+    backtrace ``i - d`` on the slab is the whole volume's ``g - clip(v)``,
+    rounded at g, less ``offset``: every weight and tap is the whole
+    volume's, bit for bit, where ``i - clip(v)`` itself would round at i.
+    (``max_disp`` must be exact at the volume's indices, as 1, 2 or 1.5
+    are.) (D, H, W, 3) or (B, D, H, W, 3); offset 0 returns ``vel``."""
+    if offset == 0:
+        return vel
+    n = vel.shape[-4 + axis]
+    view = [1, 1, 1, 1]
+    view[axis] = n
+    g = (torch.arange(n, dtype=torch.float32, device=vel.device)
+         + offset).view(view)
+    comp = vel[..., axis:axis + 1].to(torch.float32).clamp(-max_disp,
+                                                          max_disp)
+    return torch.cat([vel[..., :axis], g - (g - comp),
+                      vel[..., axis + 1:]], dim=-1)
 
 
 def _corner(s, c, n):
@@ -420,30 +447,37 @@ class AdvectWindow(torch.autograd.Function):
     H, W, 3) displacements, each kernel launched once for the batch. Counterpart of ``advect_pallas``' custom VJP. The
     backward runs K2 only when the field needs a gradient and K3 only
     when the displacement does; with :data:`FUSED_BWD` a backward that
-    needs both runs K3b once instead (the same values)."""
+    needs both runs K3b once instead (the same values). An optional
+    fourth argument ``origin = (axis, offset)`` says the field is a slab
+    of a volume, its cell i along ``axis`` the volume's ``i + offset``:
+    the kernels then take :func:`slab_displacement`."""
 
     @staticmethod
-    def forward(ctx, field, vel, max_disp):
+    def forward(ctx, field, vel, max_disp, origin=None):
         field = field.contiguous()
         vel = vel.contiguous()
-        ctx.save_for_backward(field, vel)
+        kvel = (vel if origin is None else
+                slab_displacement(vel, max_disp, *origin).contiguous())
+        ctx.save_for_backward(field, vel, kvel)
+        ctx.slab = origin is not None
         ctx.max_disp = float(max_disp)
-        return advect_fwd(field, vel, ctx.max_disp)
+        return advect_fwd(field, kvel, ctx.max_disp)
 
     @staticmethod
     def backward(ctx, g):
-        field, vel = ctx.saved_tensors
+        field, vel, kvel = ctx.saved_tensors
         g = g.contiguous()
         need_field, need_vel = ctx.needs_input_grad[:2]
         grad_field = grad_vel = grad_s = None
         if FUSED_BWD and need_field and need_vel:
-            grad_field, grad_s = advect_bwd_fused(field, vel, g,
+            grad_field, grad_s = advect_bwd_fused(field, kvel, g,
                                                   ctx.max_disp)
         else:
             if need_field:
-                grad_field = advect_bwd_field(vel, g, ctx.max_disp)
+                grad_field = advect_bwd_field(kvel, g, ctx.max_disp)
             if need_vel:
-                grad_s = advect_bwd_vel(field, vel, g, ctx.max_disp)
+                grad_s = advect_bwd_vel(field, kvel, g, ctx.max_disp)
         if grad_s is not None:
-            grad_vel = vel_grad_chain(grad_s, vel, ctx.max_disp)
-        return grad_field, grad_vel, None
+            grad_vel = vel_grad_chain(grad_s, vel, ctx.max_disp,
+                                      kvel if ctx.slab else None)
+        return grad_field, grad_vel, None, None

@@ -77,6 +77,19 @@ def resize(field: torch.Tensor, shape: Tuple[int, ...],
     return out
 
 
+def resize_frames(x: torch.Tensor, shape: Tuple[int, ...],
+                  is_velocity: bool = False) -> torch.Tensor:
+    """:func:`resize` of every frame of a (T, *spatial[, C]) stack, in
+    one contraction per axis."""
+    ndim = len(shape)
+    out = resize_axes(x, range(1, 1 + ndim), shape)
+    if is_velocity:
+        scale = torch.tensor([shape[i] / x.shape[1 + i] for i in range(ndim)],
+                             dtype=out.dtype, device=out.device)
+        out = out * scale
+    return out
+
+
 def octave_shape(shape: Sequence[int], octave: int, octave_n: int,
                  octave_scale: float) -> Tuple[int, ...]:
     """Spatial shape at `octave` (0 = coarsest, octave_n-1 = full res)."""

@@ -17,6 +17,18 @@ SPMD: every rank runs :meth:`ParallelSequenceStyler.stylize` on the whole
 sequence, keeps its own frames, and returns the gathered result, as the
 JAX call returns it. A frame's view draws depend only on the seed and the
 frame's index in the sequence, so the result does not depend on the mesh.
+
+On a composed (frames, views, space) mesh each frame's volume is also
+split into y-slabs (x for 2D) over ``space`` (``parallel/spatial.py``):
+params, Adam state, densities and sim velocities are slabs, each tap's
+batched advection takes a halo of the neighbouring slabs, the window
+states and the params are gathered whole for the render and the TV term,
+the views all_reduce sums one slab's partial gradients, the frame halos
+ride the ranks of one slab, and the result is gathered over space, then
+over frames. An octave whose sharded axis does not divide by the space
+axis (or gives slabs thinner than the advection halo) runs replicated
+over space, with a warning, as the JAX engine keeps it frames-sharded
+only.
 """
 
 from __future__ import annotations
@@ -28,31 +40,19 @@ import torch
 import torch.distributed as dist
 
 from nfs_tpu_torch.features.losses import tv_loss
-from nfs_tpu_torch.ops.advect import advect_frames
-from nfs_tpu_torch.ops.resize import octave_shapes, resize_axes
+from nfs_tpu_torch.ops.resize import octave_shapes, resize_frames
 from nfs_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape_for
 from nfs_tpu_torch.parallel.sharding import (
     _new_counts, make_sharded_window_step)
+from nfs_tpu_torch.parallel.spatial import SpaceSlabs, halo_rows
 from nfs_tpu_torch.render.camera import poisson_view_pool
 from nfs_tpu_torch.render.raymarch import render2d, render_views_batch
 from nfs_tpu_torch.styler.grid import GridStyler
 
 
-def _resize_frames(x: torch.Tensor, shape, is_velocity: bool = False):
-    """``ops.resize.resize`` of every frame of a (T, *spatial[, C])
-    stack."""
-    ndim = len(shape)
-    out = resize_axes(x, range(1, 1 + ndim), shape)
-    if is_velocity:
-        scale = torch.tensor([shape[i] / x.shape[1 + i] for i in range(ndim)],
-                             dtype=out.dtype, device=out.device)
-        out = out * scale
-    return out
-
-
 class ParallelSequenceStyler:
     """Runs a :class:`GridStyler`'s loss pipeline through the sharded
-    window step on a (frames, views) mesh."""
+    window step on a (frames, views[, space]) mesh."""
 
     def __init__(self, styler: GridStyler, mesh: Optional[Mesh] = None):
         self.styler = styler
@@ -67,27 +67,32 @@ class ParallelSequenceStyler:
 
     # ------------------------------------------------------------- #
 
-    def _apply_params(self, params, d):
-        """Every local frame's d* at once (the velocity parameterization
-        advects them in one batched call)."""
+    def _apply_params(self, params, d, space: SpaceSlabs):
+        """Every local frame's d* at once, on the slabs ``space`` (the
+        velocity parameterization advects them in one batched call)."""
         oc = self.cfg.optim
         if oc.parameterization == "velocity":
-            return advect_frames(d, params, max_disp=oc.param_max_disp,
-                                 impl=oc.advect_impl)
+            return space.advect(d, params, max_disp=oc.param_max_disp,
+                                impl=oc.advect_impl)
         return d + params
 
-    def _loss_frames(self, ndim: int, window: int, render_size):
+    def _loss_frames(self, ndim: int, window: int, render_size,
+                     space: SpaceSlabs):
         """The step's loss: the sum over the local frames of each frame's
-        views-partial loss (``make_sharded_window_step``)."""
+        views-partial loss (``make_sharded_window_step``), on the octave's
+        slabs ``space``, gathered whole for the render and the TV term
+        (every rank of the space axis computes the same loss)."""
         styler, cfg = self.styler, self.cfg
         rc = cfg.render
         v_shards = self.mesh.shape["views"]
         weights = (styler._window_weights(window) if window else
                    torch.ones(1, device=styler.device))
 
+        run = space.advect
+
         def loss_frames(params, d, vels_pad, views, aux):
             L = d.shape[0]
-            d_star = self._apply_params(params, d)
+            d_star = self._apply_params(params, d, space)
             # all 2W+1 transported states of every local frame: each tap
             # advects the L frames in one batched call. Frame i's window
             # velocities are vels_pad[i : i + 2W]: forward taps take
@@ -98,17 +103,16 @@ class ParallelSequenceStyler:
             d_j = d_star
             for j in range(1, window + 1):
                 k = window + j - 1
-                d_j = advect_frames(d_j, vels_pad[k:k + L], max_disp=md,
-                                    impl=impl)
+                d_j = run(d_j, vels_pad[k:k + L], max_disp=md, impl=impl)
                 states[window + j] = d_j
             d_j = d_star
             for j in range(1, window + 1):
                 k = window - j
-                d_j = advect_frames(d_j, -vels_pad[k:k + L], max_disp=md,
-                                    impl=impl)
+                d_j = run(d_j, -vels_pad[k:k + L], max_disp=md, impl=impl)
                 states[window - j] = d_j
             P = len(states)
-            st = torch.stack(states, dim=1)          # (L, P, *spatial)
+            st = space.gather(torch.stack(states, dim=1),
+                              lead=2)                # (L, P, *spatial)
             if ndim == 3:
                 # views (L, nv, 3): (theta, phi, weight); the weights carry
                 # the padding mask and 1/n_views, so the weighted sums of
@@ -138,7 +142,7 @@ class ParallelSequenceStyler:
                 imgs.reshape((-1, 1) + imgs.shape[-3:]), pw.reshape(-1),
                 aux)
             if cfg.loss.w_tv:
-                tv = sum(tv_loss(p, ndim=ndim) for p in params)
+                tv = sum(tv_loss(p, ndim=ndim) for p in space.gather(params))
                 # every views rank holds the whole param: each adds its
                 # share, so that the views sum counts the term once
                 total = total + cfg.loss.w_tv * tv / (
@@ -200,14 +204,15 @@ class ParallelSequenceStyler:
                                           generator=gen)
         return out
 
-    def _local(self, x, idx: np.ndarray) -> torch.Tensor:
-        """Frames ``idx`` (indices into the sequence) of an array or
-        tensor, as a float32 tensor on the styler's device."""
+    def _local(self, x, idx: np.ndarray, space: SpaceSlabs) -> torch.Tensor:
+        """This rank's slabs on ``space`` of frames ``idx`` (indices into
+        the sequence) of an array or tensor, sliced where they lie, as a
+        float32 tensor on the styler's device."""
         if isinstance(x, torch.Tensor):
             x = x[torch.as_tensor(idx, device=x.device)]
         else:
-            x = np.asarray(x, dtype=np.float32)[idx]
-        return self.styler._on_device(x)
+            x = torch.from_numpy(np.asarray(x, dtype=np.float32)[idx])
+        return self.styler._on_device(space.slab(x))
 
     def _gather(self, x: torch.Tensor, counts) -> torch.Tensor:
         """The frames of all shards, in order, on every shard rank."""
@@ -265,11 +270,20 @@ class ParallelSequenceStyler:
         shapes = octave_shapes(spatial, oc.octave_n, oc.octave_scale)
         losses_by_octave = []
         if mesh.has_shard:
+            # the frames' y-slabs (x for 2D; the JAX engine's choice) on
+            # the space axis, one slab without one
+            space = SpaceSlabs(mesh, spatial, axis=1 if ndim == 3 else 0,
+                               halo=halo_rows(cfg, window), lead=1,
+                               counts=counts)
+            full = space.octave(spatial)    # the states at full resolution
             # this rank's frames; the padding repeats the last frame
             frames = np.arange(mesh.frame_idx * L, (mesh.frame_idx + 1) * L)
             src = np.minimum(frames, T - 1)
-            d_full = self._local(densities, src)
-            vels_full = (self._local(velocities, src) if window else None)
+            d_full = self._local(densities, src, full)
+            vels_full = (self._local(velocities, src, full) if window
+                         else None)
+            params = torch.zeros(tuple(d_full.shape) + param_tail,
+                                 dtype=torch.float32, device=styler.device)
             pool = None
             if ndim == 3:
                 n_views = cfg.render.n_views
@@ -282,20 +296,23 @@ class ParallelSequenceStyler:
                 draws = None
             aux = {"vgg": styler.vgg_params, "targets": styler.gram_targets,
                    "content": styler.content_feats}
-            params = torch.zeros((L,) + spatial + param_tail,
-                                 dtype=torch.float32, device=styler.device)
+            prev = spatial      # the octave shape of params
             for o, shape in enumerate(shapes):
                 shape = tuple(shape)
-                if params.shape[1:1 + ndim] != shape:
-                    params = _resize_frames(params, shape, is_vel)
-                d_o = (d_full if shape == spatial
-                       else _resize_frames(d_full, shape))
-                vels_o = None
-                if window:
-                    vels_o = (vels_full if shape == spatial
-                              else _resize_frames(vels_full, shape, True))
+                params = space.resize(
+                    params, prev, shape,
+                    lambda p, _s=shape: resize_frames(p, _s, is_vel))
+                prev = shape
+                d_o = space.resize(d_full, spatial, shape,
+                                   lambda x, _s=shape: resize_frames(x, _s))
+                vels_o = (space.resize(
+                    vels_full, spatial, shape,
+                    lambda v, _s=shape: resize_frames(v, _s, True))
+                    if window else None)
                 render_size = styler._octave_render_size(shape, spatial)
-                loss = self._loss_frames(ndim, window, render_size)
+                loss = self._loss_frames(
+                    ndim, window, render_size,
+                    space.octave(shape, warn=True, label=1 + space.axis))
                 opt_state = styler._optimizer.init(params)
                 chunk = oc.log_every if callback is not None else oc.iters
                 done, octave_losses = 0, []
@@ -315,17 +332,19 @@ class ParallelSequenceStyler:
                         callback(done, float(losses[-1]), octave=o)
                 losses_by_octave.append(torch.cat(octave_losses))
             with torch.no_grad():
-                d_star = torch.clamp(self._apply_params(params, d_full),
-                                     min=0.0)
-            d_star = self._gather(d_star, counts)[:T]
-            params = self._gather(params, counts)[:T]
+                d_star = torch.clamp(
+                    self._apply_params(params, d_full, full), min=0.0)
+            # the slabs gathered over space, then the frames
+            d_star = self._gather(full.whole(d_star), counts)[:T]
+            params = self._gather(full.whole(params), counts)[:T]
         else:
             d_star = torch.empty((T,) + spatial, device=styler.device)
             params = torch.empty((T,) + spatial + param_tail,
                                  device=styler.device)
             losses_by_octave = [torch.empty(oc.iters, device=styler.device)
                                 for _ in shapes]
-        if mesh.distributed and mesh.world > f_shards * v_shards:
+        if mesh.distributed and mesh.world > (
+                f_shards * v_shards * mesh.size("space")):
             # the ranks past the mesh receive rank 0's result
             flat = torch.cat(losses_by_octave)
             for x in (d_star, params, flat):

@@ -1,6 +1,8 @@
-"""Sharded stylization on a (frames, views) mesh of ranks (counterpart of
-``nfs_tpu/parallel/sharding.py``): frame-parallel temporal windows with
-ring halos, view-parallel rendering with gradient all_reduces.
+"""Sharded stylization on a (frames, views, space) mesh of ranks
+(counterpart of ``nfs_tpu/parallel/sharding.py``): frame-parallel
+temporal windows with ring halos, view-parallel rendering with gradient
+all_reduces, and the collectives of a volume split into slabs over the
+``space`` axis.
 
 :func:`make_sharded_window_step` returns the SPMD step every rank of the
 mesh runs on its shard: ``n_iters`` Adam iterations on all of its L local
@@ -27,11 +29,24 @@ inside its scanned step; here the caller passes the pool indices
 Each call counts the collectives it issues in the step's
 ``collectives`` attribute (the counterpart of the JAX engine's
 ``capture_collectives``).
+
+Slabs: where the JAX package leaves a volume sharded over ``space`` to
+GSPMD, which inserts the collectives, the port writes them by hand
+(``parallel/spatial.py`` uses them): :func:`shard_volume` and
+:func:`gather_volume` place and fetch a volume; :class:`SlabHalo` appends
+the neighbouring slabs' edge rows to a slab (its backward returns their
+gradients to their owners and adds them there), and :class:`SlabGather`
+all-gathers the slabs into the volume for a computation every rank of
+the space axis repeats identically (its backward is the slice of the
+gradient to the rank's own slab). A :class:`SlabRing` says where a slab
+sits and how it trades rows with its neighbours: between ranks
+(:func:`mesh_ring`), or between slabs run in one process, which is how a
+single device checks the slab route.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -204,3 +219,195 @@ def make_sharded_window_step(mesh: Mesh, loss_frames: Callable,
 
     step.collectives = _new_counts()
     return step
+
+
+# ------------------------------------------------------------------ #
+# volumes split over an axis of the mesh
+# ------------------------------------------------------------------ #
+
+def _split(n_rows: int, mesh: Mesh, mesh_axis: str) -> Tuple[int, int]:
+    """(rows per rank, this rank's first row) of an axis of ``n_rows``
+    split over ``mesh_axis``; the rows must divide, as
+    ``jax.device_put`` demands of a NamedSharding."""
+    n = mesh.size(mesh_axis)
+    if n_rows % n:
+        raise ValueError(
+            f"an axis of {n_rows} cannot be split evenly over the "
+            f"{mesh_axis!r} mesh axis of {n} ranks")
+    h = n_rows // n
+    return h, mesh.axis_index(mesh_axis) * h
+
+
+def own(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in storage of its own: a part of a volume that keeps no
+    reference to the whole (a view would hold all of it allocated)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_volume(d, mesh: Mesh, axis: int = -1,
+                 mesh_axis: str = "views") -> torch.Tensor:
+    """This rank's part of a volume split over ``mesh_axis`` along array
+    ``axis`` (every rank passes the whole volume, an array or tensor), in
+    storage of its own: the counterpart of the JAX package's
+    NamedSharding placement, whose shard a device holds."""
+    d = torch.as_tensor(d)
+    axis %= d.ndim
+    h, start = _split(d.shape[axis], mesh, mesh_axis)
+    return own(d.narrow(axis, start, h))
+
+
+def gather_volume(x: torch.Tensor, mesh: Mesh, axis: int = -1,
+                  mesh_axis: str = "views",
+                  counts: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """The whole volume from every rank's part along ``axis`` (the
+    inverse of :func:`shard_volume`), on every rank of ``mesh_axis``."""
+    axis %= x.ndim
+    if not mesh.distributed or mesh.size(mesh_axis) == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.size(mesh_axis))]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group(mesh_axis))
+    if counts is not None:
+        counts["all_gather"] += 1
+    return torch.cat(parts, dim=axis)
+
+
+class SlabRing(NamedTuple):
+    """A slab's place among the ``n`` slabs of one volume, and how it
+    trades edge rows with its neighbours: ``exchange(to_below, to_above,
+    like)`` sends ``to_below`` to slab ``idx - 1`` and ``to_above`` to
+    slab ``idx + 1`` (where they exist) and returns what they sent this
+    way, ``(from_below, from_above)``, each shaped as ``like``, None where
+    there is no neighbour. :func:`mesh_ring` exchanges between the ranks
+    of a mesh's space axis; ``parallel.spatial.run_slabs`` between slabs
+    run one after another in one process."""
+
+    n: int
+    idx: int
+    exchange: Optional[Callable] = None
+
+
+def mesh_ring(mesh: Mesh, counts: Dict[str, int]) -> SlabRing:
+    """This rank's :class:`SlabRing` on the space axis of ``mesh``: one
+    ``batch_isend_irecv`` with each neighbouring rank, counted in
+    ``counts``."""
+    n, idx = mesh.size("space"), mesh.space_idx
+    ranks = mesh.axis_ranks("space") if n > 1 else None
+    group = mesh.group("space")
+
+    def exchange(to_below, to_above, like):
+        def buf():
+            return torch.empty(like.shape, dtype=like.dtype,
+                               device=like.device)
+
+        from_below = buf() if idx > 0 else None
+        from_above = buf() if idx < n - 1 else None
+        ops = []
+        if idx > 0:
+            ops.append(dist.P2POp(dist.isend, to_below.contiguous(),
+                                  ranks[idx - 1], group))
+            ops.append(dist.P2POp(dist.irecv, from_below, ranks[idx - 1],
+                                  group))
+        if idx < n - 1:
+            ops.append(dist.P2POp(dist.isend, to_above.contiguous(),
+                                  ranks[idx + 1], group))
+            ops.append(dist.P2POp(dist.irecv, from_above, ranks[idx + 1],
+                                  group))
+        for op in ops:
+            counts["send" if op.op is dist.isend else "recv"] += 1
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return from_below, from_above
+
+    return SlabRing(n, idx, exchange)
+
+
+def _halo_widths(halo: int, ring: SlabRing) -> Tuple[int, int]:
+    """(rows below, rows above) that a slab takes from its neighbours:
+    none past the volume's edges, where the slab's own bound is the
+    volume's."""
+    return ((halo if ring.idx > 0 else 0),
+            (halo if ring.idx < ring.n - 1 else 0))
+
+
+def crop_slab(x: torch.Tensor, below: int, above: int,
+              axis: int) -> torch.Tensor:
+    """The slab of one padded with ``below`` and ``above`` rows along
+    ``axis``, in storage of its own."""
+    if not below and not above:
+        return x
+    return own(x.narrow(axis, below, x.shape[axis] - below - above))
+
+
+class SlabHalo(torch.autograd.Function):
+    """``SlabHalo.apply(x, halo, ring, axis)``: a slab along ``axis``
+    with ``halo`` rows of each neighbouring slab of ``ring`` (a
+    :class:`SlabRing`) appended, none past the volume's edges (a slab
+    must hold at least ``halo`` rows). The backward sends the gradient of
+    those rows back to the slab that owns them, which adds it onto its
+    edge rows: the adjoint of the halo."""
+
+    @staticmethod
+    def forward(ctx, x, halo, ring, axis):
+        below, above = _halo_widths(halo, ring)
+        ctx.geometry = (below, above, axis, ring)
+        if ring.n == 1:
+            return x
+        h = x.shape[axis]
+        if h < halo:
+            raise ValueError(f"a slab of {h} rows cannot take a halo of "
+                             f"{halo} rows from one neighbour")
+        rows_below, rows_above = ring.exchange(
+            x.narrow(axis, 0, halo), x.narrow(axis, h - halo, halo),
+            x.narrow(axis, 0, halo))
+        return torch.cat([t for t in (rows_below, x, rows_above)
+                          if t is not None], dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        below, above, axis, ring = ctx.geometry
+        if ring.n == 1:
+            return g, None, None, None
+        out = crop_slab(g, below, above, axis)
+        from_below, from_above = ring.exchange(
+            g.narrow(axis, 0, below) if below else None,
+            g.narrow(axis, g.shape[axis] - above, above) if above else None,
+            g.narrow(axis, 0, below or above))
+        # the neighbours' gradients of the rows they took as halo
+        if from_below is not None:
+            out.narrow(axis, 0, below).add_(from_below)
+        if from_above is not None:
+            out.narrow(axis, out.shape[axis] - above, above).add_(from_above)
+        return out, None, None, None
+
+
+class SlabGather(torch.autograd.Function):
+    """``SlabGather.apply(x, mesh, axis, counts, replicated)``: the whole
+    volume from the slabs of the space axis, on every rank of it.
+
+    ``replicated=True`` is for a volume that every rank of the space axis
+    then puts through the same computation to the same loss (the render,
+    the features and the loss of every rank are the same): each rank's
+    gradient with respect to the volume is then the whole gradient, and
+    the backward is its slice to the rank's own slab. Summing it over
+    the ranks would multiply it by their number. ``replicated=False`` is
+    for a volume of which each rank then keeps only its own part (the
+    exact advection): the gradients are summed over the ranks before the
+    slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, counts, replicated):
+        ctx.geometry = (x.shape[axis], axis, mesh, counts, replicated)
+        return gather_volume(x, mesh, axis, "space", counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, axis, mesh, counts, replicated = ctx.geometry
+        if mesh.size("space") == 1:
+            return g, None, None, None, None
+        if not replicated:
+            g = g.contiguous()
+            dist.all_reduce(g, group=mesh.group("space"))
+            counts["all_reduce"] += 1
+        return (own(g.narrow(axis, mesh.space_idx * h, h)), None, None,
+                None, None)

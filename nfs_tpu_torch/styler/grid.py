@@ -14,7 +14,9 @@ chunk directory (``io/stream.py``), with the param yielded per frame or
 per chunk of frames, and resumed mid-sequence from a saved param; in-frame
 checkpoints of {param, Adam state} every ``log_every`` iterations, from
 which an interrupted frame resumes mid-octave with the uninterrupted
-run's bits.
+run's bits (such a frame runs with cuDNN's deterministic convolutions,
+which float32 features need on a GPU); a frame split into y-slabs over
+the ranks of a space mesh (``parallel/spatial.py``).
 
 The optimization runs eagerly on ``device``. Advection inside the loss
 goes through the CUDA kernels K1-K3b (``ops/advect_kernels.py``) on a
@@ -29,6 +31,7 @@ and VGG activations at a time and recomputes them.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional, Tuple
 
@@ -47,6 +50,32 @@ from nfs_tpu_torch.render.raymarch import (
     render2d, render_views, render_volume)
 from nfs_tpu_torch.styler.base import StylerBase
 from nfs_tpu_torch.styler.octave import Adam, run_octave
+
+
+def _one_slab(shape=None):
+    """The unsharded frame: a ``parallel.spatial.SpaceSlabs`` of one
+    slab, the whole volume, on which every method is the plain
+    computation. (Imported here: ``parallel`` imports this module.)"""
+    from nfs_tpu_torch.parallel.spatial import SpaceSlabs
+    return SpaceSlabs(shape=shape)
+
+
+@contextlib.contextmanager
+def _deterministic_convs():
+    """cuDNN's deterministic convolution algorithms for the scope, restored
+    after it: at float32 features the default ones differ from run to run
+    on a GPU, so a resumed frame would not repeat an uninterrupted one's
+    bits. Scoped to a frame, since a process such as the service runs
+    other jobs."""
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
 
 
 class GridStyler(StylerBase):
@@ -117,13 +146,17 @@ class GridStyler(StylerBase):
             img = img[..., None].expand(*img.shape, 3)
         return self._image_loss(img[None], data)
 
-    def _apply_param(self, opt_var, d_base: torch.Tensor) -> torch.Tensor:
+    def _apply_param(self, opt_var, d_base: torch.Tensor,
+                     space) -> torch.Tensor:
+        """d* of the param on the octave's slabs ``space``
+        (``parallel.spatial.SpaceSlabs``), whose advection takes a
+        halo."""
         if isinstance(opt_var, dict):  # render.train_transfer
             opt_var = opt_var["field"]
         oc = self.cfg.optim
         if oc.parameterization == "velocity":
-            return advect(d_base, opt_var, max_disp=oc.param_max_disp,
-                          impl=oc.advect_impl)
+            return space.advect(d_base, opt_var, max_disp=oc.param_max_disp,
+                                impl=oc.advect_impl)
         return d_base + opt_var
 
     def _image_loss_weighted(self, imgs: torch.Tensor, pos_weights,
@@ -165,14 +198,20 @@ class GridStyler(StylerBase):
         # points trained jointly (clipped to [0, 1]) and rendering every
         # window position's state
         train_tf = self._train_tf
+        one = _one_slab()
 
         def loss_fn(opt_var, views, data):
+            # the octave's slabs (parallel/spatial.py; one slab without a
+            # space mesh): every state is gathered whole where it is
+            # rendered or regularized
+            space = data.get("space", one)
+            whole, run = space.gather, space.advect
             tf = (jax_clip(opt_var["tf"], 0.0, 1.0) if train_tf
                   else None)
-            d_star = self._apply_param(opt_var, data["d"])
+            d_star = self._apply_param(opt_var, data["d"], space)
             if window == 0:
-                total = self._render_loss(d_star, views[0], render_size,
-                                          data, tf)
+                total = self._render_loss(whole(d_star), views[0],
+                                          render_size, data, tf)
             else:
                 vels = data["vels"]
                 md = cfg.optim.max_disp
@@ -183,14 +222,15 @@ class GridStyler(StylerBase):
                 states[window] = d_star
                 d_j = d_star
                 for j in range(1, window + 1):
-                    d_j = advect(d_j, vels[window + j - 1], max_disp=md,
-                                 impl=impl)
+                    d_j = run(d_j, vels[window + j - 1], max_disp=md,
+                              impl=impl)
                     states[window + j] = d_j
                 d_j = d_star
                 for j in range(1, window + 1):
-                    d_j = advect(d_j, -vels[window - j], max_disp=md,
-                                 impl=impl)
+                    d_j = run(d_j, -vels[window - j], max_disp=md,
+                              impl=impl)
                     states[window - j] = d_j
+                states = [whole(s) for s in states]
                 if cfg.loss.remat_views and ndim == 3:
                     # one view at a time, position by position
                     total = sum(weights[p] * self._render_loss(
@@ -205,7 +245,8 @@ class GridStyler(StylerBase):
             if cfg.loss.w_tv:
                 field = (opt_var["field"] if isinstance(opt_var, dict)
                          else opt_var)
-                total = total + cfg.loss.w_tv * tv_loss(field, ndim=ndim)
+                total = total + cfg.loss.w_tv * tv_loss(whole(field),
+                                                        ndim=ndim)
             return total
 
         self._loss_cache[sig] = loss_fn
@@ -252,14 +293,17 @@ class GridStyler(StylerBase):
             return advect_maccormack(param, v, max_disp=oc.max_disp)
         return advect(param, v, max_disp=oc.max_disp)
 
-    def _resize_param(self, param, shape: Tuple[int, ...]):
+    def _resize_param(self, param, from_shape: Tuple[int, ...],
+                      shape: Tuple[int, ...], space):
+        """The param at octave ``from_shape`` resized to octave ``shape``
+        on the frame's slabs ``space`` (``parallel.spatial.SpaceSlabs``):
+        gathered whole and sliced again as the two octaves are sharded."""
         if isinstance(param, dict):  # only the field has the octave grid
-            return dict(param,
-                        field=self._resize_param(param["field"], shape))
-        if tuple(param.shape[:len(shape)]) == tuple(shape):
-            return param
+            return dict(param, field=self._resize_param(
+                param["field"], from_shape, shape, space))
         is_vel = self.cfg.optim.parameterization == "velocity"
-        return resize(param, shape, is_velocity=is_vel)
+        return space.resize(param, from_shape, shape, lambda p: resize(
+            p, shape, is_velocity=is_vel))
 
     @staticmethod
     def _window_vels(vels: torch.Tensor, t: int, window: int,
@@ -277,15 +321,31 @@ class GridStyler(StylerBase):
             for i in range(t - window, t + window)])
 
     def _octave_sweep(self, param, d_full, vels_win, generator, warm,
-                      schedule=None, callback=None, checkpoint_path=None):
+                      schedule=None, callback=None, checkpoint_path=None,
+                      space=None):
         """The complete coarse-to-fine optimization of one frame: (param,
         d_star, per-octave (iters,) losses). ``vels_win`` is the (2W,
         *spatial, ndim) window context or None; ``schedule`` optional
         pool indices per octave; ``warm`` picks the optim.warm_iters /
         warm_lr schedule. Every octave starts a fresh Adam, except the
-        one a checkpoint at ``checkpoint_path`` resumes."""
+        one a checkpoint at ``checkpoint_path`` resumes. ``space``: the
+        frame's slabs on a space mesh (``parallel.spatial.SpaceSlabs``;
+        None: one slab, the whole volume); the states are slabs at the
+        octaves it shards, whole at the others. A frame with a checkpoint
+        runs with deterministic cuDNN convolutions
+        (:func:`_deterministic_convs`)."""
+        scope = (_deterministic_convs() if checkpoint_path is not None
+                 else contextlib.nullcontext())
+        with scope:
+            return self._sweep(param, d_full, vels_win, generator, warm,
+                               schedule, callback, checkpoint_path, space)
+
+    def _sweep(self, param, d_full, vels_win, generator, warm, schedule,
+               callback, checkpoint_path, space):
         oc = self.cfg.optim
-        full_shape = tuple(d_full.shape)
+        if space is None:
+            space = _one_slab(d_full.shape)
+        full_shape = space.shape
         window = oc.window if vels_win is not None else 0
         iters = self._iters(warm)
         optimizer = self._warm_optimizer if warm else self._optimizer
@@ -294,9 +354,11 @@ class GridStyler(StylerBase):
         meta = {"log_every": oc.log_every, "iters": iters,
                 "shapes": [list(s) for s in shapes]}
         start_octave, start_iter, opt_state = 0, 0, None
+        prev = full_shape   # the octave shape of param
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             start_octave, start_iter, param, opt_state = self._resume(
                 checkpoint_path, meta, shapes, optimizer)
+            prev = shapes[start_octave]
         losses_all = []
         for o, shape in enumerate(shapes):
             # every octave's views are drawn, a resumed run's finished
@@ -313,17 +375,22 @@ class GridStyler(StylerBase):
             loss_fn = self._get_loss_fn(
                 len(full_shape), window,
                 self._octave_render_size(shape, full_shape))
-            param = self._resize_param(param, shape)
-            data = {"d": (resize(d_full, shape) if shape != full_shape
-                          else d_full),
-                    "pool": self.view_pool, "vgg": self.vgg_params,
+            data = {"pool": self.view_pool, "vgg": self.vgg_params,
                     "targets": self.gram_targets,
                     "content": self.content_feats}
+            param = self._resize_param(param, prev, shape, space)
+            prev = shape
+            data["d"] = space.resize(d_full, full_shape, shape,
+                                     lambda d: resize(d, shape))
+            data["space"] = space.octave(shape, warn=True)
+
+            def resize_vels(vs, _shape=shape):
+                return torch.stack([resize(v, _shape, is_velocity=True)
+                                    for v in vs])
+
             if window:
-                data["vels"] = (vels_win if shape == full_shape else
-                                torch.stack([resize(v, shape,
-                                                    is_velocity=True)
-                                             for v in vels_win]))
+                data["vels"] = space.resize(vels_win, full_shape, shape,
+                                            resize_vels, lead=1)
             cb = state_cb = None
             if callback is not None:
                 def cb(done, loss, _o=o):
@@ -342,9 +409,10 @@ class GridStyler(StylerBase):
                 start_iter=start_iter if resumed else 0,
                 state_callback=state_cb)
             losses_all.append(losses)
-        param = self._resize_param(param, full_shape)
+        param = self._resize_param(param, prev, full_shape, space)
         with torch.no_grad():
-            d_star = torch.clamp(self._apply_param(param, d_full), min=0.0)
+            d_star = torch.clamp(self._apply_param(
+                param, d_full, space.octave(full_shape)), min=0.0)
         return param, d_star, losses_all
 
     def _iters(self, warm: bool) -> int:
@@ -380,7 +448,7 @@ class GridStyler(StylerBase):
                       callback=None,
                       checkpoint_path: Optional[str] = None,
                       warm: Optional[bool] = None,
-                      view_schedule=None):
+                      view_schedule=None, space=None):
         """Stylize one frame (or one temporal window around a frame).
 
         Args:
@@ -405,6 +473,11 @@ class GridStyler(StylerBase):
             init_param is given.
           view_schedule: optional pool indices, (octave_n, iters) or
             (octave_n, iters, 2W+1), replacing the generator's draws.
+          space: the frame's slabs on a space mesh
+            (``parallel.spatial.SpaceSlabs``); ``d``, ``vels`` and
+            ``init_param`` are then this rank's slabs (whole where the
+            finest octave runs replicated), and so are d_star and param.
+            ``parallel.spatial.stylize_frame_spatial`` sets it up.
 
         Returns:
           (d_star, param, info): stylized full-res density, final
@@ -423,7 +496,8 @@ class GridStyler(StylerBase):
                  if init_param is not None else self.init_param(full_shape))
         param, d_star, losses = self._octave_sweep(
             param, d_full, self._on_device(vels) if window else None,
-            generator, warm, view_schedule, callback, checkpoint_path)
+            generator, warm, view_schedule, callback, checkpoint_path,
+            space)
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             os.unlink(checkpoint_path)
         info = {"octave_losses": losses}

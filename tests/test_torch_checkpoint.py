@@ -2,7 +2,8 @@
 and ``load_checkpoint`` round trips; a frame, a window sequence and a
 CLI job interrupted after a chunk and resumed equal the uninterrupted
 run bit for bit; a checkpoint written with another ``log_every``,
-iteration budget or octave ladder is refused.
+iteration budget or octave ladder is refused; a checkpointed frame runs
+with cuDNN's deterministic convolutions and restores the settings.
 
 A run is interrupted by raising from a hook that runs after the chunk's
 checkpoint is written (the styler's ``callback``, or the checkpoint
@@ -155,6 +156,38 @@ def test_frame_resume_is_bit_equal(tmp_path, case):
     assert [len(l) for l in info["octave_losses"]] == [2]
     assert torch.equal(got_d, ref_d)
     _assert_bits(got_p, ref_p)
+
+
+def test_checkpointed_frame_scopes_deterministic_convs(tmp_path):
+    """A frame with an in-frame checkpoint runs with cuDNN's deterministic
+    convolutions (a float32-feature frame on a GPU resumes with the bits
+    only so), and the process's settings come back after it, whether it
+    completes or is interrupted; a frame without one leaves them alone."""
+    cudnn = torch.backends.cudnn
+    d, v = _data(2)
+    vels = np.stack([v[0], v[1]])
+    seen = []
+
+    def record(done, loss, octave):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+
+    before = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = False, True
+    try:
+        path = str(tmp_path / "ck.npz")
+        with pytest.raises(Interrupt):
+            _styler().stylize_frame(d[0], vels=vels, checkpoint_path=path,
+                                    callback=_stop_at(0, 2))
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+        _styler().stylize_frame(d[0], vels=vels, checkpoint_path=path,
+                                callback=record)
+        assert seen and set(seen) == {(True, False)}
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+        seen.clear()
+        _styler().stylize_frame(d[0], vels=vels, callback=record)
+        assert set(seen) == {(False, True)}
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before
 
 
 def test_sequence_resume_is_bit_equal(tmp_path):

@@ -37,7 +37,8 @@ SCRIPT = textwrap.dedent("""
     for name in ("eval.quality", "utils.flops", "utils.profiling",
                  "utils.metrics", "cli.serve", "cli.render",
                  "parallel.engine", "parallel.mesh", "parallel.sharding",
-                 "parallel.multihost", "parallel.particles"):
+                 "parallel.multihost", "parallel.particles",
+                 "parallel.spatial"):
         assert "nfs_tpu_torch." + name in names, name
     from nfs_tpu_torch.cli import scene
     from nfs_tpu_torch.cli.stylize import main

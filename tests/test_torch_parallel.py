@@ -65,11 +65,6 @@ def test_too_big_raises_with_jax_numbers():
     assert str(err.value).endswith("exceeds 1 available devices")
 
 
-def test_space_axis_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 24"):
-        make_mesh(1, 1, space=2)
-
-
 def test_initialize_multihost(monkeypatch):
     """A single process needs no group; a launch that says it has ranks
     but not which one this is raises instead of running alone."""

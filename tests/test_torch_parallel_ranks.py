@@ -1,6 +1,6 @@
 """Rank worker of the port's multi-rank tests (``test_torch_parallel.py``,
-``test_torch_parallel_engine.py``, ``test_torch_parallel_particles.py``);
-it defines no tests.
+``test_torch_parallel_engine.py``, ``test_torch_parallel_particles.py``,
+``test_torch_spatial.py``); it defines no tests.
 
 Run as a script, one process per rank of a gloo world on the CPU:
 
@@ -8,9 +8,10 @@ Run as a script, one process per rank of a gloo world on the CPU:
 
 It reads ``DIR/SCENARIO_job.pkl`` (written by the test), joins the
 process group through the file store ``DIR/SCENARIO_store``, runs the
-scenario (``halo``, ``step``, ``engine`` or ``keyframes``) and writes what this rank
-computed to ``DIR/SCENARIO_RANK.pkl``. It imports the port and never JAX, so the
-ranks start quickly and need no accelerator.
+scenario (``halo``, ``step``, ``engine``, ``keyframes`` or ``spatial``)
+and writes what this rank computed to ``DIR/SCENARIO_RANK.pkl``. It
+imports the port and never JAX, so the ranks start quickly and need no
+accelerator.
 """
 
 import datetime
@@ -134,8 +135,160 @@ def _keyframes(job):
     return out
 
 
+def _spatial(job):
+    """Spatial sharding: each case of ``job['cases']`` is a dict with a
+    'kind': 'mesh' (``make_mesh(*mesh)``'s place of this rank),
+    'roundtrip' (``shard_volume`` then ``gather_volume`` over a (1, 4)
+    mesh's views), 'advect' (one slab ``advect`` on ``spatial_mesh(n)``
+    with the gradients of a cotangent, each gathered whole), 'gather'
+    (the gradient of ``(w * SpaceSlabs.gather(x)).sum()``, replicated and
+    summed), 'frame' (``stylize_frame_spatial`` on ``spatial_mesh(n)``)
+    or 'engine' (the composed engine on ``make_mesh(*mesh)``). Each
+    result lists the warnings the case raised; 'owns' says of the slabs a
+    case holds whether each has storage of its own (``_owns``)."""
+    import warnings
+
+    out = []
+    for case in job["cases"]:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = _SPATIAL_KINDS[case["kind"]](case)
+        res["warnings"] = [str(w.message) for w in caught]
+        out.append(res)
+    return out
+
+
+def _owns(*xs):
+    """Whether every tensor has storage of its own: a slab that is a
+    view of the whole volume keeps all of it allocated."""
+    return all(x.untyped_storage().nbytes() == x.numel() * x.element_size()
+               for x in xs if x is not None)
+
+
+def _spatial_mesh_case(case):
+    from nfs_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(*case["mesh"])
+    return {"place": (mesh.frame_idx, mesh.view_idx, mesh.space_idx),
+            "shape": dict(mesh.shape),
+            "ranks": {a: mesh.axis_ranks(a) if mesh.has_shard else None
+                      for a in ("frames", "views", "space")}}
+
+
+def _spatial_roundtrip(case):
+    from nfs_tpu_torch.parallel import gather_volume, make_mesh, \
+        shard_volume
+
+    mesh = make_mesh(1, 4)
+    d = torch.from_numpy(case["d"])
+    part = shard_volume(d, mesh, axis=-1, mesh_axis="views")
+    whole = gather_volume(part * 2 + 1, mesh, axis=-1, mesh_axis="views")
+    return {"part": part.numpy(), "whole": whole.numpy(),
+            "owns": _owns(part)}
+
+
+def _spatial_advect(case):
+    from nfs_tpu_torch.ops.advect import advect
+    from nfs_tpu_torch.parallel import (
+        SpaceSlabs, gather_spatial, spatial_mesh)
+
+    axis = case["axis"]
+    mesh = spatial_mesh(case["n"])
+    f, v, g = (torch.from_numpy(case[k]) for k in ("f", "v", "g"))
+    space = SpaceSlabs(mesh, f.shape, axis=axis)
+    fs = space.slab(f).requires_grad_()
+    vs = space.slab(v).requires_grad_()
+    y = space.advect(fs, vs, max_disp=case["max_disp"])
+    gf, gv = torch.autograd.grad((y * space.slab(g)).sum(), (fs, vs))
+    return {"y": gather_spatial(y.detach(), mesh, axis).numpy(),
+            "gf": gather_spatial(gf, mesh, axis).numpy(),
+            "gv": gather_spatial(gv, mesh, axis).numpy(),
+            "owns": _owns(fs, vs, y, gf, gv),
+            "collectives": dict(space.counts)}
+
+
+def _spatial_gather(case):
+    from nfs_tpu_torch.parallel import SpaceSlabs, spatial_mesh
+
+    x, w = (torch.from_numpy(case[k]) for k in ("x", "w"))
+    space = SpaceSlabs(spatial_mesh(case["n"]), x.shape)
+    xs = space.slab(x).requires_grad_()
+    out = {}
+    for name, replicated in (("replicated", True), ("summed", False)):
+        (out[name],) = torch.autograd.grad(
+            (w * space.gather(xs, replicated=replicated)).sum(), xs)
+    return {"grads": {k: g.numpy() for k, g in out.items()},
+            "owns": _owns(xs, *out.values()),
+            "collectives": dict(space.counts)}
+
+
+def _spatial_styler(case):
+    from nfs_tpu_torch.core.config import StyleConfig, replace
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    return GridStyler(replace(StyleConfig(), **case["over"]),
+                      style_image=case["style"], device="cpu")
+
+
+def _spatial_frame(case):
+    from nfs_tpu_torch.parallel import (
+        gather_spatial, spatial_mesh, stylize_frame_spatial)
+
+    mesh = spatial_mesh(case["n"])
+    styler = _spatial_styler(case)
+    inner, held = styler.stylize_frame, []
+
+    def spy(d, vels=None, init_param=None, **kw):
+        # the slabs the octave loop holds through the frame
+        held.append(_owns(d, vels, init_param))
+        return inner(d, vels=vels, init_param=init_param, **kw)
+
+    styler.stylize_frame = spy
+    d, p, info = stylize_frame_spatial(styler, case["d"], mesh,
+                                       vels=case.get("v"))
+    return {"slab_shape": tuple(p.shape),
+            "owns": held == [True] and _owns(d, p),
+            "d": gather_spatial(d, mesh).numpy(),
+            "params": gather_spatial(p, mesh).numpy(),
+            "losses": [l.numpy() for l in info["octave_losses"]],
+            "collectives": info["collectives"]}
+
+
+def _spatial_engine(case):
+    from nfs_tpu_torch.parallel import ParallelSequenceStyler, make_mesh
+
+    engine = ParallelSequenceStyler(_spatial_styler(case),
+                                    make_mesh(*case["mesh"]))
+    make_loss, held = engine._loss_frames, []
+
+    def spy(*args):
+        loss = make_loss(*args)
+
+        def loss_frames(params, d, vels_pad, views, aux):
+            # the slabs (or replicated volumes) each octave's step holds
+            held.append(_owns(params, d, vels_pad))
+            return loss(params, d, vels_pad, views, aux)
+
+        return loss_frames
+
+    engine._loss_frames = spy
+    d, p, info = engine.stylize(case["d"], case.get("v"),
+                                view_schedule=case.get("schedule"))
+    return {"d": d.numpy(), "params": p.numpy(),
+            "owns": bool(held) and all(held),
+            "losses": [l.numpy() for l in info["octave_losses"]],
+            "collectives": dict(engine.last_collectives)}
+
+
+_SPATIAL_KINDS = {"mesh": _spatial_mesh_case,
+                  "roundtrip": _spatial_roundtrip,
+                  "advect": _spatial_advect, "gather": _spatial_gather,
+                  "frame": _spatial_frame,
+                  "engine": _spatial_engine}
+
+
 SCENARIOS = {"halo": _halo, "step": _step, "engine": _engine,
-             "keyframes": _keyframes}
+             "keyframes": _keyframes, "spatial": _spatial}
 
 
 def run_ranks(scenario: str, job, world: int, tmp_dir, timeout=240):
