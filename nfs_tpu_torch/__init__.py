@@ -47,6 +47,27 @@ styler (``GridStyler``, ``ParticleStyler``) switches TF32 off for
 cuDNN convolutions and matmuls (PyTorch enables it for cuDNN by default);
 importing the package changes no global setting. The bfloat16 feature
 path (``loss.features_dtype='bfloat16'``) casts explicitly instead.
+
+The top-level names ``nfs_tpu`` exports (the configuration classes,
+``config_replace``, the stylers and ``ParticleSet``) are read from their
+modules at first use, so importing the package imports nothing else.
 """
 
+from nfs_tpu_torch._exports import lazy_exports
+
 __version__ = "0.1.0"
+
+__all__, __getattr__ = lazy_exports(__name__, {
+    "StyleConfig": ("nfs_tpu_torch.core.config", "StyleConfig"),
+    "DataConfig": ("nfs_tpu_torch.core.config", "DataConfig"),
+    "RenderConfig": ("nfs_tpu_torch.core.config", "RenderConfig"),
+    "LossConfig": ("nfs_tpu_torch.core.config", "LossConfig"),
+    "OptimConfig": ("nfs_tpu_torch.core.config", "OptimConfig"),
+    "ParticleConfig": ("nfs_tpu_torch.core.config", "ParticleConfig"),
+    "ParallelConfig": ("nfs_tpu_torch.core.config", "ParallelConfig"),
+    "config_replace": ("nfs_tpu_torch.core.config", "replace"),
+    "GridStyler": ("nfs_tpu_torch.styler.grid", "GridStyler"),
+    "ParticleStyler": ("nfs_tpu_torch.styler.particle", "ParticleStyler"),
+    "ParallelSequenceStyler": ("nfs_tpu_torch.parallel.engine", "ParallelSequenceStyler"),
+    "ParticleSet": ("nfs_tpu_torch.core.pytrees", "ParticleSet"),
+})

@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernels of nfs_tpu/ops/pallas_advect.py:
 //   K1  advect_fwd_kernel       <- _fwd_kernel        (forward)
 //   K2  advect_bwd_field_kernel <- _bwd_field_kernel  (grad wrt the field)
-//       advect_bwd_field_untiled_kernel  (K2 past its tile plan, R > 8)
+//       advect_bin_sources_kernel and advect_bwd_field_binned_kernel
+//       (K2's binned route, from R = 4; its tile plan ends at R = 8)
+//       advect_bwd_field_untiled_kernel (K2's untiled pull: on no path,
+//       the oracle the binned route is held against)
 //   K3  advect_bwd_vel_kernel   <- _bwd_vel_kernel    (grad wrt backtrace s)
 //   K3b advect_bwd_fused_kernel <- _bwd_fused_kernel  (K2 and K3 in one pass)
 //
@@ -71,18 +74,46 @@
 // arithmetic on its staged s and f: its result equals K2 + K3 to the bit.
 //
 // The tile of K2 plus its R-halo of sources outgrows the 227 KB a block
-// may stage past R = 8 (R = 7 for K3b, which also stages f). Past that
-// the wrapper launches advect_bwd_field_untiled_kernel: one thread per
-// cell, its (2R+1)^3 sources read and backtraced straight from device
-// memory (6 859 per cell at R = 9), in the same order and arithmetic, so
-// it gives the tiled pull's bits wherever both run.
+// may stage past R = 8 (R = 7 for K3b, which also stages f). A pull
+// without a tile (advect_bwd_field_untiled_kernel: one thread per cell,
+// its (2R+1)^3 sources read and backtraced from device memory, 6 859 per
+// cell at R = 9, in the same order and arithmetic, so the tiled pull's
+// bits) spends its time on sources of weight 0: only those whose floor
+// cell floor(s) is one of the 8 cells j - d, d in {0, 1}^3, can weigh on
+// cell j; the tiled pull too visits (2R+1)^3 sources per cell. So from
+// R = 4, where it is the faster on the H100 (the wrapper's BINNED_FROM_R;
+// PERF.md gives both routes' times), and past R = 8, where no tile fits,
+// the wrapper takes the binned route, whose work grows with the cells
+// and not with (2R+1)^3:
+//   1. advect_bin_sources_kernel backtraces every source once and writes
+//      its record (s_z, s_y, s_x, g), the float4 the tiled pull stages,
+//      and as its key the flat index of its floor cell;
+//   2. the wrapper sorts the keys stably (torch.sort) and finds the run
+//      of each floor cell (torch.searchsorted): within a run the sources
+//      stay in ascending source index;
+//   3. advect_bwd_field_binned_kernel gives each output cell a thread that
+//      merges its 8 runs by source index and adds ((w_z * w_y) * w_x) * g
+//      in ascending (iz, iy, ix), the arithmetic of the pull.
+// Every source of nonzero weight lies within R of the cell, so the pull
+// adds the same nonzero terms in the same order; the terms it adds and the
+// gather does not, and the gather's sources beyond R, all have weight 0
+// and add +-0. For finite g the binned route thus gives the pull's bits,
+// with no atomics and a fixed order. The gather reads each source once
+// per cell of its 8 (8 visits per source, whatever R is), through perm,
+// so its record reads are scattered. Its least time is set by bytes, as
+// K2's; what bounds it on the H100 is the sort (radix passes over the
+// keys and their indices, and the search for the runs), then the
+// gather's scattered reads (PERF.md).
 //
 // Every kernel takes a batch of B frames, (B, D, H, W) fields and
 // (B, D, H, W, 3) displacements, in one launch (the joint sequence engine
 // advects all its local frames at once; the TPU package ran one launch per
 // frame under sequential_vmap). The frame index is folded into a grid
 // dimension the kernel does not otherwise use: grid.z for K1, K3 and the
-// untiled K2, and b * ceil(D / TZ) + tz in grid.z for the tiled K2 and K3b.
+// untiled and binned K2, and b * ceil(D / TZ) + tz in grid.z for the tiled
+// K2 and K3b. The binned route's keys number the floor cells over the
+// whole batch (b * D * H * W + cell), so one sort serves every frame and a
+// frame's runs hold its own sources only.
 // A block offsets its pointers to its frame and runs the per-cell
 // arithmetic of a single frame unchanged, so a batched launch gives the
 // bits of B single launches.
@@ -326,9 +357,9 @@ __global__ void __launch_bounds__(kVelThreads)
   }
 }
 
-// K2 past the tile plan: one thread per output cell (blockIdx.y its z,
-// blockIdx.z its frame),
-// its sources read and backtraced straight from device memory in
+// K2's untiled pull (on no path: the binned route below replaced it, and
+// it stays as the oracle that route is held against bitwise): one thread per output cell (blockIdx.y its z, blockIdx.z its
+// frame), its sources read and backtraced straight from device memory in
 // ascending (iz, iy, ix), each adding ((w_z * w_y) * w_x) * g, as the
 // tiled pull adds them: for finite g both give the same bits (the tiled
 // pull's extra terms of weight 0 add +-0). A source whose z or y weight
@@ -372,6 +403,102 @@ __global__ void __launch_bounds__(kUntiledThreads)
     }
   }
   grad_field[static_cast<long long>(z) * plane + p] = acc;
+}
+
+// K2's binned route, step 1: one thread per source cell (blockIdx.y its
+// z, blockIdx.z its frame) backtraces it once and writes its record
+// (s_z, s_y, s_x, g) and, as its key, the index over the batch of its
+// floor cell. Indices over the batch are 32-bit: the entry point refuses
+// a batch of INT_MAX cells or more.
+constexpr int kBinThreads = 256;
+
+__global__ void __launch_bounds__(kBinThreads)
+    advect_bin_sources_kernel(const float* __restrict__ vel,
+                              const float* __restrict__ g,
+                              int* __restrict__ keys,
+                              float4* __restrict__ rec, int D, int H, int W,
+                              float max_disp) {
+  const int plane = H * W;
+  const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (p >= plane) return;
+  const int y = p / W;
+  const int x = p - y * W;
+  const int z = static_cast<int>(blockIdx.y);
+  const int frame = static_cast<int>(blockIdx.z) * D * plane;
+  const int i = frame + z * plane + p;
+  const float* v = vel + 3 * static_cast<long long>(i);
+  const float sz = backtrace(z, v[0], max_disp, D);
+  const float sy = backtrace(y, v[1], max_disp, H);
+  const float sx = backtrace(x, v[2], max_disp, W);
+  rec[i] = make_float4(sz, sy, sx, g[i]);
+  // s lies in [0, n-1], so floor(s) is a cell of the grid
+  keys[i] = frame + (static_cast<int>(floorf(sz)) * H +
+                     static_cast<int>(floorf(sy))) * W +
+            static_cast<int>(floorf(sx));
+}
+
+// K2's binned route, step 3: one thread per output cell j (blockIdx.y its
+// z, blockIdx.z its frame). Its sources are the runs of the floor cells
+// j - d, d in {0, 1}^3, in ``perm`` (the source indices sorted stably by
+// key), run c from offsets[c] to offsets[c + 1]. Each run is in ascending
+// source index; the thread merges its (at most) 8 runs, always taking the
+// run whose next source has the least index, and adds each source as the
+// pull adds it. The runs' heads live in registers: the loops over them are
+// unrolled, and a run is advanced by a select, not an indexed store.
+constexpr int kGatherThreads = 256;
+constexpr int kRuns = 8;
+
+__global__ void __launch_bounds__(kGatherThreads)
+    advect_bwd_field_binned_kernel(const float4* __restrict__ rec,
+                                   const long long* __restrict__ perm,
+                                   const int* __restrict__ offsets,
+                                   float* __restrict__ grad_field, int D,
+                                   int H, int W) {
+  const int plane = H * W;
+  const int p = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (p >= plane) return;
+  const int y = p / W;
+  const int x = p - y * W;
+  const int z = static_cast<int>(blockIdx.y);
+  const int frame = static_cast<int>(blockIdx.z) * D * plane;
+  int pos[kRuns], end[kRuns], head[kRuns];
+#pragma unroll
+  for (int r = 0; r < kRuns; ++r) {
+    const int cz = z - (r >> 2), cy = y - ((r >> 1) & 1), cx = x - (r & 1);
+    pos[r] = end[r] = 0;
+    if (cz >= 0 && cy >= 0 && cx >= 0) {
+      const int c = frame + (cz * H + cy) * W + cx;
+      pos[r] = offsets[c];
+      end[r] = offsets[c + 1];
+    }
+    head[r] = pos[r] < end[r] ? static_cast<int>(perm[pos[r]]) : INT_MAX;
+  }
+  const float fz = static_cast<float>(z);
+  const float fy = static_cast<float>(y);
+  const float fx = static_cast<float>(x);
+  float acc = 0.0f;
+  while (true) {
+    int least = head[0], run = 0;
+#pragma unroll
+    for (int r = 1; r < kRuns; ++r) {
+      if (head[r] < least) {
+        least = head[r];
+        run = r;
+      }
+    }
+    if (least == INT_MAX) break;
+    const float4 q = rec[least];
+    const float wzy = tent(q.x - fz) * tent(q.y - fy);
+    acc += wzy * tent(q.z - fx) * q.w;
+#pragma unroll
+    for (int r = 0; r < kRuns; ++r) {
+      if (r == run) {
+        ++pos[r];
+        head[r] = pos[r] < end[r] ? static_cast<int>(perm[pos[r]]) : INT_MAX;
+      }
+    }
+  }
+  grad_field[frame + z * plane + p] = acc;
 }
 
 // ---------------------------------------------------------------------
@@ -618,6 +745,12 @@ bool fits_32_bit(int D, int H, int W) {
          static_cast<long long>(D) * H <= INT_MAX;
 }
 
+// The binned route numbers every cell of the batch, and one past the last
+// (its offsets), with 32-bit integers.
+bool fits_binned(int B, int D, int H, int W) {
+  return static_cast<long long>(B) * D * H * W < INT_MAX;
+}
+
 // The most blocks a launch may have along grid.y and grid.z.
 constexpr long long kMaxGridYZ = 65535;
 
@@ -653,7 +786,8 @@ cudaError_t tile_launch(const void* kernel, int B, int D, int H, int W,
                               smem_bytes);
 }
 
-// Grid of K1, K3 and the untiled K2: ``threads``-thread blocks over the
+// Grid of K1, K3 and the untiled and binned K2: ``threads``-thread
+// blocks over the
 // (y, x) plane, ``rows`` blocks along grid.y (runs of planes), the B
 // frames along grid.z. False when a dimension is out of range.
 bool plane_grid(int B, int H, int W, long long rows, int threads,
@@ -716,7 +850,8 @@ int nfs_advect_bwd_field(const void* vel, const void* g, void* grad_field,
   });
 }
 
-// K2 past the tile plan, one thread per cell (any R >= 0).
+// K2's untiled pull, one thread per cell (any R >= 0): on no path, the
+// oracle the binned route is held against.
 int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
                                  void* grad_field, int B, int D, int H,
                                  int W, float max_disp, int R, int device,
@@ -732,6 +867,52 @@ int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
                                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(vel), static_cast<const float*>(g),
         static_cast<float*>(grad_field), D, H, W, max_disp, R);
+    return cudaGetLastError();
+  });
+}
+
+// K2's binned route, step 1: ``keys`` (int32) and ``rec`` (float4) of
+// every source cell of the batch.
+int nfs_advect_bin_sources(const void* vel, const void* g, void* keys,
+                           void* rec, int B, int D, int H, int W,
+                           float max_disp, int device, void* stream) {
+  dim3 grid;
+  if (B < 0 || !fits_binned(B, D, H, W) ||
+      !plane_grid(B, H, W, D, kBinThreads, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  return nfs::on_device(device, [&] {
+    advect_bin_sources_kernel<<<grid, kBinThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(vel), static_cast<const float*>(g),
+        static_cast<int*>(keys), static_cast<float4*>(rec), D, H, W,
+        max_disp);
+    return cudaGetLastError();
+  });
+}
+
+// K2's binned route, step 3, from step 1's ``rec``, the source indices
+// ``perm`` (int64) sorted stably by key and the runs' ``offsets`` (int32,
+// B * D * H * W + 1 of them). The kernel trusts perm and offsets to be
+// what the wrapper's sort makes of step 1's keys.
+int nfs_advect_bwd_field_binned(const void* rec, const void* perm,
+                                const void* offsets, void* grad_field,
+                                int B, int D, int H, int W, int device,
+                                void* stream) {
+  dim3 grid;
+  if (B < 0 || !fits_binned(B, D, H, W) ||
+      !plane_grid(B, H, W, D, kGatherThreads, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  return nfs::on_device(device, [&] {
+    advect_bwd_field_binned_kernel<<<grid, kGatherThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(rec),
+        static_cast<const long long*>(perm),
+        static_cast<const int*>(offsets), static_cast<float*>(grad_field), D,
+        H, W);
     return cudaGetLastError();
   });
 }

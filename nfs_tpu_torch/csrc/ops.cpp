@@ -8,9 +8,9 @@
 // (K, Zp, Yp, Xp) bins or a keyframe batch of them (B, K, Zp, Yp, Xp).
 //
 // Each operator checks its tensors as the Python wrappers check CPU ones:
-// for each tensor in turn, TypeError unless it is float32, ValueError
-// unless it has its shape, lies on the first tensor's device and is
-// contiguous. It allocates the outputs, reads the device's current stream
+// for each tensor in turn, TypeError unless it is float32 (int64 or int32
+// for the binned route's sorted indices and offsets), ValueError unless it
+// has its shape, lies on the first tensor's device and is contiguous. It allocates the outputs, reads the device's current stream
 // through c10 and calls the kernel's C entry point (which makes the device
 // current when it is not); RuntimeError on the CUDA error that entry point
 // returns. Built with the host compiler against torch's headers and linked
@@ -40,6 +40,13 @@ int nfs_advect_bwd_field_untiled(const void* vel, const void* g,
                                  void* grad_field, int B, int D, int H,
                                  int W, float max_disp, int R, int device,
                                  void* stream);
+int nfs_advect_bin_sources(const void* vel, const void* g, void* keys,
+                           void* rec, int B, int D, int H, int W,
+                           float max_disp, int device, void* stream);
+int nfs_advect_bwd_field_binned(const void* rec, const void* perm,
+                                const void* offsets, void* grad_field,
+                                int B, int D, int H, int W, int device,
+                                void* stream);
 int nfs_advect_bwd_vel(const void* field, const void* vel, const void* g,
                        void* grad_s, int B, int D, int H, int W,
                        float max_disp, int device, void* stream);
@@ -88,17 +95,22 @@ struct Grid {
   std::vector<int64_t> cells, vec;
 };
 
-Grid grid_of(const char* name, const Tensor& t) {
-  TORCH_CHECK_VALUE(t.dim() == 3 || t.dim() == 4, name,
+Grid grid_of(const char* name, at::IntArrayRef sizes) {
+  const size_t dim = sizes.size();
+  TORCH_CHECK_VALUE(dim == 3 || dim == 4, name,
                     ": expected (D, H, W) or (B, D, H, W), got ",
-                    shape_str(t.sizes()));
-  std::vector<int64_t> cells(t.sizes().begin(), t.sizes().end());
+                    shape_str(sizes));
+  std::vector<int64_t> cells(sizes.begin(), sizes.end());
   std::vector<int64_t> vec = cells;
   vec.push_back(3);
-  const int64_t B = t.dim() == 4 ? t.size(0) : 1;
-  const int64_t D = t.size(-3), H = t.size(-2), W = t.size(-1);
+  const int64_t B = dim == 4 ? sizes[0] : 1;
+  const int64_t D = sizes[dim - 3], H = sizes[dim - 2], W = sizes[dim - 1];
   return {static_cast<int>(B), static_cast<int>(D), static_cast<int>(H),
           static_cast<int>(W), cells, vec};
+}
+
+Grid grid_of(const char* name, const Tensor& t) {
+  return grid_of(name, t.sizes());
 }
 
 void* current_stream(const at::Device& device) {
@@ -154,6 +166,64 @@ Tensor advect_bwd_field_untiled(const Tensor& vel, const Tensor& g,
                n.W, static_cast<float>(max_disp), static_cast<int>(R),
                device.index(), current_stream(device)),
            "advect_bwd_field_untiled");
+  return out;
+}
+
+// K2's binned route, step 1: (keys, rec), int32 keys shaped as g and
+// float32 records (..., 4).
+std::tuple<Tensor, Tensor> advect_bin_sources(const Tensor& vel,
+                                              const Tensor& g,
+                                              double max_disp) {
+  const Grid n = grid_of("g", g);
+  const at::Device device = g.device();
+  check("g", g, n.cells, device);
+  check("vel", vel, n.vec, device);
+  std::vector<int64_t> rec_shape = n.cells;
+  rec_shape.push_back(4);
+  Tensor keys = at::empty(n.cells, g.options().dtype(at::kInt));
+  Tensor rec = at::empty(rec_shape, g.options());
+  raise_on(nfs_advect_bin_sources(vel.data_ptr(), g.data_ptr(),
+                                  keys.data_ptr(), rec.data_ptr(), n.B, n.D,
+                                  n.H, n.W, static_cast<float>(max_disp),
+                                  device.index(), current_stream(device)),
+           "advect_bin_sources");
+  return {keys, rec};
+}
+
+// A flat index tensor of ``numel`` entries of type ``type``.
+void check_index(const char* name, const Tensor& t, at::ScalarType type,
+                 const char* type_name, int64_t numel,
+                 const at::Device& device) {
+  TORCH_CHECK_TYPE(t.scalar_type() == type, name, ": expected ", type_name,
+                   ", got ", t.scalar_type());
+  const std::vector<int64_t> shape = {numel};
+  TORCH_CHECK_VALUE(t.sizes().equals(shape), name, ": expected shape ",
+                    shape_str(shape), ", got ", shape_str(t.sizes()));
+  TORCH_CHECK_VALUE(t.device() == device, name, ": on ", t.device(),
+                    ", expected ", device);
+  TORCH_CHECK_VALUE(t.is_contiguous(), name, ": must be contiguous");
+}
+
+// K2's binned route, step 3: the gradient, shaped as rec less its last
+// axis, from step 1's records, the sorted source indices ``perm`` (int64)
+// and the runs' ``offsets`` (int32, one more than the cells).
+Tensor advect_bwd_field_binned(const Tensor& rec, const Tensor& perm,
+                               const Tensor& offsets) {
+  TORCH_CHECK_VALUE((rec.dim() == 4 || rec.dim() == 5) && rec.size(-1) == 4,
+                    "rec: expected (D, H, W, 4) or (B, D, H, W, 4), got ",
+                    shape_str(rec.sizes()));
+  const Grid n = grid_of("rec", rec.sizes().slice(0, rec.dim() - 1));
+  const at::Device device = rec.device();
+  check("rec", rec, rec.sizes(), device);
+  const int64_t cells = rec.numel() / 4;
+  check_index("perm", perm, at::kLong, "int64", cells, device);
+  check_index("offsets", offsets, at::kInt, "int32", cells + 1, device);
+  Tensor out = at::empty(n.cells, rec.options());
+  raise_on(nfs_advect_bwd_field_binned(rec.data_ptr(), perm.data_ptr(),
+                                       offsets.data_ptr(), out.data_ptr(),
+                                       n.B, n.D, n.H, n.W, device.index(),
+                                       current_stream(device)),
+           "advect_bwd_field_binned");
   return out;
 }
 
@@ -280,6 +350,12 @@ TORCH_LIBRARY(nfs_tpu_torch, m) {
       "advect_bwd_field_untiled(Tensor vel, Tensor g, float max_disp, int R) "
       "-> Tensor");
   m.def(
+      "advect_bin_sources(Tensor vel, Tensor g, float max_disp) -> (Tensor, "
+      "Tensor)");
+  m.def(
+      "advect_bwd_field_binned(Tensor rec, Tensor perm, Tensor offsets) -> "
+      "Tensor");
+  m.def(
       "advect_bwd_vel(Tensor field, Tensor vel, Tensor g, float max_disp) "
       "-> Tensor");
   m.def(
@@ -295,6 +371,8 @@ TORCH_LIBRARY_IMPL(nfs_tpu_torch, CUDA, m) {
   m.impl("advect_fwd", &advect_fwd);
   m.impl("advect_bwd_field", &advect_bwd_field);
   m.impl("advect_bwd_field_untiled", &advect_bwd_field_untiled);
+  m.impl("advect_bin_sources", &advect_bin_sources);
+  m.impl("advect_bwd_field_binned", &advect_bwd_field_binned);
   m.impl("advect_bwd_vel", &advect_bwd_vel);
   m.impl("advect_bwd_fused", &advect_bwd_fused);
   m.impl("binsplat_fwd", &binsplat_fwd);

@@ -1,18 +1,24 @@
 """Bounded-displacement advection kernels K1-K3b and their plain twins.
 
-Counterpart of ``nfs_tpu/ops/pallas_advect.py``. Five CUDA kernels in
+Counterpart of ``nfs_tpu/ops/pallas_advect.py``. The CUDA kernels of
 ``nfs_tpu_torch/csrc/advect.cu`` replace its four Pallas kernels (K2 has
-two, by radius):
+two routes, by radius):
 
-=================  ==========================================  ===================
-launch             CUDA kernel (advect.cu)                     replaces
-=================  ==========================================  ===================
-fwd                ``advect_fwd_kernel``        (K1)           ``_fwd_kernel``
-bwd_field          ``advect_bwd_field_kernel``  (K2)           ``_bwd_field_kernel``
-bwd_field_untiled  ``advect_bwd_field_untiled_kernel`` (K2)    ``_bwd_field_kernel``
-bwd_vel            ``advect_bwd_vel_kernel``    (K3)           ``_bwd_vel_kernel``
-bwd_fused          ``advect_bwd_fused_kernel``  (K3b)          ``_bwd_fused_kernel``
-=================  ==========================================  ===================
+================  ==========================================  ===================
+launch            CUDA kernel (advect.cu)                     replaces
+================  ==========================================  ===================
+fwd               ``advect_fwd_kernel``        (K1)           ``_fwd_kernel``
+bwd_field         ``advect_bwd_field_kernel``  (K2)           ``_bwd_field_kernel``
+bwd_field_binned  ``advect_bin_sources_kernel``, a stable     ``_bwd_field_kernel``
+                  sort, ``advect_bwd_field_binned_kernel``
+                  (K2)
+bwd_vel           ``advect_bwd_vel_kernel``    (K3)           ``_bwd_vel_kernel``
+bwd_fused         ``advect_bwd_fused_kernel``  (K3b)          ``_bwd_fused_kernel``
+================  ==========================================  ===================
+
+``advect_bwd_field_untiled_kernel`` (K2's untiled pull, operator
+``advect_bwd_field_untiled``) is on no path: ``chip_smoke.py`` holds the
+binned route against it bitwise.
 
 Each wrapper (:func:`advect_fwd`, :func:`advect_bwd_field`,
 :func:`advect_bwd_vel`, :func:`advect_bwd_fused`) takes f32 contiguous
@@ -41,11 +47,14 @@ each thread one (y, x) and a run of cells along z; they stage nothing,
 so any shape and max_disp launches. K2 and K3b give each block a tile
 of output cells and stage its sources, with an R-cell halo, in shared
 memory; :func:`_pull_plan` picks the tile and its bytes from R. Past
-R = 8 (R = 7 for K3b) no tile fits: K2 then launches its untiled pull
-(one thread per cell, sources read from device memory; the same bits),
-and K3b's wrapper runs K2 and K3. The route is chosen from R alone,
-before any launch. What bounds each kernel on the H100 and what the
-design does about it is noted in ``advect.cu``.
+R = 7 no K3b tile fits, and K3b's wrapper runs K2 and K3. From
+R = :data:`BINNED_FROM_R` (before its tiles run out at R = 8) K2 takes
+its binned route (:func:`_binned_route`: every source keyed by its floor
+cell, the keys sorted stably, each cell's gather merging the runs of its
+8 floor cells by source index; the same bits, with work that does not
+grow with R). The route is chosen from R alone, before any launch. What
+bounds each kernel on the H100 and what the design does about it is
+noted in ``advect.cu``.
 
 The library is built with ``nvcc`` for ``sm_90a`` from the repository's
 own source at first use into ``build/nfs_tpu_torch/`` next to the
@@ -59,6 +68,7 @@ kernels).
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from pathlib import Path
 from typing import Dict
@@ -70,7 +80,7 @@ from nfs_tpu_torch.ops import _cuda_build
 # Launch counts of the CUDA kernels; each wrapper adds one where it
 # launches, and nowhere else.
 LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_field": 0,
-                            "bwd_field_untiled": 0, "bwd_vel": 0,
+                            "bwd_field_binned": 0, "bwd_vel": 0,
                             "bwd_fused": 0}
 
 # Backward of AdvectWindow: K2 and K3, each only when its gradient is
@@ -262,6 +272,87 @@ def advect_bwd_field_plain(vel: torch.Tensor, g: torch.Tensor,
     return out.view(D, H, W)
 
 
+def bin_sources_plain(vel: torch.Tensor, g: torch.Tensor,
+                      max_disp: float):
+    """Step 1 of K2's binned route on tensors (``advect_bin_sources_kernel``):
+    (keys, records) of every source cell of a (D, H, W) cotangent or a
+    (B, D, H, W) batch. A key (int32, shaped as g) is the index over the
+    batch, b * D * H * W + (z * H + y) * W + x, of the source's floor
+    cell floor(s); a record (float32, g's shape + (4,)) is (s_z, s_y, s_x,
+    g), the source's backtrace and cotangent."""
+    D, H, W = g.shape[-3:]
+    s = backtrace(vel, max_disp)
+    c = [torch.floor(x).to(torch.int32) for x in s]
+    keys = (c[0] * H + c[1]) * W + c[2]
+    if g.ndim == 4:
+        keys = keys + D * H * W * torch.arange(
+            g.shape[0], dtype=torch.int32, device=g.device).view(-1, 1, 1, 1)
+    return keys, torch.stack([*s, g], dim=-1)
+
+
+def order_sources(keys: torch.Tensor):
+    """Step 2 of K2's binned route, the same code on either device: the
+    source indices sorted stably by key (``perm``, int64), so that the
+    sources of one floor cell form a run in ascending source index, and
+    the runs' ``offsets`` (int32, one more than the cells): the run of
+    floor cell c is ``perm[offsets[c]:offsets[c + 1]]``."""
+    flat = keys.reshape(-1)
+    sorted_keys, perm = torch.sort(flat, stable=True)
+    cells = torch.arange(flat.numel() + 1, dtype=torch.int32,
+                         device=keys.device)
+    return perm, torch.searchsorted(sorted_keys, cells, out_int32=True)
+
+
+def gather_binned_plain(rec: torch.Tensor, perm: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """Step 3 of K2's binned route on tensors
+    (``advect_bwd_field_binned_kernel``): each output cell j merges the
+    runs of its floor cells j - d, d in {0, 1}^3, by source index and
+    adds ((w_z * w_y) * w_x) * g source by source in that order. The
+    gradient, shaped as ``rec`` less its last axis."""
+    shape = rec.shape[:-1]
+    D, H, W = shape[-3:]
+    n = rec[..., 0].numel()
+    dev = rec.device
+    j = torch.arange(n, device=dev)
+    b, cell = j // (D * H * W), j % (D * H * W)
+    z, y, x = cell // (H * W), cell // W % H, cell % W
+    fz, fy, fx = (a.to(torch.float32) for a in (z, y, x))
+    starts, lengths = [], []
+    for dz, dy, dx in itertools.product((0, 1), repeat=3):
+        ok = (z >= dz) & (y >= dy) & (x >= dx)
+        c = torch.where(ok, b * (D * H * W) + ((z - dz) * H + y - dy) * W
+                        + x - dx, 0)
+        lo, hi = offsets[c].long(), offsets[c + 1].long()
+        starts.append(lo)
+        lengths.append(torch.where(ok, hi - lo, 0))
+    start, length = torch.stack(starts, 1), torch.stack(lengths, 1)
+    run = torch.arange(int(length.max()) if n else 0, device=dev)
+    live = run < length[..., None]                      # (n, 8, longest)
+    src = torch.where(live, perm[(start[..., None] + run).clamp(max=n - 1)],
+                      n)
+    merged = torch.sort(src.reshape(n, -1), dim=1).values  # n: none left
+    q = rec.reshape(n, 4)
+    acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    for t in range(int(live.sum((1, 2)).max()) if n else 0):
+        i = merged[:, t]
+        qi = q[i.clamp(max=n - 1)]
+        wzy = _tent(qi[:, 0] - fz) * _tent(qi[:, 1] - fy)
+        acc = torch.where(i < n, acc + wzy * _tent(qi[:, 2] - fx) * qi[:, 3],
+                          acc)
+    return acc.view(shape)
+
+
+def advect_bwd_field_binned_plain(vel: torch.Tensor, g: torch.Tensor,
+                                  max_disp: float) -> torch.Tensor:
+    """K2 by the binned route's three steps on tensors
+    (:func:`bin_sources_plain`, :func:`order_sources`,
+    :func:`gather_binned_plain`): the layout and order the CUDA route
+    relies on, for the tests. A (B, D, H, W) batch is one pass."""
+    keys, rec = bin_sources_plain(vel, g, max_disp)
+    return gather_binned_plain(rec, *order_sources(keys))
+
+
 @_per_frame
 def advect_bwd_vel_plain(field: torch.Tensor, vel: torch.Tensor,
                          g: torch.Tensor, max_disp: float) -> torch.Tensor:
@@ -348,6 +439,15 @@ def _staged_bytes(R: int, tile, fused: bool) -> int:
     return 16 * src + 4 * f
 
 
+# K2 takes its binned route from this radius up, the tiled pull below it.
+# The tiled pull visits (2R+1)^3 sources per cell; the binned route's work
+# does not grow with R. On the H100 the binned route is the faster from
+# R = 4 (PERF.md §6: chip_smoke.py's kernels phase times both routes at
+# R = 2, 3, 4, 5 and 8 and holds them bitwise equal). K2's tile plan ends
+# at R = 8, past this.
+BINNED_FROM_R = 4
+
+
 @functools.lru_cache(maxsize=None)
 def _pull_plan(R: int, fused: bool = False):
     """(TZ, TY, TX, shared-memory bytes) of K2's or K3b's tile at radius
@@ -355,7 +455,11 @@ def _pull_plan(R: int, fused: bool = False):
     bytes fit in :data:`SMEM_LIMIT`. TX stays 24 (8 threads of
     :data:`CELLS_X` cells). None where even a 1 x 1 x 24 tile does not
     fit: R > 8 for K2, R > 7 for K3b (max_disp above 8 or 7 cells), where
-    the wrappers take the untiled route. Raises ValueError for R < 0."""
+    K3b's wrapper runs K2 and K3. K2's wrapper takes the binned route
+    (:func:`_binned_route`, whose gather adds each cell's sources in the
+    pull's order and arithmetic, so the tiled pull's bits) from
+    :data:`BINNED_FROM_R` up, before its plan runs out. Raises ValueError
+    for R < 0."""
     if R < 0:
         raise ValueError(f"advection radius must be >= 0, got {R}")
     tz, ty, tx = PULL_TILE
@@ -383,21 +487,36 @@ def advect_fwd(field: torch.Tensor, vel: torch.Tensor,
     return advect_fwd_plain(field, vel, max_disp)
 
 
+def _binned_route(vel: torch.Tensor, g: torch.Tensor,
+                  max_disp: float) -> torch.Tensor:
+    """K2's binned route on CUDA tensors, not counted: the key pass
+    (operator ``advect_bin_sources``), the stable sort
+    (:func:`order_sources`) and the ordered gather (operator
+    ``advect_bwd_field_binned``). Its work grows with the cells, not with
+    (2R+1)^3; the gather adds each cell's sources in ascending source
+    index with the pull's arithmetic, so for finite g it gives the tiled
+    and the untiled pull's bits (``advect.cu``)."""
+    keys, rec = load_library().advect_bin_sources.default(
+        vel, g, float(max_disp))
+    return load_library().advect_bwd_field_binned.default(
+        rec, *order_sources(keys))
+
+
 def advect_bwd_field(vel: torch.Tensor, g: torch.Tensor,
                      max_disp: float) -> torch.Tensor:
     """K2: gradient wrt the advected field, shaped as g. On CUDA, the tiled
-    pull up to R = ceil(max_disp) = 8 and the untiled pull beyond
-    (:func:`_pull_plan`), any max_disp >= 0."""
+    pull (:func:`_pull_plan`) below R = ceil(max_disp) =
+    :data:`BINNED_FROM_R` and the binned route (:func:`_binned_route`)
+    from there, any max_disp >= 0: both add every cell's nonzero terms in
+    ascending source index, so the route changes no bit."""
     if g.is_cuda:
         R = _radius(max_disp)
-        plan = _pull_plan(R)
-        if plan is None:
-            out = load_library().advect_bwd_field_untiled.default(
-                vel, g, float(max_disp), R)
-            LAUNCHES["bwd_field_untiled"] += 1
+        if R >= BINNED_FROM_R:
+            out = _binned_route(vel, g, max_disp)
+            LAUNCHES["bwd_field_binned"] += 1
             return out
         out = load_library().advect_bwd_field.default(
-            vel, g, float(max_disp), R, *plan)
+            vel, g, float(max_disp), R, *_pull_plan(R))
         LAUNCHES["bwd_field"] += 1
         return out
     _check("advection kernels", ("g", "vel"), (g, vel), _shapes("g", g))

@@ -249,8 +249,10 @@ def test_operator_build_raises_without_host_compiler(monkeypatch,
 
 def test_operators_match_the_wrappers():
     """Every operator csrc/ops.cpp defines is registered for CUDA and
-    called by one wrapper, each wrapper's operator exists, and each
-    operator's C entry point is one advect.cu or binsplat.cu defines."""
+    called by one wrapper, but for K2's untiled pull (on no path: the
+    oracle chip_smoke.py holds the binned route against); each wrapper's
+    operator exists, and each operator's C entry point is one advect.cu
+    or binsplat.cu defines."""
     import re
 
     from nfs_tpu_torch.ops import _cuda_build
@@ -261,10 +263,11 @@ def test_operators_match_the_wrappers():
     registered = set(re.findall(r'm\.impl\("(\w+)"', ops))
     wrappers = "".join(Path(m.__file__).read_text() for m in (ak, bk))
     called = set(re.findall(r"load_library\(\)\.(\w+)\.default", wrappers))
-    assert defined == registered == called == {
-        "advect_fwd", "advect_bwd_field", "advect_bwd_field_untiled",
-        "advect_bwd_vel", "advect_bwd_fused", "binsplat_fwd",
-        "binsplat_bwd"}
+    assert defined == registered == called | {"advect_bwd_field_untiled"}
+    assert called == {
+        "advect_fwd", "advect_bwd_field", "advect_bin_sources",
+        "advect_bwd_field_binned", "advect_bwd_vel", "advect_bwd_fused",
+        "binsplat_fwd", "binsplat_bwd"}
     sources = "".join((_cuda_build.CSRC / src).read_text()
                       for src, _ in _cuda_build.KERNEL_SOURCES)
     entry = set(re.findall(r"^int (nfs_\w+)\(", sources, re.M))
@@ -384,9 +387,9 @@ def test_pull_plan_fits_shared_memory(R):
 
 def test_pull_plan_raises_past_its_limit():
     """K2 takes a tile up to R = 8 and K3b up to 7; past that even a
-    1 x 1 x 24 tile does not fit, and the plan returns None (the
-    wrappers' untiled route) instead of a tile; a negative radius still
-    raises."""
+    1 x 1 x 24 tile does not fit, and the plan returns None instead of a
+    tile (K2's wrapper takes its binned route from BINNED_FROM_R, before
+    that; K3b's runs K2 and K3); a negative radius still raises."""
     assert ak._pull_plan(8)[:3] == (1, 4, 24)
     assert ak._pull_plan(7, fused=True)[:3] == (1, 4, 24)
     for R, fused in ((9, False), (8, True), (12, False), (40, True)):
@@ -398,7 +401,7 @@ def test_pull_plan_raises_past_its_limit():
 
 def test_matches_jax_past_the_tile_plan():
     """At max_disp 9.5 (R = 10, past both tile plans, where the CUDA
-    wrappers take the untiled pull and K2 + K3) the port's value and both
+    wrappers take K2's binned route and K2 + K3) the port's value and both
     gradients through ``advect`` match the JAX package's XLA window, with
     displacements reaching across most of the grid and the largest
     clamped."""

@@ -213,9 +213,10 @@ def test_pull_kernels_on_ragged_tiles(cuda_device, shape, max_disp, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", range(10))
 def test_pull_kernels_every_radius_of_the_plan(cuda_device, R):
-    """Every radius runs on the card: K2 on its tile to R = 8 (the largest
-    on a shrunk tile) and untiled past it; K3b on its tile to R = 7 and
-    as K2 + K3 past it (counting their launches, not K3b's)."""
+    """Every radius runs on the card: K2 on its tile below BINNED_FROM_R
+    and by its binned route from there; K3b on its tile to R = 7 (the
+    largest on a shrunk tile) and as K2 + K3 past it (counting their
+    launches, not K3b's)."""
     f, g, v = (torch.from_numpy(a).to(cuda_device)
                for a in _inputs("random", max(R, 0.5), (13, 7, 37), seed=R))
     md = float(R)
@@ -223,7 +224,7 @@ def test_pull_kernels_every_radius_of_the_plan(cuda_device, R):
     torch.testing.assert_close(ak.advect_bwd_field(v, g, md),
                                ak.advect_bwd_field_plain(v, g, md),
                                atol=GRAD_ATOL, rtol=0)
-    k2 = "bwd_field" if R <= 8 else "bwd_field_untiled"
+    k2 = "bwd_field" if R < ak.BINNED_FROM_R else "bwd_field_binned"
     assert ak.LAUNCHES == dict(before, **{k2: before[k2] + 1})
     before = dict(ak.LAUNCHES)
     for got, want in zip(ak.advect_bwd_fused(f, v, g, md),
@@ -246,17 +247,19 @@ def _untiled(v, g, max_disp):
 @pytest.mark.parametrize("max_disp", [9.0, 12.0])
 @pytest.mark.parametrize("shape", [(24, 16, 40), (5, 1, 3), (1, 7, 9)])
 def test_k2_untiled_past_the_plan(cuda_device, shape, max_disp):
-    """Past the tile plan K2 takes its untiled pull: against its plain
-    twin, on axes shorter than the radius too, and two launches bitwise
-    equal; K3b's wrapper there equals K2 + K3 exactly."""
+    """Past the tile plan K2 takes its binned route: against its plain
+    twin, on axes shorter than the radius too, bitwise the untiled pull
+    called through its operator, and two launches bitwise equal; K3b's
+    wrapper there equals K2 + K3 exactly."""
     f, g, v = (torch.from_numpy(a).to(cuda_device)
                for a in _inputs("random", max_disp, shape, seed=11))
     before = dict(ak.LAUNCHES)
     gf = ak.advect_bwd_field(v, g, max_disp)
-    assert ak.LAUNCHES["bwd_field_untiled"] == \
-        before["bwd_field_untiled"] + 1
+    assert ak.LAUNCHES["bwd_field_binned"] == \
+        before["bwd_field_binned"] + 1
     torch.testing.assert_close(gf, ak.advect_bwd_field_plain(v, g, max_disp),
                                atol=GRAD_ATOL, rtol=0)
+    assert torch.equal(gf, _untiled(v, g, max_disp))
     assert torch.equal(gf, ak.advect_bwd_field(v, g, max_disp))
     fused = ak.advect_bwd_fused(f, v, g, max_disp)
     assert torch.equal(fused[0], gf)
@@ -267,13 +270,46 @@ def test_k2_untiled_past_the_plan(cuda_device, shape, max_disp):
 @pytest.mark.parametrize("kind", ["random", "integer", "zero"])
 @pytest.mark.parametrize("max_disp", [0.5, 2.0, 3.0, 5.0, 8.0])
 def test_k2_untiled_same_bits_as_tiled(cuda_device, max_disp, kind):
-    """Wherever the tile plan reaches (R <= 8), the untiled pull called
-    through its operator gives the tiled pull's bits: the same terms in
-    the same order, the tiled pull's zero-weight ones adding +-0."""
+    """Wherever the tile plan reaches (R <= 8), the untiled pull and the
+    binned route called through their operators give the tiled pull's
+    bits: the same terms in the same order, the zero-weight ones that one
+    adds and another does not adding +-0; the wrapper gives them too."""
     f, g, v = (torch.from_numpy(a).to(cuda_device)
                for a in _inputs(kind, max_disp, (13, 7, 37), seed=12))
-    assert torch.equal(_untiled(v, g, max_disp),
-                       ak.advect_bwd_field(v, g, max_disp))
+    tiled = _pull_on_tile(f, g, v, max_disp,
+                          ak._pull_plan(ak._radius(max_disp))[:3], False)[0]
+    assert torch.equal(_untiled(v, g, max_disp), tiled)
+    assert torch.equal(ak._binned_route(v, g, max_disp), tiled)
+    assert torch.equal(ak.advect_bwd_field(v, g, max_disp), tiled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_disp", [1.0, 2.0, 9.0, 12.0])
+@pytest.mark.parametrize("shape", [(24, 16, 40), (5, 1, 3), (1, 7, 9),
+                                   (1, 1, 1)])
+def test_k2_binned_route_pieces(cuda_device, shape, max_disp):
+    """The binned route's key pass gives its plain twin's keys and
+    records bitwise, clamped walls too; its gather from the plain twin's
+    sorted layout gives the route's bits and the untiled pull's; a batch
+    of 3 frames is one sort and gives three single routes' bits."""
+    f, g, v = _inputs("random", max_disp, shape, seed=16)
+    v = np.where(np.random.default_rng(17).random(v.shape) < 0.3,
+                 _walls(shape, seed=18), v).astype(np.float32)
+    f, g, v = (torch.from_numpy(a).to(cuda_device) for a in (f, g, v))
+    ops = ak.load_library()
+    keys, rec = ops.advect_bin_sources(v, g, max_disp)
+    want_keys, want_rec = ak.bin_sources_plain(v, g, max_disp)
+    assert torch.equal(keys, want_keys) and torch.equal(rec, want_rec)
+    gf = ops.advect_bwd_field_binned(rec, *ak.order_sources(keys))
+    assert torch.equal(gf, ak._binned_route(v, g, max_disp))
+    assert torch.equal(gf, _untiled(v, g, max_disp))
+    torch.testing.assert_close(
+        gf, ak.advect_bwd_field_binned_plain(v, g, max_disp),
+        atol=GRAD_ATOL, rtol=0)
+    vb = torch.stack([v, v.flip(0), 0.5 * v])
+    gb = torch.stack([g, -g, 2.0 * g])
+    assert torch.equal(ak._binned_route(vb, gb, max_disp), torch.stack(
+        [ak._binned_route(vb[b], gb[b], max_disp) for b in range(3)]))
 
 
 @pytest.mark.cuda
@@ -295,7 +331,7 @@ def test_advect_past_the_plan_on_gpu_matches_cpu(cuda_device, monkeypatch,
         (out * torch.tensor(g, device=dev)).sum().backward()
         launched = {k: ak.LAUNCHES[k] - before[k] for k in before}
         outs[str(dev)] = [t.detach().cpu() for t in (out, ft.grad, vt.grad)]
-    assert launched == {"fwd": 1, "bwd_field": 0, "bwd_field_untiled": 1,
+    assert launched == {"fwd": 1, "bwd_field": 0, "bwd_field_binned": 1,
                         "bwd_vel": 1, "bwd_fused": 0}
     cpu, gpu = outs["cpu"], outs[str(cuda_device)]
     torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
@@ -356,6 +392,13 @@ def test_k3_clamped_and_ragged(cuda_device, shape, kind):
      (None,) * 3 + (1, 1 << 16, 1 << 16, 1, 9.0, 9, 0, None)),
     ("nfs_advect_bwd_field_untiled", "ppp iiii f i i p",
      (None,) * 3 + (1, 2, 3, 4, 9.0, -1, 0, None)),
+    # the binned route numbers the batch's cells with 32-bit integers
+    ("nfs_advect_bin_sources", "pppp iiii f i p",
+     (None,) * 4 + (2, 1 << 10, 1 << 10, 1 << 10, 9.0, 0, None)),
+    ("nfs_advect_bwd_field_binned", "pppp iiii i p",
+     (None,) * 4 + (1, 1 << 11, 1 << 10, 1 << 10, 0, None)),
+    ("nfs_advect_bwd_field_binned", "pppp iiii i p",
+     (None,) * 4 + (-1, 2, 3, 4, 0, None)),
     # a batch past the grid's 65 535 blocks along z, or a negative one
     ("nfs_advect_fwd", "ppp iiii f i p",
      (None,) * 3 + (1 << 16, 1, 7, 9, 2.0, 0, None)),
@@ -376,9 +419,9 @@ def test_k3_clamped_and_ragged(cuda_device, shape, kind):
 ])
 def test_entry_points_refuse_past_32_bit_indices(cuda_device, entry,
                                                  argtypes, args):
-    """K3, the untiled K2 and K5 index with 32-bit integers: their entry
-    points refuse a shape past that (and the untiled K2 a negative
-    radius) before they launch; so do K1, K2, K4 and K5 a batch past the
+    """K3, the untiled and binned K2 and K5 index with 32-bit integers:
+    their entry points refuse a shape past that (and the untiled K2 a
+    negative radius) before they launch; so do K1, K2, K4 and K5 a batch past the
     grid's limit and K3 and K5 a negative batch. The pointers are never
     read."""
     lib = ctypes.CDLL(str((bk if "binsplat" in entry else ak)
@@ -730,7 +773,7 @@ _BATCHED = {
 def test_batched_launch_equals_single_launches(cuda_device, key, max_disp,
                                                shape):
     """A (3, D, H, W) batch is one launch of each advection kernel (K2
-    past its plan: the untiled pull; K3b past its plan: K2 + K3) and
+    from BINNED_FROM_R: its binned route; K3b past its plan: K2 + K3) and
     gives the bits of three single launches, on ragged tiles too; it
     holds against the batched plain twin."""
     frames = [tuple(torch.from_numpy(a).to(cuda_device)
@@ -774,7 +817,7 @@ def test_advect_window_batch_on_gpu_matches_cpu(cuda_device):
         (out * torch.tensor(g, device=dev)).sum().backward()
         launched = {k: ak.LAUNCHES[k] - before[k] for k in before}
         outs[str(dev)] = [t.detach().cpu() for t in (out, ft.grad, vt.grad)]
-    assert launched == {"fwd": 1, "bwd_field": 1, "bwd_field_untiled": 0,
+    assert launched == {"fwd": 1, "bwd_field": 1, "bwd_field_binned": 0,
                         "bwd_vel": 1, "bwd_fused": 0}
     cpu, gpu = outs["cpu"], outs[str(cuda_device)]
     torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)

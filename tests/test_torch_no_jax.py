@@ -1,5 +1,6 @@
 """nfs_tpu_torch needs no JAX: a fresh interpreter in which any import of
-``jax`` fails imports every module of the port, then runs the CLIs on
+``jax`` fails imports every module of the port and reads every name its
+packages export, then runs the CLIs on
 the CPU at a tiny size: the scene CLI (a 3D smoke, a 3D liquid and a 2D
 smoke), grid mode (a single frame, a 2-frame window sequence, the same
 frames jointly with ``--parallel``, a fused
@@ -34,6 +35,10 @@ SCRIPT = textwrap.dedent("""
         nfs_tpu_torch.__path__, "nfs_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for name in ["nfs_tpu_torch"] + names:  # every package export resolves
+        module = sys.modules[name]
+        for export in getattr(module, "__all__", ()):
+            getattr(module, export)
     for name in ("eval.quality", "utils.flops", "utils.profiling",
                  "utils.metrics", "cli.serve", "cli.render",
                  "parallel.engine", "parallel.mesh", "parallel.sharding",

@@ -295,7 +295,7 @@ def _equal(a, b):
 @pytest.mark.parametrize("md", [1.0, 9.0])
 def test_batched_wrappers_equal_per_frame_calls(key, md):
     """Every advection wrapper and plain twin takes (B, D, H, W) and gives
-    the bits of B single calls (max_disp 9 is K2's untiled radius on the
+    the bits of B single calls (max_disp 9 takes K2's binned route on the
     card)."""
     f, g, v = _batch(0, md=md)
     wrapper, plain = PLAIN[key]

@@ -3,17 +3,19 @@
 against PyTorch's, on one GPU.
 
     python3 tools/kernel_ab.py kernels PARENT_CSRC
+    python3 tools/kernel_ab.py far PARENT_ROOT
     python3 tools/kernel_ab.py host
 
 ``kernels`` prints, on ``chip_smoke.py``'s kernel inputs, the largest
 difference between this checkout's six kernels and the parent commit's
 and whether they are bitwise equal (K5 also on the coarsest octave's
-bins, and this checkout's untiled K2 pull against the parent's tiled
-one at max_disp 1-3 and 8); then every kernel's two timers from
-``chip_smoke.py`` (``ms``: one call between CUDA events, host
-included; ``device_ms``: queued calls) in turns this, parent, parent,
-this, this checkout's through its wrapper, the parent's through its C
-interface (K5 at the finest and the coarsest octave), and K1's
+bins, and this checkout's K2 wrapper against the parent's K2 route at
+max_disp 8, 9 and 12: the tiled pull within its plan, the untiled pull
+past it); then every kernel's two timers from ``chip_smoke.py``
+(``ms``: one call between CUDA events, host included; ``device_ms``:
+queued calls) in turns this, parent, parent, this, this checkout's
+through its wrapper, the parent's through its C interface (K5 at the
+finest and the coarsest octave, K2 also at max_disp 9 and 12), and K1's
 ``F.grid_sample``. ``PARENT_CSRC`` is a directory holding the parent's
 ``advect.cu``, ``binsplat.cu`` and ``launch.cuh`` (``git show
 REV:nfs_tpu_torch/csrc/advect.cu > build/parent_csrc/advect.cu`` and so
@@ -24,6 +26,17 @@ this checkout's and launched through the parent's C interface
 displacement loads (``tools/k1_cells_x.cu``) against the shipped K1:
 bits on the same inputs and on three ragged shapes, and times in
 turns.
+
+``far`` runs ``chip_smoke.py``'s far frame (the density slice's first
+frame at max_disp 9, 3 octaves x 4 iterations) in turns this, parent,
+parent, this, each run a process of its own that imports
+``nfs_tpu_torch`` from its checkout (``PARENT_ROOT``: the parent
+commit unpacked, e.g. ``git archive REV | tar -x -C build/parent``
+before the call) and builds that checkout's kernels. Each run prints
+the finest octave's seconds per iteration without its first iteration
+(``chip_smoke._warm_s_per_iter``), that first iteration with the resize
+into the octave, the run's seconds and K1-K3b launches, and its d*'s
+largest difference from the first run's.
 
 ``host`` prints, for one call of K1 (112x64x112, max_disp 2) and one of
 K4 (the particle path's finest octave, K = 4), the host microseconds
@@ -45,6 +58,7 @@ wrapper. It also prints the seconds the three libraries take to build.
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 import time
@@ -81,16 +95,18 @@ def _parent_libs(parent: Path):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     adv = ctypes.CDLL(str(_nvcc(parent / "advect.cu",
                                 OUT / "libparent_advect.so")))
-    adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, f, i, p]
-    adv.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, f] + [i] * 5 + [
-        i, p]
-    adv.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, f, i, p]
-    adv.nfs_advect_bwd_fused.argtypes = [p] * 5 + [i, i, i, f] + [i] * 5 + [
-        i, p]
+    adv.nfs_advect_fwd.argtypes = [p, p, p, i, i, i, i, f, i, p]
+    adv.nfs_advect_bwd_field.argtypes = [p, p, p, i, i, i, i, f] + [
+        i] * 5 + [i, p]
+    adv.nfs_advect_bwd_field_untiled.argtypes = [p, p, p, i, i, i, i, f, i,
+                                                 i, p]
+    adv.nfs_advect_bwd_vel.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
+    adv.nfs_advect_bwd_fused.argtypes = [p] * 5 + [i, i, i, i, f] + [
+        i] * 5 + [i, p]
     bins = ctypes.CDLL(str(_nvcc(parent / "binsplat.cu",
                                  OUT / "libparent_binsplat.so")))
-    bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 4 + [i, p]
-    bins.nfs_binsplat_bwd.argtypes = [p] * 9 + [i] * 4 + [i, p]
+    bins.nfs_binsplat_fwd.argtypes = [p] * 5 + [i] * 5 + [i, p]
+    bins.nfs_binsplat_bwd.argtypes = [p] * 9 + [i] * 5 + [i, p]
     return adv, bins
 
 
@@ -264,10 +280,12 @@ def _emit_turns(kernel: str, calls: dict, card: str) -> None:
 # --------------------------------------------------------------------- #
 
 class _Parent:
-    """The parent's six kernels, launched through its C interface (the
-    device index and the stream last) with this checkout's tile plans,
-    which the parent's K2 / K3b share. A change to the parent's C
-    interface changes this class and :func:`_parent_libs`."""
+    """The parent's kernels on single frames, launched through its C
+    interface (the batch before the volume's shape, the device index and
+    the stream last) with this checkout's tile plans, which the parent's
+    K2 / K3b share; the parent's K2 route past the plan is its untiled
+    pull. A change to the parent's C interface changes this class and
+    :func:`_parent_libs`."""
 
     def __init__(self, parent: Path):
         import torch
@@ -286,7 +304,7 @@ class _Parent:
 
         out = torch.empty_like(f)
         self._run(self.adv.nfs_advect_fwd, "fwd", f.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), *f.shape, md)
+                  out.data_ptr(), 1, *f.shape, md)
         return out
 
     def bwd_field(self, f, g, v, md):
@@ -295,10 +313,16 @@ class _Parent:
         from nfs_tpu_torch.ops import advect_kernels as ak
 
         R = ak._radius(md)
+        plan = ak._pull_plan(R)
         out = torch.empty_like(g)
-        self._run(self.adv.nfs_advect_bwd_field, "bwd_field", v.data_ptr(),
-                  g.data_ptr(), out.data_ptr(), *g.shape, md, R,
-                  *ak._pull_plan(R))
+        if plan is None:
+            self._run(self.adv.nfs_advect_bwd_field_untiled,
+                      "bwd_field_untiled", v.data_ptr(), g.data_ptr(),
+                      out.data_ptr(), 1, *g.shape, md, R)
+        else:
+            self._run(self.adv.nfs_advect_bwd_field, "bwd_field",
+                      v.data_ptr(), g.data_ptr(), out.data_ptr(), 1,
+                      *g.shape, md, R, *plan)
         return out
 
     def bwd_vel(self, f, g, v, md):
@@ -306,7 +330,8 @@ class _Parent:
 
         out = torch.empty_like(v)
         self._run(self.adv.nfs_advect_bwd_vel, "bwd_vel", f.data_ptr(),
-                  v.data_ptr(), g.data_ptr(), out.data_ptr(), *f.shape, md)
+                  v.data_ptr(), g.data_ptr(), out.data_ptr(), 1, *f.shape,
+                  md)
         return out
 
     def bwd_fused(self, f, g, v, md):
@@ -318,7 +343,7 @@ class _Parent:
         gf, gs = torch.empty_like(g), torch.empty_like(v)
         self._run(self.adv.nfs_advect_bwd_fused, "bwd_fused", f.data_ptr(),
                   v.data_ptr(), g.data_ptr(), gf.data_ptr(), gs.data_ptr(),
-                  *f.shape, md, R, *ak._pull_plan(R, fused=True))
+                  1, *f.shape, md, R, *ak._pull_plan(R, fused=True))
         return gf, gs
 
     def binsplat_fwd(self, a4, p4):
@@ -327,7 +352,7 @@ class _Parent:
         out = torch.empty(a4.shape[1:], dtype=torch.float32,
                           device=a4.device)
         self._run(self.bins.nfs_binsplat_fwd, "binsplat_fwd", a4.data_ptr(),
-                  *(p.data_ptr() for p in p4), out.data_ptr(), *a4.shape)
+                  *(p.data_ptr() for p in p4), out.data_ptr(), 1, *a4.shape)
         return out
 
     def binsplat_bwd(self, a4, p4, g):
@@ -336,7 +361,7 @@ class _Parent:
         outs = [torch.empty_like(a4) for _ in range(4)]
         self._run(self.bins.nfs_binsplat_bwd, "binsplat_bwd", a4.data_ptr(),
                   *(p.data_ptr() for p in p4), g.data_ptr(),
-                  *(o.data_ptr() for o in outs), *a4.shape)
+                  *(o.data_ptr() for o in outs), 1, *a4.shape)
         return tuple(outs)
 
 
@@ -374,20 +399,20 @@ def kernels(parent_dir: Path, card: str) -> None:
     # the coarsest octave's grid and the K the styler plans for it
     coarse_grid, coarse_k = cs._octave_ks()[0]
     # bits of all four advection kernels on chip_smoke.py's kernel cases
-    # (seeds 0-5) and its timing inputs (seed 99), and of the untiled K2
-    # pull (called through its operator) against the parent's tiled one
+    # (seeds 0-5) and its timing inputs (seed 99), and of K2's wrapper
+    # (the binned route from BINNED_FROM_R) against the parent's K2 route
+    # (the tiled pull at max_disp 8, the untiled one at 9 and 12)
     cases = [("random", 2.0, 0), ("random", 1.0, 1), ("integer", 2.0, 2),
              ("zero", 1.0, 3), ("random", 3.0, 4), ("swirl", 2.0, 5),
-             ("random", 2.0, 99), ("random", 8.0, 7)]
+             ("random", 2.0, 99), ("random", 8.0, 7), ("random", 9.0, 8),
+             ("random", 12.0, 9)]
     for case, md, seed in cases:
         f, g, v = cs._cuda_inputs(case, md, seed=seed)
-        calls = {key: kern for key, (kern, _) in pairs.items()}
-        calls["bwd_field_untiled"] = lambda f, g, v, d: cs._untiled(v, g, d)
         diff = {}
-        for key, kern in calls.items():
-            if md > 3.0 and key != "bwd_field_untiled":
+        for key, (kern, _) in pairs.items():
+            if md > 3.0 and key != "bwd_field":
                 continue
-            old = getattr(parent, key.replace("_untiled", ""))(f, g, v, md)
+            old = getattr(parent, key)(f, g, v, md)
             new = kern(f, g, v, md)
             diff[key] = (cs._max_err(new, old), cs._equal(new, old))
         cs.emit({"phase": "bits", "inputs": case, "max_disp": md,
@@ -419,11 +444,14 @@ def kernels(parent_dir: Path, card: str) -> None:
 
     # every kernel in turns against the parent's: the advection kernels
     # at chip_smoke.py's timing inputs (K3 at max_disp 1), K1 and the
-    # pull kernels also on the swirl
-    for key, case in (("fwd", "random"), ("fwd", "swirl"),
-                      ("bwd_field", "random"), ("bwd_field", "swirl"),
-                      ("bwd_vel", "random"), ("bwd_fused", "random")):
-        md = 1.0 if key == "bwd_vel" else 2.0
+    # pull kernels also on the swirl, K2 also past the tile plan
+    for key, case, md in (("fwd", "random", 2.0), ("fwd", "swirl", 2.0),
+                          ("bwd_field", "random", 2.0),
+                          ("bwd_field", "swirl", 2.0),
+                          ("bwd_field", "random", 9.0),
+                          ("bwd_field", "random", 12.0),
+                          ("bwd_vel", "random", 1.0),
+                          ("bwd_fused", "random", 2.0)):
         f, g, v = cs._cuda_inputs(case, md, seed=99)
         kern = pairs[key][0]
         rec = {"phase": "kernel_ab", "kernel": key, "inputs": case,
@@ -476,10 +504,82 @@ def kernels(parent_dir: Path, card: str) -> None:
                  "card": card})
 
 
+# --------------------------------------------------------------------- #
+# far: the far phase's frame, this checkout against the parent's
+# --------------------------------------------------------------------- #
+
+def far_run(root: Path, first: Path) -> None:
+    """One far-frame run with ``nfs_tpu_torch`` imported from ``root``;
+    its d* is written to ``first`` when that file is absent, else held
+    against it. Prints one JSON line."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import nfs_tpu_torch
+    from nfs_tpu_torch.ops import _cuda_build
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    if Path(nfs_tpu_torch.__file__).resolve().parents[1] != root.resolve():
+        raise RuntimeError(f"imported {nfs_tpu_torch.__file__}, not {root}")
+    t0 = time.perf_counter()
+    _cuda_build.load_operators()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    ds = cs._plume_density(cs.SHAPE, 0, rng)[None]
+    vs = cs._swirl_velocity(cs.SHAPE, 0)[None]
+    style = np.random.default_rng(1).random((256, 256, 3), dtype=np.float32)
+    cfg = cs._northstar_cfg(**{"optim.iters": 4, "optim.max_disp": 9.0})
+    styler = GridStyler(cfg, style_image=style, device="cuda")
+    marks = []
+    ak.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = [d.cpu().numpy() for _, d, _ in styler.stylize_sequence(
+        ds, vs, fused=0, callback=lambda done, loss, octave:
+        marks.append((octave, done, time.perf_counter())))][0]
+    seconds = time.perf_counter() - t0
+    finest = cfg.optim.octave_n - 1
+    t_in = max(t for o, _, t in marks if o == finest - 1)
+    t_first = min(t for o, _, t in marks if o == finest)
+    if first.exists():
+        d_diff = float(np.abs(d - np.load(first)).max())
+    else:
+        np.save(first, d)
+        d_diff = 0.0
+    print(json.dumps({
+        "package": str(Path(nfs_tpu_torch.__file__).parent),
+        "build_s": build_s, "seconds": seconds,
+        "finest_s_per_iter_warm": cs._warm_s_per_iter(marks, finest),
+        "finest_first_iter_s": t_first - t_in,
+        "launches": {k: n for k, n in ak.LAUNCHES.items() if n},
+        "d_star_finite": bool(np.isfinite(d).all()),
+        "d_star_max_abs_diff_vs_first_run": d_diff}), flush=True)
+
+
+def far(parent_root: Path, card: str) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    first = OUT / "far_first_d_star.npy"
+    first.unlink(missing_ok=True)
+    for label, root in (("this", ROOT), ("parent", parent_root),
+                        ("parent", parent_root), ("this", ROOT)):
+        proc = subprocess.run(
+            [sys.executable, __file__, "far_run", str(root), str(first)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"far run of {root} failed:\n{proc.stderr}")
+        cs.emit({"phase": "far_ab", "checkout": label,
+                 **json.loads(proc.stdout.strip().splitlines()[-1]),
+                 "card": card})
+
+
 def main(argv) -> int:
     import torch
 
-    if not ((argv[:1] == ["kernels"] and len(argv) == 2)
+    if argv[:1] == ["far_run"] and len(argv) == 3:
+        far_run(Path(argv[1]), Path(argv[2]))
+        return 0
+    if not ((argv[:1] in (["kernels"], ["far"]) and len(argv) == 2)
             or argv == ["host"]):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -487,6 +587,8 @@ def main(argv) -> int:
     card = cs.phase_device()[1]
     if argv[0] == "host":
         host(card)
+    elif argv[0] == "far":
+        far(Path(argv[1]).resolve(), card)
     else:
         kernels(Path(argv[1]), card)
     return 0
