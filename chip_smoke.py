@@ -127,8 +127,12 @@ Phases, each printing one JSON line:
     ``stylize_frame_spatial`` (W = 1, and the velocity parameterization)
     bitwise ``stylize_frame``, with s/iter and peak memory beside
     ``persistent_state_bytes``, and the engine on a (1, 1, 1) mesh
-    bitwise the (1, 1) one (both one slab: one code path). Runs after
-    keyframes.
+    bitwise the (1, 1) one (both one slab: one code path); then a
+    checkpointed frame at float32 features (W = 1, log_every 2) through
+    ``stylize_frame_spatial`` and ``stylize_frame``, each chunk's write
+    timed, stopped after a chunk of octave 1 and resumed bitwise, its
+    file in the JAX package's layout, K1 and K2 launched on the slab.
+    Runs after keyframes.
 16. checkpoint — the velocity slice's first frame interrupted after a
     chunk of octave 1 and resumed from its in-frame checkpoint, held
     against two uninterrupted runs; the same frame at float32 features
@@ -136,7 +140,8 @@ Phases, each printing one JSON line:
     the default algorithms and inside the styler's deterministic scope,
     and an interrupted, resumed checkpointed frame held bitwise to an
     uninterrupted one; a ``--checkpoint_in_frame`` CLI job
-    that completes and leaves no checkpoint.
+    that writes its file in the JAX package's layout, completes and
+    leaves no checkpoint.
 17. exact — the exact advection path (max_disp=None) at 112x64x112 on
     the swirl and on a velocity of up to 6 cells: ``advect`` and
     ``advect_maccormack`` with both gradients on the card against the
@@ -2436,11 +2441,14 @@ def phase_checkpoint(card: str, root: str, data_dir: str):
 
     log = os.path.join(root, "log")
     buf = io.StringIO()
+    keys = []
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _reading_checkpoints(keys):
         stylize(["--data_dir", data_dir, "--log_dir", log, "--tag", "ckpt",
                  "--checkpoint_in_frame", "--octave_n", "2", "--iter", "2"])
     cli_s = time.perf_counter() - t0
+    if not keys or any(not _jax_layout(k) for k in keys):
+        raise AssertionError(f"the CLI job's checkpoints hold {keys}")
     out_dir = os.path.join(log, "ckpt")
     if os.path.exists(os.path.join(out_dir, "inframe_ckpt.npz")):
         raise AssertionError("the CLI job left its in-frame checkpoint")
@@ -2455,8 +2463,39 @@ def phase_checkpoint(card: str, root: str, data_dir: str):
           "resumed_vs_uninterrupted_max_abs": off,
           "frame_s": walls, "resume_s": resume_s, "launches": launches,
           "float32_features": f32,
-          "cli": {"wall_s": cli_s, "checkpoint_left": False},
+          "cli": {"wall_s": cli_s, "checkpoint_left": False,
+                  "writes": len(keys), "jax_layout": True},
           "card": card})
+
+
+JAX_LEAVES = ("leaf:opt_state/0/count", "leaf:opt_state/0/mu",
+              "leaf:opt_state/0/nu", "leaf:param")
+
+
+def _jax_layout(files) -> bool:
+    """Whether a checkpoint's keys are the JAX package's (optax's Adam
+    state under opt_state/0/) for a tensor param."""
+    return set(JAX_LEAVES) <= set(files)
+
+
+@contextlib.contextmanager
+def _reading_checkpoints(keys: list):
+    """Within the scope, every in-frame checkpoint the styler writes is
+    read back after the write and its keys appended to ``keys``."""
+    from nfs_tpu_torch.styler import grid as grid_mod
+
+    real = grid_mod.save_checkpoint
+
+    def reading(path, tree, meta=None):
+        real(path, tree, meta)
+        with np.load(path) as z:
+            keys.append(sorted(z.files))
+
+    grid_mod.save_checkpoint = reading
+    try:
+        yield
+    finally:
+        grid_mod.save_checkpoint = real
 
 
 def _phase_checkpoint_f32(cfg, d, vels, root: str, stop, interrupt):
@@ -3044,8 +3083,9 @@ def phase_spatial(card: str):
 
     from nfs_tpu_torch.ops import advect_kernels as ak
     from nfs_tpu_torch.parallel import (
-        ParallelSequenceStyler, make_mesh, persistent_state_bytes,
-        spatial_mesh, stylize_frame_spatial)
+        ParallelSequenceStyler, make_mesh, spatial_mesh,
+        stylize_frame_spatial)
+    from nfs_tpu_torch.parallel.spatial import persistent_state_bytes
     from nfs_tpu_torch.styler.grid import GridStyler
 
     slabs = _slab_checks(card)
@@ -3117,6 +3157,8 @@ def phase_spatial(card: str):
                 and torch.equal(engine_out[0][1], engine_out[1][1])):
             raise AssertionError("the (1, 1, 1) engine differs from the "
                                  "(1, 1) one")
+        checkpointed = _spatial_checkpoint(card, style, ds[0], vels, mesh)
+        launches["checkpoint"] = checkpointed["launches"]
     finally:
         dist.destroy_process_group()
     emit({"phase": "spatial", "shape": list(SHAPE), "slabs": slabs,
@@ -3126,6 +3168,113 @@ def phase_spatial(card: str):
                      "group; 5 iterations per octave (config #3: 20)",
           "card": card})
     return launches
+
+
+def _spatial_checkpoint(card: str, style, d, vels, mesh) -> dict:
+    """A checkpointed frame at the density slice's width (W = 1) with
+    float32 features, log_every 2 (chunks of 2, 2, 1 iterations a
+    octave), inside the caller's process group: ``stylize_frame`` and
+    ``stylize_frame_spatial`` on ``mesh`` with a checkpoint, each timed
+    (s/iter) with every chunk's write timed apart (the gather of a
+    sharded octave, the copy to the host, the atomic write, the ranks'
+    barrier; ``GridStyler._checkpoint`` behind a sync); then the spatial
+    frame stopped after octave 1's first chunk, its file checked for the
+    JAX package's keys, and resumed, which must give the uninterrupted
+    checkpointed run's bits. K1 and K2 must have launched in the spatial
+    runs. Prints one line and returns its record."""
+    import torch
+
+    from nfs_tpu_torch.io.checkpoint import read_meta
+    from nfs_tpu_torch.ops import advect_kernels as ak
+    from nfs_tpu_torch.parallel import stylize_frame_spatial
+    from nfs_tpu_torch.styler.grid import GridStyler
+
+    class Interrupt(Exception):
+        pass
+
+    def stop(done, loss, octave):
+        if (octave, done) == (1, 2):
+            raise Interrupt
+
+    cfg = _northstar_cfg(**{"optim.iters": 5, "optim.log_every": 2,
+                            "loss.features_dtype": "float32"})
+    styler = GridStyler(cfg, style_image=style, device="cuda")
+    n_iter = cfg.optim.octave_n * cfg.optim.iters
+    writes = []
+    real = GridStyler._checkpoint
+
+    def timed_write(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(*args)
+        writes.append(time.perf_counter() - t0)
+
+    def frame(mode, path, **kw):
+        writes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "spatial":
+            out = stylize_frame_spatial(styler, d, mesh, vels=vels,
+                                        checkpoint_path=path, **kw)
+        else:
+            out = styler.stylize_frame(d, vels=vels, checkpoint_path=path,
+                                       **kw)
+        torch.cuda.synchronize()
+        return out[0], out[1], (time.perf_counter() - t0) / n_iter, \
+            list(writes)
+
+    runs, keys = {}, []
+    with tempfile.TemporaryDirectory(prefix="nfs_ckpt_") as tmp:
+        path = os.path.join(tmp, "inframe_ckpt.npz")
+        GridStyler._checkpoint = staticmethod(timed_write)
+        try:
+            frame("unsharded", path)                        # warm-up
+            runs["unsharded"] = frame("unsharded", path)
+            ak.reset_launches()
+            runs["spatial"] = frame("spatial", path)
+            launches = dict(ak.LAUNCHES)
+            try:
+                frame("spatial", path, callback=stop)
+                raise AssertionError("the interrupting callback never ran")
+            except Interrupt:
+                pass
+            meta = read_meta(path)
+            with np.load(path) as z:
+                keys = sorted(z.files)
+            runs["resumed"] = frame("spatial", path)
+            left = os.path.exists(path)
+        finally:
+            GridStyler._checkpoint = staticmethod(real)
+    if (meta["octave"], meta["iters_done"]) != (1, 2):
+        raise AssertionError(f"spatial checkpoint at {meta}")
+    if not _jax_layout(keys):
+        raise AssertionError(f"spatial checkpoint keys {keys}")
+    if left:
+        raise AssertionError("the resumed spatial frame left its file")
+    (d0, p0, _, _), (d1, p1, _, _) = runs["spatial"], runs["resumed"]
+    if not (torch.equal(d0, d1) and torch.equal(p0, p1)):
+        raise AssertionError(
+            f"the resumed spatial frame differs from the uninterrupted "
+            f"checkpointed one: {float((d0 - d1).abs().max())}")
+    if not (launches["fwd"] > 0 and launches["bwd_field"] > 0):
+        raise AssertionError(f"checkpointed spatial frame launched "
+                             f"{launches}")
+    du, pu = runs["unsharded"][:2]
+    rec = {"phase": "spatial_checkpoint", "shape": list(SHAPE),
+           "features": "float32", "octave_n": cfg.optim.octave_n,
+           "iters": cfg.optim.iters, "log_every": cfg.optim.log_every,
+           "interrupted_at": meta, "keys": keys,
+           "resumed_bitwise": True,
+           "spatial_bitwise_unsharded": bool(torch.equal(d0, du)
+                                             and torch.equal(p0, pu)),
+           "s_per_iter": {k: runs[k][2] for k in ("unsharded", "spatial")},
+           "write_ms": {k: [1e3 * w for w in r[3]]
+                        for k, r in runs.items()},
+           "write_ms_median": {k: 1e3 * statistics.median(r[3])
+                               for k, r in runs.items() if r[3]},
+           "launches": launches, "card": card}
+    emit(rec)
+    return rec
 
 
 def _keyframe_reference_run(dev: str, grid, color: bool):
@@ -3694,8 +3843,9 @@ def phase_render_quality(card: str, root: str, smoke_dir: str, a_dir: str,
 
     from nfs_tpu_torch.cli.render import main as render
     from nfs_tpu_torch.eval import (
-        coherence_gate, gram_convergence, gram_distance,
-        stylization_strength, temporal_coherence)
+        gram_convergence, gram_distance, stylization_strength,
+        temporal_coherence)
+    from nfs_tpu_torch.eval.quality import coherence_gate
     from nfs_tpu_torch.features.losses import style_gram_targets
     from nfs_tpu_torch.features.vgg import init_vgg_params
     from nfs_tpu_torch.io.npz import FrameStore

@@ -319,8 +319,8 @@ def _run_parallel(cfg, store, out_store, frames, preview, log_metric,
     import torch.distributed as dist
 
     from nfs_tpu_torch.parallel import (
-        ParallelSequenceStyler, initialize_multihost, make_mesh,
-        mesh_shape_for)
+        ParallelSequenceStyler, initialize_multihost, make_mesh)
+    from nfs_tpu_torch.parallel.mesh import mesh_shape_for
     from nfs_tpu_torch.styler.grid import GridStyler
 
     joined = not dist.is_initialized()

@@ -2,9 +2,7 @@
 
 A copy of ``nfs_tpu/core/config.py`` that imports nothing of
 ``nfs_tpu`` (whose package import pulls in JAX): the same dataclasses,
-fields and defaults, so one configuration drives both packages. Options
-the port does not implement yet raise ``NotImplementedError`` where they
-are used, naming their ROADMAP item.
+fields and defaults, so one configuration drives both packages.
 
 All configs are frozen (hashable).
 """

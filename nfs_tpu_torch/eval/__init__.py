@@ -1,8 +1,9 @@
 """Quality evaluation (counterpart of ``nfs_tpu/eval``): temporal
-coherence, Gram distance and convergence, stylization strength."""
+coherence, Gram distance and convergence, stylization strength. The
+package exports what ``nfs_tpu.eval`` does; the coherence gate is in
+:mod:`.quality`, as there."""
 
 from nfs_tpu_torch.eval.quality import (  # noqa: F401
-    coherence_gate,
     gram_convergence,
     gram_distance,
     stylization_strength,
@@ -10,7 +11,6 @@ from nfs_tpu_torch.eval.quality import (  # noqa: F401
 )
 
 __all__ = [
-    "coherence_gate",
     "gram_convergence",
     "gram_distance",
     "stylization_strength",

@@ -17,11 +17,17 @@ numbers as the JAX package's ``jax.random`` init.
 
 ``dtype=torch.bfloat16`` casts the normalised input and every weight and
 bias to bf16 explicitly (no autocast), as the JAX function casts; the
-Gram matrices accumulate in f32 (losses.py).
+Gram matrices accumulate in f32 (losses.py). The loaders' ``dtype`` is
+the stored weights' dtype, as the JAX loaders' is. ``precision`` takes
+the names of ``jax.lax.Precision`` as strings: ``"highest"`` runs the
+float32 convolutions in full float32 (cuDNN's TF32 off), ``"default"``
+and ``"high"`` let cuDNN use TF32 on the GPU (the JAX package's fast
+paths), each for the call only; None leaves torch's settings alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -52,27 +58,32 @@ _IMAGENET_STD = (0.229, 0.224, 0.225)
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
-def init_vgg_params(seed: int = 0, device="cpu") -> Params:
+def init_vgg_params(seed: int = 0, dtype=torch.float32,
+                    device="cpu") -> Params:
     """Deterministic He-normal random VGG-19 (fallback when no weight
-    file is given), drawn from ``torch.Generator().manual_seed(seed)``."""
+    file is given), drawn in float32 from
+    ``torch.Generator().manual_seed(seed)``, stored as ``dtype``."""
     gen = torch.Generator().manual_seed(seed)
     params = {}
     c_in = 3
     for name, c_out in _CONVS:
         w = torch.randn((c_out, c_in, 3, 3), generator=gen)
-        params[name] = {"w": (w * math.sqrt(2.0 / (9 * c_in))).to(device),
-                        "b": torch.zeros(c_out, device=device)}
+        w = w * math.sqrt(2.0 / (9 * c_in))
+        params[name] = {"w": w.to(device=device, dtype=dtype),
+                        "b": torch.zeros(c_out, dtype=dtype, device=device)}
         c_in = c_out
     return params
 
 
-def params_from_numpy(params: Mapping, device="cpu") -> Params:
+def params_from_numpy(params: Mapping, device="cpu",
+                      dtype=torch.float32) -> Params:
     """JAX-package params as numpy -> this package's weights.
 
     Accepts ``{name: {"w": HWIO, "b": (C,)}}`` or the flat
     ``{"name/w": HWIO, "name/b": (C,)}`` mapping that
     ``nfs_tpu.features.vgg.save_vgg_params`` writes (an open ``.npz``
-    works too). Returns ``{name: {"w": OIHW, "b"}}`` float32 tensors."""
+    works too). Returns ``{name: {"w": OIHW, "b"}}`` tensors of
+    ``dtype`` (read as float32, then cast)."""
     out = {}
     for name, _ in _CONVS:
         if name in params:
@@ -81,8 +92,10 @@ def params_from_numpy(params: Mapping, device="cpu") -> Params:
             w, b = params[f"{name}/w"], params[f"{name}/b"]
         w = np.asarray(w, dtype=np.float32).transpose(3, 2, 0, 1)
         out[name] = {
-            "w": torch.from_numpy(np.ascontiguousarray(w)).to(device),
-            "b": torch.from_numpy(np.asarray(b, np.float32).copy()).to(device),
+            "w": torch.from_numpy(np.ascontiguousarray(w)).to(
+                device=device, dtype=dtype),
+            "b": torch.from_numpy(np.asarray(b, np.float32).copy()).to(
+                device=device, dtype=dtype),
         }
     return out
 
@@ -92,10 +105,12 @@ def params_to(params: Params, device) -> Params:
             for n, p in params.items()}
 
 
-def load_vgg_params(path: str, device="cpu") -> Params:
-    """Load the flat ``'{name}/w'`` (HWIO) + ``'{name}/b'`` .npz."""
+def load_vgg_params(path: str, dtype=torch.float32,
+                    device="cpu") -> Params:
+    """Load the flat ``'{name}/w'`` (HWIO) + ``'{name}/b'`` .npz as
+    ``dtype``."""
     with np.load(path) as raw:
-        return params_from_numpy(raw, device=device)
+        return params_from_numpy(raw, device=device, dtype=dtype)
 
 
 def save_vgg_params(path: str, params: Params) -> None:
@@ -109,11 +124,11 @@ def save_vgg_params(path: str, params: Params) -> None:
 
 
 def get_vgg_params(path: Optional[str] = None, seed: int = 0,
-                   device="cpu") -> Params:
+                   dtype=torch.float32, device="cpu") -> Params:
     """File-based loader with deterministic random fallback."""
     if path is not None:
-        return load_vgg_params(path, device=device)
-    return init_vgg_params(seed=seed, device=device)
+        return load_vgg_params(path, dtype=dtype, device=device)
+    return init_vgg_params(seed=seed, dtype=dtype, device=device)
 
 
 def preprocess(images: torch.Tensor) -> torch.Tensor:
@@ -125,19 +140,49 @@ def preprocess(images: torch.Tensor) -> torch.Tensor:
     return (images - mean) / std
 
 
+# jax.lax.Precision's names -> whether cuDNN may use TF32 for float32
+_PRECISION_TF32 = {"default": True, "high": True, "highest": False}
+
+
+@contextlib.contextmanager
+def _conv_precision(precision: Optional[str]):
+    """cuDNN's TF32 switch set for a ``jax.lax.Precision`` name over the
+    scope and restored after it; None leaves it alone."""
+    if precision is None:
+        yield
+        return
+    key = str(precision).lower()
+    if key not in _PRECISION_TF32:
+        raise ValueError(f"unknown precision {precision!r}: one of "
+                         f"{sorted(_PRECISION_TF32)} or None")
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = _PRECISION_TF32[key]
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
 def vgg_features(params: Params, images: torch.Tensor,
                  layers: Tuple[str, ...], pool: str = "avg",
-                 dtype: Optional[torch.dtype] = None
+                 dtype: Optional[torch.dtype] = None,
+                 precision: Optional[str] = None
                  ) -> Dict[str, torch.Tensor]:
     """Run VGG-19 on NHWC ``images`` in [0, 1]; return the requested relu
     activations, NHWC, in the compute dtype. The network runs only as deep
-    as the deepest requested layer."""
+    as the deepest requested layer. ``precision``: a ``jax.lax.Precision``
+    name, ``'highest'`` turning cuDNN's TF32 off for the call,
+    ``'default'`` and ``'high'`` on; None leaves torch's setting."""
     want = set(layers)
     unknown = want - set(VGG_LAYERS)
     if unknown:
         raise ValueError(f"unknown VGG layers: {sorted(unknown)}")
     deepest = max(VGG_LAYERS.index(l) for l in layers) if layers else -1
+    with _conv_precision(precision):
+        return _features(params, images, want, deepest, pool, dtype)
 
+
+def _features(params, images, want, deepest, pool, dtype):
     x = preprocess(images).permute(0, 3, 1, 2)
     if dtype is not None:
         x = x.to(dtype)

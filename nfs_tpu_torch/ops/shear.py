@@ -104,6 +104,18 @@ def rotate3d_shear(d: torch.Tensor, theta, phi,
     return out[0] if single else out
 
 
+def rotate3d_shear_batch(d: torch.Tensor, thetas, phis) -> torch.Tensor:
+    """``(V, D, H, W)``: :func:`rotate3d_shear` of one volume by each of
+    V angle pairs, as one batch of shears (counterpart of the JAX
+    function, which vmaps ``rotate3d_shear`` over the angles)."""
+    thetas = torch.as_tensor(thetas, dtype=torch.float32,
+                             device=d.device).reshape(-1)
+    phis = torch.as_tensor(phis, dtype=torch.float32,
+                           device=d.device).reshape(-1)
+    return rotate3d_shear_volumes(d[None].expand(thetas.shape[0], *d.shape),
+                                  thetas, phis)
+
+
 def rotate3d_shear_volumes(vols: torch.Tensor, theta: torch.Tensor,
                            phi: torch.Tensor,
                            dtype: Optional[torch.dtype] = None

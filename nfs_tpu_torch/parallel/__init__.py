@@ -18,36 +18,31 @@ The keyframe-parallel LNST engine (:class:`ParallelKeyframeStyler`,
 ``particles.py``) splits a particle sequence's keyframes over ``frames``.
 
 One process per GPU (``torchrun``), NCCL between GPUs, gloo on the CPU.
+The package exports what ``nfs_tpu.parallel`` does; the port's other
+public names are in their modules (``mesh.Mesh``, ``mesh.mesh_shape_for``,
+``sharding.gather_volume``, ``spatial.SpaceSlabs``, ...), as the JAX
+package keeps its own there.
 """
 
 from nfs_tpu_torch.parallel.engine import ParallelSequenceStyler
-from nfs_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape_for
+from nfs_tpu_torch.parallel.mesh import make_mesh
 from nfs_tpu_torch.parallel.multihost import initialize_multihost
 from nfs_tpu_torch.parallel.particles import ParallelKeyframeStyler
 from nfs_tpu_torch.parallel.sharding import (
-    gather_volume, halo_exchange, make_sharded_window_step, shard_volume)
+    halo_exchange, make_sharded_window_step, shard_volume)
 from nfs_tpu_torch.parallel.spatial import (
-    SPACE_AXIS, SpaceSlabs, gather_spatial, persistent_state_bytes,
-    prepare_spatial, run_slabs, shard_volume_spatial, spatial_mesh,
+    prepare_spatial, shard_volume_spatial, spatial_mesh,
     stylize_frame_spatial)
 
 __all__ = [
-    "Mesh",
     "make_mesh",
-    "mesh_shape_for",
     "halo_exchange",
     "shard_volume",
-    "gather_volume",
     "make_sharded_window_step",
     "ParallelSequenceStyler",
     "ParallelKeyframeStyler",
     "initialize_multihost",
-    "SPACE_AXIS",
-    "SpaceSlabs",
-    "gather_spatial",
-    "persistent_state_bytes",
     "prepare_spatial",
-    "run_slabs",
     "shard_volume_spatial",
     "spatial_mesh",
     "stylize_frame_spatial",

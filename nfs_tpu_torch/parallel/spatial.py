@@ -40,7 +40,14 @@ rank holds its y-slab and the collectives are written out
   again. An octave whose y size does not divide by the space axis, or
   whose slab is thinner than R (the halo would reach past one
   neighbour), runs replicated: every rank holds the whole volume and
-  makes the same updates.
+  makes the same updates;
+- **in-frame checkpoints**: the file holds the whole volume, as the
+  JAX package's ``save_checkpoint`` writes its global arrays: after each
+  chunk the field and Adam's moments are gathered along the space axis,
+  rank 0 of the axis writes, and the ranks meet at a barrier; on resume
+  every rank reads the file (a filesystem they all see) and keeps its
+  slab. So a frame checkpointed on n slabs resumes on m, unsharded, or in
+  the JAX package (``styler/grid.py``).
 
 :class:`SpaceSlabs` holds these decisions for one stylization; on one
 slab (no space mesh) each of its methods is the unsharded computation,
@@ -223,6 +230,14 @@ class SpaceSlabs:
         return gather_volume(x, self.mesh, self._ax(lead), "space",
                              self.counts)
 
+    def barrier(self) -> None:
+        """Wait for every rank of the space axis (nothing for one slab)."""
+        if self.n == 1:
+            return
+        if self.mesh is None:
+            raise ValueError("slabs without a mesh cannot meet")
+        torch.distributed.barrier(group=self.mesh.group("space"))
+
 
 def run_slabs(fn: Callable[[SlabRing], object], n: int,
               max_rounds: int = 8) -> List[object]:
@@ -350,11 +365,11 @@ def stylize_frame_spatial(styler, d, mesh: Mesh, axis: int = SPACE_AXIS,
     Returns (d_star, param, info) as ``stylize_frame``, d_star and param
     as this rank's slabs along ``axis`` (:func:`gather_spatial` fetches
     the whole volume); ``info['collectives']`` counts the collectives
-    issued. In-frame checkpoints are not supported here.
+    issued. ``checkpoint_path`` passes through, the same on every rank:
+    the in-frame checkpoint holds the whole volume (rank 0 of the space
+    axis writes it), so it resumes on any number of slabs, or unsharded;
+    every rank must see the file.
     """
-    if kwargs.get("checkpoint_path") is not None:
-        raise ValueError("stylize_frame_spatial: in-frame checkpoints are "
-                         "not supported on a space mesh")
     prepare_spatial(styler, mesh)
     d = torch.as_tensor(d)
     shape = tuple(d.shape)

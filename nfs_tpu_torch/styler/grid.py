@@ -15,8 +15,10 @@ per chunk of frames, and resumed mid-sequence from a saved param; in-frame
 checkpoints of {param, Adam state} every ``log_every`` iterations, from
 which an interrupted frame resumes mid-octave with the uninterrupted
 run's bits (such a frame runs with cuDNN's deterministic convolutions,
-which float32 features need on a GPU); a frame split into y-slabs over
-the ranks of a space mesh (``parallel/spatial.py``).
+which float32 features need on a GPU), in the JAX package's file layout;
+a frame split into y-slabs over the ranks of a space mesh
+(``parallel/spatial.py``), with in-frame checkpoints of the whole
+volume.
 
 The optimization runs eagerly on ``device``. Advection inside the loss
 goes through the CUDA kernels K1-K3b (``ops/advect_kernels.py``) on a
@@ -49,7 +51,7 @@ from nfs_tpu_torch.ops.resize import octave_shapes, resize
 from nfs_tpu_torch.render.raymarch import (
     render2d, render_views, render_volume)
 from nfs_tpu_torch.styler.base import StylerBase
-from nfs_tpu_torch.styler.octave import Adam, run_octave
+from nfs_tpu_torch.styler.octave import Adam, AdamState, run_octave
 
 
 def _one_slab(shape=None):
@@ -293,17 +295,23 @@ class GridStyler(StylerBase):
             return advect_maccormack(param, v, max_disp=oc.max_disp)
         return advect(param, v, max_disp=oc.max_disp)
 
+    @staticmethod
+    def _field_map(param, fn):
+        """``fn`` on the part of a param that has the octave grid: the
+        tensor, or the field of a ``{'field', 'tf'}`` dict."""
+        if isinstance(param, dict):
+            return dict(param, field=fn(param["field"]))
+        return fn(param)
+
     def _resize_param(self, param, from_shape: Tuple[int, ...],
                       shape: Tuple[int, ...], space):
         """The param at octave ``from_shape`` resized to octave ``shape``
         on the frame's slabs ``space`` (``parallel.spatial.SpaceSlabs``):
         gathered whole and sliced again as the two octaves are sharded."""
-        if isinstance(param, dict):  # only the field has the octave grid
-            return dict(param, field=self._resize_param(
-                param["field"], from_shape, shape, space))
         is_vel = self.cfg.optim.parameterization == "velocity"
-        return space.resize(param, from_shape, shape, lambda p: resize(
-            p, shape, is_velocity=is_vel))
+        return self._field_map(param, lambda p: space.resize(
+            p, from_shape, shape, lambda q: resize(
+                q, shape, is_velocity=is_vel)))
 
     @staticmethod
     def _window_vels(vels: torch.Tensor, t: int, window: int,
@@ -333,7 +341,7 @@ class GridStyler(StylerBase):
         None: one slab, the whole volume); the states are slabs at the
         octaves it shards, whole at the others. A frame with a checkpoint
         runs with deterministic cuDNN convolutions
-        (:func:`_deterministic_convs`)."""
+        (:func:`_deterministic_convs`) on every rank."""
         scope = (_deterministic_convs() if checkpoint_path is not None
                  else contextlib.nullcontext())
         with scope:
@@ -357,7 +365,7 @@ class GridStyler(StylerBase):
         prev = full_shape   # the octave shape of param
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             start_octave, start_iter, param, opt_state = self._resume(
-                checkpoint_path, meta, shapes, optimizer)
+                checkpoint_path, meta, shapes, optimizer, space)
             prev = shapes[start_octave]
         losses_all = []
         for o, shape in enumerate(shapes):
@@ -396,10 +404,9 @@ class GridStyler(StylerBase):
                 def cb(done, loss, _o=o):
                     callback(done, loss, octave=_o)
             if checkpoint_path is not None:
-                def state_cb(done, p, st, _o=o):
-                    save_checkpoint(
-                        checkpoint_path, {"param": p, "opt_state": st},
-                        meta=dict(meta, octave=_o, iters_done=done))
+                def state_cb(done, p, st, _o=o, _at=data["space"]):
+                    self._checkpoint(checkpoint_path, space, _at, p, st,
+                                     dict(meta, octave=_o, iters_done=done))
             resumed = o == start_octave
             param, losses, _ = run_octave(
                 param, loss_fn, data, views, iters=iters, lr=oc.lr,
@@ -420,11 +427,46 @@ class GridStyler(StylerBase):
         return (oc.warm_iters if (warm and oc.warm_iters is not None)
                 else oc.iters)
 
-    def _resume(self, path: str, meta, shapes, optimizer):
+    @staticmethod
+    def _checkpoint(path: str, space, at, param, state: AdamState, meta):
+        """Write {param, Adam state} at ``path``, always the whole volume:
+        at an octave held on slabs (``at``, the octave's
+        ``parallel.spatial.SpaceSlabs``) the field and Adam's moments are
+        gathered along the space axis first. Rank 0 of the frame's space
+        axis (``space``) writes, then the axis' ranks meet, so that no
+        rank goes on before the file is there."""
+        def whole(x):
+            return GridStyler._field_map(x, at.whole)
+
+        with torch.no_grad():
+            tree = {"param": whole(param),
+                    "opt_state": AdamState(state.count, whole(state.mu),
+                                           whole(state.nu))}
+        if space.idx == 0:
+            save_checkpoint(path, tree, meta=meta)
+        space.barrier()
+
+    @staticmethod
+    def _drop_checkpoint(path: Optional[str], space) -> None:
+        """Remove a completed frame's checkpoint: on one rank of the space
+        axis, once every rank is done with it."""
+        if path is None:
+            return
+        space = space if space is not None else _one_slab()
+        space.barrier()
+        if space.idx == 0 and os.path.exists(path):
+            os.unlink(path)
+        space.barrier()
+
+    def _resume(self, path: str, meta, shapes, optimizer, space):
         """(octave, iterations done, param, Adam state) of an in-frame
         checkpoint. Resuming reproduces the uninterrupted run only with
         the same log_every (chunk boundaries), iteration budget and octave
-        ladder, so a checkpoint written with others is refused."""
+        ladder, so a checkpoint written with others is refused. The file
+        holds the whole volume; on a space mesh every rank reads it (a
+        filesystem that every rank sees, as the JAX package's single
+        controller has) and keeps its slab at the octave resumed, whatever
+        number of slabs wrote it."""
         got = read_meta(path) or {}
         for k, want in meta.items():
             have = got.get(k, want)
@@ -439,7 +481,14 @@ class GridStyler(StylerBase):
         like = self._wrap_tf_param(self.init_param(shapes[o]))
         state, _ = load_checkpoint(
             path, {"param": like, "opt_state": optimizer.init(like)})
-        return o, int(got["iters_done"]), state["param"], state["opt_state"]
+        at = space.octave(shapes[o])
+
+        def slab(x):
+            return self._field_map(x, at.slab)
+
+        st = state["opt_state"]
+        return (o, int(got["iters_done"]), slab(state["param"]),
+                AdamState(st.count, slab(st.mu), slab(st.nu)))
 
     def stylize_frame(self, d: np.ndarray,
                       vels: Optional[np.ndarray] = None,
@@ -468,7 +517,8 @@ class GridStyler(StylerBase):
             done) with the uninterrupted run's bits. A checkpoint written
             with another log_every, iteration budget or octave ladder is
             refused with ValueError. The file is removed when the frame
-            completes.
+            completes. It has the JAX package's layout
+            (``io/checkpoint.py``), so either package resumes it.
           warm: use the optim.warm_iters/warm_lr schedule; None = warm iff
             init_param is given.
           view_schedule: optional pool indices, (octave_n, iters) or
@@ -477,7 +527,10 @@ class GridStyler(StylerBase):
             (``parallel.spatial.SpaceSlabs``); ``d``, ``vels`` and
             ``init_param`` are then this rank's slabs (whole where the
             finest octave runs replicated), and so are d_star and param.
-            ``parallel.spatial.stylize_frame_spatial`` sets it up.
+            ``parallel.spatial.stylize_frame_spatial`` sets it up. Every
+            rank passes the same ``checkpoint_path``; the file holds the
+            whole volume, written by rank 0 of the space axis, so a frame
+            checkpointed on n slabs resumes on m, or unsharded.
 
         Returns:
           (d_star, param, info): stylized full-res density, final
@@ -498,8 +551,7 @@ class GridStyler(StylerBase):
             param, d_full, self._on_device(vels) if window else None,
             generator, warm, view_schedule, callback, checkpoint_path,
             space)
-        if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            os.unlink(checkpoint_path)
+        self._drop_checkpoint(checkpoint_path, space)
         info = {"octave_losses": losses}
         if self._train_tf:
             with torch.no_grad():

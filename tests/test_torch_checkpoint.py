@@ -99,11 +99,15 @@ def test_save_load_round_trip(tmp_path):
     path = str(tmp_path / "sub" / "ck.npz")
     save_checkpoint(path, tree, meta)
     assert sorted(os.listdir(tmp_path / "sub")) == ["ck.npz"]
+    # the JAX package's paths: optax's Adam state is a tuple whose entry
+    # 0 holds count (int32, 0-d), mu and nu
     with np.load(path) as z:
         assert sorted(z.files) == sorted(
             ["__meta__", "leaf:param/field", "leaf:param/tf"]
-            + [f"leaf:opt_state/{f}" + s for f in ("mu", "nu")
-               for s in ("/field", "/tf")] + ["leaf:opt_state/count"])
+            + [f"leaf:opt_state/0/{f}" + s for f in ("mu", "nu")
+               for s in ("/field", "/tf")] + ["leaf:opt_state/0/count"])
+        assert z["leaf:opt_state/0/count"].dtype == np.int32
+        assert z["leaf:opt_state/0/count"].shape == ()
     like = {"param": {"field": torch.zeros(3, 4), "tf": torch.zeros(8, 3)},
             "opt_state": Adam(0.1).init({"field": torch.zeros(3, 4),
                                          "tf": torch.zeros(8, 3)})}
@@ -114,6 +118,15 @@ def test_save_load_round_trip(tmp_path):
                  (back["opt_state"].mu, tree["opt_state"].mu),
                  (back["opt_state"].nu, tree["opt_state"].nu)):
         _assert_bits(a, b)
+    # the port's layout before the JAX paths (no "0/" under opt_state)
+    # still loads, so a frame interrupted then resumes
+    with np.load(path) as z:
+        legacy = {k.replace("opt_state/0/", "opt_state/"): z[k]
+                  for k in z.files}
+    np.savez(path, **legacy)
+    back, got_meta = load_checkpoint(path, like)
+    assert got_meta == meta and back["opt_state"].count == 7
+    _assert_bits(back["opt_state"].nu, tree["opt_state"].nu)
     # a tensor tree without meta
     save_checkpoint(path, t(5))
     got, m = load_checkpoint(path, torch.zeros(5, dtype=torch.float64))

@@ -3,7 +3,8 @@ port's package of the same name (``nfs_tpu.io`` -> ``nfs_tpu_torch.io``)
 to the port's own counterpart, and is in that package's ``__all__``:
 never a module, whatever was imported before, and for a function or a
 class, the object of the same name in the port's module that matches
-the JAX object's module.
+the JAX object's module. And a port package's ``__all__`` names nothing
+more.
 
 An ``__init__``'s exports are its ``__all__``, or, where it has none
 (``nfs_tpu/__init__.py``), the names it imports from the package and the
@@ -82,3 +83,15 @@ def test_every_export_resolves_in_the_port(init):
             home = importlib.import_module(_port_name(want.__module__))
             assert obj is getattr(home, want.__name__), (package, name)
 
+
+
+@pytest.mark.parametrize("init", INITS,
+                         ids=lambda p: str(p.parent.relative_to(ROOT.parent)))
+def test_the_port_exports_nothing_more(init):
+    """A port package's ``__all__`` names only what the JAX package's
+    ``__init__`` of the same name exports: the port's other public names
+    stay in their modules, as the JAX package keeps its own."""
+    package = ".".join(init.parent.relative_to(ROOT.parent).parts)
+    port = importlib.import_module(_port_name(package))
+    extra = set(getattr(port, "__all__", ())) - set(_exports(init))
+    assert not extra, (package, sorted(extra))

@@ -2,7 +2,8 @@
 the mesh, ``halo_exchange`` (4 gloo ranks against JAX's under
 ``shard_map`` on the conftest's virtual devices, exact), the sharded
 window step with the JAX tests' toy loss (gloo meshes against JAX on the
-same mesh shapes and against the port's own (1, 1) step), the launcher,
+same mesh shapes and against the port's own (1, 1) step), the launcher
+(a torchrun environment, or an explicit rendezvous),
 and the frame batch of the advection operators (the plain twins against
 per-frame calls, bitwise; ``AdvectWindow`` and ``advect_frames``
 gradients under a batch).
@@ -12,6 +13,7 @@ import the port only.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +32,8 @@ from nfs_tpu.parallel.mesh import mesh_shape_for as jax_mesh_shape_for
 from nfs_tpu_torch.ops import advect_kernels as ak
 from nfs_tpu_torch.ops.advect import advect, advect_frames
 from nfs_tpu_torch.parallel import (
-    halo_exchange, initialize_multihost, make_mesh, make_sharded_window_step,
-    mesh_shape_for)
+    halo_exchange, initialize_multihost, make_mesh, make_sharded_window_step)
+from nfs_tpu_torch.parallel.mesh import mesh_shape_for
 from nfs_tpu_torch.styler.octave import Adam
 from test_torch_parallel_ranks import run_ranks, toy_loss_frames
 
@@ -76,6 +78,68 @@ def test_initialize_multihost(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(KeyError):
         initialize_multihost("cpu")
+    assert not torch.distributed.is_initialized()
+
+
+_RENDEZVOUS = """
+import sys
+import torch
+import torch.distributed as dist
+from nfs_tpu_torch.parallel import initialize_multihost
+rank = int(sys.argv[2])
+world = initialize_multihost("cpu", coordinator=sys.argv[1],
+                             num_processes=2, process_id=rank)
+x = torch.tensor([rank + 1.0])
+dist.all_reduce(x)
+print(world, dist.get_rank(), dist.get_world_size(), int(x))
+dist.destroy_process_group()
+"""
+
+
+def test_initialize_multihost_explicit_rendezvous(tmp_path):
+    """coordinator "host:port", num_processes and process_id, as the JAX
+    function takes them: two gloo processes meet at a free localhost port
+    with no launcher variables set, and reduce across the pair."""
+    import socket
+    import subprocess
+    import sys
+
+    from test_torch_parallel_ranks import ROOT
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RENDEZVOUS, f"localhost:{port}", str(r)],
+        env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert out.split()[-4:] == ["2", str(r), "2", "3"], out
+
+
+@pytest.mark.parametrize("given", [
+    {"coordinator": "localhost:1"},
+    {"coordinator": "localhost:1", "num_processes": 2},
+    {"num_processes": 2, "process_id": 0},
+    {"process_id": 1},
+])
+def test_initialize_multihost_partial_arguments_raise(given):
+    """A partial rendezvous is refused before any process group forms: a
+    misconfigured launch never runs as a single process."""
+    with pytest.raises(ValueError, match="go together"):
+        initialize_multihost("cpu", **given)
     assert not torch.distributed.is_initialized()
 
 

@@ -143,7 +143,10 @@ def _spatial(job):
     with the gradients of a cotangent, each gathered whole), 'gather'
     (the gradient of ``(w * SpaceSlabs.gather(x)).sum()``, replicated and
     summed), 'frame' (``stylize_frame_spatial`` on ``spatial_mesh(n)``)
-    or 'engine' (the composed engine on ``make_mesh(*mesh)``). Each
+    'ckpt' (``stylize_frame_spatial`` with an in-frame checkpoint:
+    uninterrupted, stopped and resumed, resumed from an unsharded run's
+    file; ``_spatial_frame_ckpt``) or 'engine' (the composed engine on
+    ``make_mesh(*mesh)``). Each
     result lists the warnings the case raised; 'owns' says of the slabs a
     case holds whether each has storage of its own (``_owns``)."""
     import warnings
@@ -176,8 +179,8 @@ def _spatial_mesh_case(case):
 
 
 def _spatial_roundtrip(case):
-    from nfs_tpu_torch.parallel import gather_volume, make_mesh, \
-        shard_volume
+    from nfs_tpu_torch.parallel import make_mesh, shard_volume
+    from nfs_tpu_torch.parallel.sharding import gather_volume
 
     mesh = make_mesh(1, 4)
     d = torch.from_numpy(case["d"])
@@ -189,8 +192,8 @@ def _spatial_roundtrip(case):
 
 def _spatial_advect(case):
     from nfs_tpu_torch.ops.advect import advect
-    from nfs_tpu_torch.parallel import (
-        SpaceSlabs, gather_spatial, spatial_mesh)
+    from nfs_tpu_torch.parallel import spatial_mesh
+    from nfs_tpu_torch.parallel.spatial import SpaceSlabs, gather_spatial
 
     axis = case["axis"]
     mesh = spatial_mesh(case["n"])
@@ -208,7 +211,8 @@ def _spatial_advect(case):
 
 
 def _spatial_gather(case):
-    from nfs_tpu_torch.parallel import SpaceSlabs, spatial_mesh
+    from nfs_tpu_torch.parallel import spatial_mesh
+    from nfs_tpu_torch.parallel.spatial import SpaceSlabs
 
     x, w = (torch.from_numpy(case[k]) for k in ("x", "w"))
     space = SpaceSlabs(spatial_mesh(case["n"]), x.shape)
@@ -231,8 +235,8 @@ def _spatial_styler(case):
 
 
 def _spatial_frame(case):
-    from nfs_tpu_torch.parallel import (
-        gather_spatial, spatial_mesh, stylize_frame_spatial)
+    from nfs_tpu_torch.parallel import spatial_mesh, stylize_frame_spatial
+    from nfs_tpu_torch.parallel.spatial import gather_spatial
 
     mesh = spatial_mesh(case["n"])
     styler = _spatial_styler(case)
@@ -252,6 +256,59 @@ def _spatial_frame(case):
             "params": gather_spatial(p, mesh).numpy(),
             "losses": [l.numpy() for l in info["octave_losses"]],
             "collectives": info["collectives"]}
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def _spatial_frame_ckpt(case):
+    """``stylize_frame_spatial`` with ``checkpoint_path`` on
+    ``spatial_mesh(n)``, every run's d* and param gathered whole with its
+    losses and whether it left its file: 'full', uninterrupted; for each
+    (octave, done) of ``case['stops']``, the frame stopped by a callback
+    raising after that chunk, then resumed (rank 0 first copies the file
+    of the stop ``case['keep']`` to ``case['slab_file']``, which the test
+    resumes unsharded); 'from_unsharded', a frame resumed from
+    ``case['unsharded_file']``, which an unsharded run wrote. 'exists'
+    says, after each chunk of every run, whether the file was there."""
+    import shutil
+
+    from nfs_tpu_torch.parallel import spatial_mesh, stylize_frame_spatial
+    from nfs_tpu_torch.parallel.spatial import gather_spatial
+
+    mesh = spatial_mesh(case["n"])
+    styler = _spatial_styler(case)
+    own_file = os.path.join(case["dir"], "inframe_ckpt.npz")
+    seen = []
+
+    def run(stop=None, path=own_file):
+        def cb(done, loss, octave):
+            seen.append(os.path.exists(path))
+            if (octave, done) == stop:
+                raise _Interrupt
+        try:
+            d, p, info = stylize_frame_spatial(
+                styler, case["d"], mesh, vels=case.get("v"),
+                checkpoint_path=path, callback=cb)
+        except _Interrupt:
+            return None
+        return {"d": gather_spatial(d, mesh).numpy(),
+                "params": gather_spatial(p, mesh).numpy(),
+                "losses": [l.numpy() for l in info["octave_losses"]],
+                "left": os.path.exists(path)}
+
+    out = {"full": run()}
+    for stop in case["stops"]:
+        assert run(stop) is None
+        if stop == case["keep"]:
+            if mesh.space_idx == 0:
+                shutil.copy(own_file, case["slab_file"])
+            dist.barrier()
+        out[stop] = run()
+    out["from_unsharded"] = run(path=case["unsharded_file"])
+    out["exists"] = seen
+    return out
 
 
 def _spatial_engine(case):
@@ -283,7 +340,7 @@ def _spatial_engine(case):
 _SPATIAL_KINDS = {"mesh": _spatial_mesh_case,
                   "roundtrip": _spatial_roundtrip,
                   "advect": _spatial_advect, "gather": _spatial_gather,
-                  "frame": _spatial_frame,
+                  "frame": _spatial_frame, "ckpt": _spatial_frame_ckpt,
                   "engine": _spatial_engine}
 
 

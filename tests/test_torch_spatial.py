@@ -23,6 +23,8 @@ one thread, as the ranks do, so that bitwise comparisons see the same
 reduction order.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -65,6 +67,8 @@ BASE = {
     "optim.octave_scale": 2.0,
     "optim.iters": 3,
     "optim.lr": 0.02,
+    # chunks of 2 and 1 iterations, for the frames with a checkpoint
+    "optim.log_every": 2,
 }
 # name: (config overrides, with the W=1 window's velocities)
 FRAMES = {
@@ -74,6 +78,12 @@ FRAMES = {
     "window": ({"optim.window": 1}, True),
 }
 LOSS_RTOL, D_ATOL = 1e-5, 1e-3
+# in-frame checkpoints on slabs: the frames stopped after a chunk of
+# octave 0 (the window frame's replicated octave) and of octave 1 (sliced),
+# and resumed; the second stop's file, and an unsharded run's, change hands
+CKPT_FRAMES = ("density", "window")
+STOPS = ((0, 2), (1, 2))
+KEEP = (1, 2)
 
 
 def _blob(shape):
@@ -134,6 +144,15 @@ def ranks(vgg_path, tmp_path_factory):
         cases[name] = {"kind": "frame", "n": N, "d": _blob(SHAPE),
                        "v": _vels() if window else None,
                        "over": _over(vgg_path, name), "style": STYLE}
+    files = tmp_path_factory.mktemp("ckpt")
+    for name in CKPT_FRAMES:
+        unsharded = str(files / f"{name}_unsharded.npz")
+        _unsharded_ckpt_run(vgg_path, name, unsharded, stop=KEEP)
+        cases[f"ckpt_{name}"] = dict(
+            cases[name], kind="ckpt", stops=STOPS, keep=KEEP,
+            dir=str(tmp_path_factory.mktemp(f"ckpt_{name}")),
+            slab_file=str(files / f"{name}_slabs.npz"),
+            unsharded_file=unsharded)
     out = run_ranks("spatial", {"cases": list(cases.values())}, N,
                     tmp_path_factory.mktemp("spatial"))
     return {name: (case, [r[i] for r in out])
@@ -141,6 +160,34 @@ def ranks(vgg_path, tmp_path_factory):
 
 
 _UNSHARDED = {}
+
+
+class Interrupt(Exception):
+    pass
+
+
+def _unsharded_ckpt_run(vgg_path, name, path, stop=None):
+    """The port's unsharded frame with an in-frame checkpoint at
+    ``path``, in one thread as the ranks run: stopped by a callback after
+    the chunk ``stop`` (its file kept), or run to the end (resuming the
+    file there) and returned as (d*, param, losses)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+
+    def cb(done, loss, octave):
+        if (octave, done) == stop:
+            raise Interrupt
+    try:
+        styler = GridStyler(replace(StyleConfig(), **_over(vgg_path, name)),
+                            style_image=STYLE, device="cpu")
+        vels = _vels() if FRAMES[name][1] else None
+        d, p, info = styler.stylize_frame(_blob(SHAPE), vels=vels,
+                                          checkpoint_path=path, callback=cb)
+    except Interrupt:
+        return None
+    finally:
+        torch.set_num_threads(threads)
+    return (d.numpy(), p.numpy(), [l.numpy() for l in info["octave_losses"]])
 
 
 def _port_unsharded(vgg_path, name):
@@ -430,3 +477,90 @@ def test_thin_octave_runs_replicated(ranks):
     with pytest.warns(UserWarning, match="divisible by the space mesh"):
         assert not space.sharded((12, 10, 12), warn=True)
     assert space.sharded(SHAPE) and not space.sharded((6, 8, 6))
+
+
+# ------------------------------------------------------------------ #
+# in-frame checkpoints on a space mesh
+# ------------------------------------------------------------------ #
+
+def _tail(losses, n):
+    return np.concatenate(losses)[-n:]
+
+
+def _assert_resumed(got, want, bitwise):
+    """A resumed frame against an uninterrupted one: d*, param and the
+    losses of the iterations it ran, bitwise or within the sharded
+    parity tolerances."""
+    ran = sum(len(l) for l in got["losses"])
+    if bitwise:
+        np.testing.assert_array_equal(got["d"], want[0])
+        np.testing.assert_array_equal(got["params"], want[1])
+        np.testing.assert_array_equal(_tail(got["losses"], ran),
+                                      _tail(want[2], ran))
+    else:
+        _close({"d": got["d"], "params": got["params"],
+                "losses": [_tail(got["losses"], ran)]},
+               (want[0], want[1], [_tail(want[2], ran)]))
+
+
+def _as_run(r):
+    return r["d"], r["params"], r["losses"]
+
+
+@pytest.mark.parametrize("stop", STOPS, ids=lambda s: f"octave{s[0]}")
+@pytest.mark.parametrize("name", CKPT_FRAMES)
+def test_sharded_resume_is_bitwise(ranks, name, stop):
+    """A frame on 4 slabs stopped after a chunk of octave 0 or 1 and
+    resumed from its whole-volume file is the uninterrupted checkpointed
+    sharded run, bit for bit, on every rank; the resumed run ran only the
+    iterations after the stop; the checkpointed run is the sharded run
+    without a checkpoint (d*, param)."""
+    _, results = ranks[f"ckpt_{name}"]
+    plain = ranks[name][1][0]
+    for r in results:
+        _assert_resumed(r[stop], _as_run(r["full"]), bitwise=True)
+        assert sum(len(l) for l in r[stop]["losses"]) == (
+            2 * BASE["optim.iters"] - stop[0] * BASE["optim.iters"]
+            - stop[1])
+    np.testing.assert_array_equal(results[0]["full"]["d"], plain["d"])
+    np.testing.assert_array_equal(results[0]["full"]["params"],
+                                  plain["params"])
+
+
+@pytest.mark.parametrize("way", ["slabs_to_unsharded",
+                                 "unsharded_to_slabs"])
+@pytest.mark.parametrize("name", CKPT_FRAMES)
+def test_checkpoint_moves_between_slabs_and_none(ranks, vgg_path, name,
+                                                 way):
+    """A file written on 4 slabs (after octave 1's first chunk) resumes
+    unsharded, and one written unsharded resumes on 4 slabs: the file
+    holds the whole volume either way. Each lands within the sharded
+    parity tolerances of the uninterrupted run where it resumes, and
+    bitwise for the density frame (sharded is bitwise unsharded there)."""
+    case, results = ranks[f"ckpt_{name}"]
+    if way == "slabs_to_unsharded":
+        got = _unsharded_ckpt_run(vgg_path, name, case["slab_file"])
+        got = {"d": got[0], "params": got[1], "losses": got[2]}
+        want = _port_unsharded(vgg_path, name)
+        assert not os.path.exists(case["slab_file"])
+    else:
+        _same_on_every_rank([r["from_unsharded"] for r in results])
+        got, want = results[0]["from_unsharded"], _as_run(
+            results[0]["full"])
+    assert sum(len(l) for l in got["losses"]) == BASE["optim.iters"] - 2
+    _assert_resumed(got, want, bitwise=name == "density")
+
+
+@pytest.mark.parametrize("name", CKPT_FRAMES)
+def test_one_checkpoint_file_per_chunk(ranks, name):
+    """After every chunk of every checkpointed run the file is there on
+    every rank (rank 0 wrote it before the ranks met); no completed run
+    leaves it, on any rank; no rank raised (run_ranks checks)."""
+    case, results = ranks[f"ckpt_{name}"]
+    chunks = 2 * len(range(0, BASE["optim.iters"], BASE["optim.log_every"]))
+    for r in results:
+        assert all(r["exists"]) and len(r["exists"]) >= 2 * chunks
+        for run in ["full", "from_unsharded", *STOPS]:
+            assert not r[run]["left"]
+    assert not os.listdir(case["dir"])
+    assert not os.path.exists(case["unsharded_file"])
