@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from nfs_tpu_torch.ops.advect_kernels import AdvectWindow
 from nfs_tpu_torch.ops.interp import grid_sample, identity_coords
 from nfs_tpu_torch.ops.jaxgrad import jax_clip, jax_tent
+from nfs_tpu_torch.utils.profiling import span
 
 _IMPLS = ("auto", "xla", "pallas")
 
@@ -147,18 +148,20 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
     """
     if impl not in _IMPLS:
         raise ValueError(f"unknown advect impl {impl!r}")
-    if max_disp is None:
-        out = grid_sample(field, _backtrace(vel, dt, field.device),
-                          mode=mode)
-        return out.to(field.dtype)
-    if impl == "xla":
-        return _advect_window_taps(field, vel, dt, mode, max_disp, origin)
-    if impl == "pallas" and not (
-            field.ndim == 3 and mode == "clamp"
-            and tuple(vel.shape) == tuple(field.shape) + (3,)):
-        raise ValueError(
-            "impl='pallas' supports 3D scalar clamp-mode fields")
-    return _advect_window(field, vel, dt, mode, max_disp, origin=origin)
+    with span("nfs.transport"):
+        if max_disp is None:
+            out = grid_sample(field, _backtrace(vel, dt, field.device),
+                              mode=mode)
+            return out.to(field.dtype)
+        if impl == "xla":
+            return _advect_window_taps(field, vel, dt, mode, max_disp,
+                                       origin)
+        if impl == "pallas" and not (
+                field.ndim == 3 and mode == "clamp"
+                and tuple(vel.shape) == tuple(field.shape) + (3,)):
+            raise ValueError(
+                "impl='pallas' supports 3D scalar clamp-mode fields")
+        return _advect_window(field, vel, dt, mode, max_disp, origin=origin)
 
 
 def advect_frames(fields: torch.Tensor, vels: torch.Tensor, dt: float = 1.0,
@@ -178,8 +181,9 @@ def advect_frames(fields: torch.Tensor, vels: torch.Tensor, dt: float = 1.0,
                 and tuple(vels.shape) == tuple(fields.shape) + (3,))):
         return torch.stack([advect(f, v, dt, mode, max_disp, impl, origin)
                             for f, v in zip(fields, vels)])
-    return _advect_window(fields, vels, dt, mode, max_disp, batched=True,
-                          origin=origin)
+    with span("nfs.transport"):
+        return _advect_window(fields, vels, dt, mode, max_disp,
+                              batched=True, origin=origin)
 
 
 def _backtrace(vel: torch.Tensor, dt: float, device) -> torch.Tensor:
@@ -219,27 +223,29 @@ def advect_maccormack(field: torch.Tensor, vel: torch.Tensor,
     clip is ``minimum(maximum(out, mins), maxs)``, whose gradient splits
     0.5/0.5 at a tie as ``jnp.clip``'s does; through the gathered corners
     part of it reaches ``field``."""
-    ndim = vel.shape[-1]
-    if max_disp is not None:
-        fwd = _advect_window(field, vel, dt, mode, max_disp)
-        bwd = _advect_window(fwd, vel, -dt, mode, max_disp)
-        mins, maxs = _pool_minmax(field, int(math.ceil(max_disp)) + 1,
-                                  spatial_ndim=ndim)
-    else:
-        coords = _backtrace(vel, dt, field.device)
-        fwd = grid_sample(field, coords, mode=mode)
-        bwd = grid_sample(fwd, _backtrace(vel, -dt, field.device),
-                          mode=mode)
-        lo = torch.floor(coords).long()
-        spatial = tuple(vel.shape[:-1])
-        mins = maxs = None
-        for corner in itertools.product((0, 1), repeat=ndim):
-            v = field[tuple((lo[..., d] + corner[d]).clamp(0, spatial[d] - 1)
-                            for d in range(ndim))]
-            mins = v if mins is None else torch.minimum(mins, v)
-            maxs = v if maxs is None else torch.maximum(maxs, v)
-    out = fwd + 0.5 * (field - bwd)
-    return torch.minimum(torch.maximum(out, mins), maxs)
+    with span("nfs.transport"):
+        ndim = vel.shape[-1]
+        if max_disp is not None:
+            fwd = _advect_window(field, vel, dt, mode, max_disp)
+            bwd = _advect_window(fwd, vel, -dt, mode, max_disp)
+            mins, maxs = _pool_minmax(field, int(math.ceil(max_disp)) + 1,
+                                      spatial_ndim=ndim)
+        else:
+            coords = _backtrace(vel, dt, field.device)
+            fwd = grid_sample(field, coords, mode=mode)
+            bwd = grid_sample(fwd, _backtrace(vel, -dt, field.device),
+                              mode=mode)
+            lo = torch.floor(coords).long()
+            spatial = tuple(vel.shape[:-1])
+            mins = maxs = None
+            for corner in itertools.product((0, 1), repeat=ndim):
+                v = field[tuple(
+                    (lo[..., d] + corner[d]).clamp(0, spatial[d] - 1)
+                    for d in range(ndim))]
+                mins = v if mins is None else torch.minimum(mins, v)
+                maxs = v if maxs is None else torch.maximum(maxs, v)
+        out = fwd + 0.5 * (field - bwd)
+        return torch.minimum(torch.maximum(out, mins), maxs)
 
 
 def advect_chain(field: torch.Tensor, vels: torch.Tensor, dt: float = 1.0,

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from nfs_tpu_torch.ops.splat import _kernel_weight_1d
+from nfs_tpu_torch.utils.profiling import span
 
 PAD = 2  # bin-domain padding (cells per side) for boundary-tap fidelity
 
@@ -150,37 +151,38 @@ def bin_particles(p: torch.Tensor, shape: Tuple[int, ...], K: int,
     ``capacity`` (B,) gives each keyframe its own capacity (at most K):
     keyframe b parks the particles of rank >= capacity[b], as a single
     binning with K = capacity[b] parks them, in the layout of K ranks."""
-    p = p.detach()
-    batched = p.ndim == 3
-    pb = p if batched else p[None]
-    B, n = pb.shape[0], pb.shape[1]
-    n_cells = math.prod(padded_shape(shape))
-    n_slots = n_cells * K
-    dev = p.device
-    flat = _flat_base(pb.reshape(B * n, pb.shape[-1]), shape, kernel)
-    kf = torch.arange(B, device=dev).repeat_interleave(n)
-    key_s, order = torch.sort(flat + kf * n_cells, stable=True)
-    flat_s = key_s - kf * n_cells        # sorted by keyframe, then cell
-    ar = torch.arange(B * n, device=dev)
-    new_seg = torch.ones(B * n, dtype=torch.bool, device=dev)
-    new_seg[1:] = key_s[1:] != key_s[:-1]
-    seg_start = torch.cummax(torch.where(new_seg, ar, 0), dim=0).values
-    rank = ar - seg_start
-    ok = rank < (K if capacity is None
-                 else capacity.to(device=dev, dtype=torch.long)[kf])
-    slot_sorted = torch.where(ok, rank.clamp(max=K - 1) * n_cells + flat_s,
-                              n_slots + order - kf * n)   # park overflow
-    slot = torch.empty_like(slot_sorted)
-    slot[order] = slot_sorted                       # canonical order
-    valid = torch.zeros((B, n_slots + 1), dtype=torch.bool, device=dev)
-    valid.view(-1)[kf * (n_slots + 1) + torch.where(ok, slot_sorted,
-                                                    n_slots)] = True
-    n_over = (~ok).view(B, n).sum(dim=1)
-    if batched:
-        return Binning(slot=slot.view(B, n), valid=valid[:, :n_slots],
-                       n_overflow=n_over)
-    return Binning(slot=slot, valid=valid[0, :n_slots],
-                   n_overflow=n_over[0])
+    with span("nfs.splat"):
+        p = p.detach()
+        batched = p.ndim == 3
+        pb = p if batched else p[None]
+        B, n = pb.shape[0], pb.shape[1]
+        n_cells = math.prod(padded_shape(shape))
+        n_slots = n_cells * K
+        dev = p.device
+        flat = _flat_base(pb.reshape(B * n, pb.shape[-1]), shape, kernel)
+        kf = torch.arange(B, device=dev).repeat_interleave(n)
+        key_s, order = torch.sort(flat + kf * n_cells, stable=True)
+        flat_s = key_s - kf * n_cells        # sorted by keyframe, then cell
+        ar = torch.arange(B * n, device=dev)
+        new_seg = torch.ones(B * n, dtype=torch.bool, device=dev)
+        new_seg[1:] = key_s[1:] != key_s[:-1]
+        seg_start = torch.cummax(torch.where(new_seg, ar, 0), dim=0).values
+        rank = ar - seg_start
+        ok = rank < (K if capacity is None
+                     else capacity.to(device=dev, dtype=torch.long)[kf])
+        slot_sorted = torch.where(ok, rank.clamp(max=K - 1) * n_cells + flat_s,
+                                  n_slots + order - kf * n)   # park overflow
+        slot = torch.empty_like(slot_sorted)
+        slot[order] = slot_sorted                       # canonical order
+        valid = torch.zeros((B, n_slots + 1), dtype=torch.bool, device=dev)
+        valid.view(-1)[kf * (n_slots + 1) + torch.where(ok, slot_sorted,
+                                                        n_slots)] = True
+        n_over = (~ok).view(B, n).sum(dim=1)
+        if batched:
+            return Binning(slot=slot.view(B, n), valid=valid[:, :n_slots],
+                           n_overflow=n_over)
+        return Binning(slot=slot, valid=valid[0, :n_slots],
+                       n_overflow=n_over[0])
 
 
 def to_binned(binning: Binning, arr: torch.Tensor) -> torch.Tensor:
@@ -250,41 +252,42 @@ def splat_binned(p_b: torch.Tensor, attr_b: torch.Tensor,
     Returns: (*shape,) or (*shape, C) grid == the flat splat with the same
     kernel at support 1.
     """
-    T = n_taps(kernel)
-    ndim = len(shape)
-    pshape = padded_shape(shape)
-    batched = valid.ndim == 2
-    if not batched:
-        p_b, attr_b, valid = p_b[None], attr_b[None], valid[None]
-    B = p_b.shape[0]
-    has_c = attr_b.ndim == 3
-    if not has_c:
-        attr_b = attr_b[:, None]
-    C = attr_b.shape[1]
-    n_slots = math.prod(pshape) * K
+    with span("nfs.splat"):
+        T = n_taps(kernel)
+        ndim = len(shape)
+        pshape = padded_shape(shape)
+        batched = valid.ndim == 2
+        if not batched:
+            p_b, attr_b, valid = p_b[None], attr_b[None], valid[None]
+        B = p_b.shape[0]
+        has_c = attr_b.ndim == 3
+        if not has_c:
+            attr_b = attr_b[:, None]
+        C = attr_b.shape[1]
+        n_slots = math.prod(pshape) * K
 
-    a = torch.where(valid[:, None], attr_b[..., :n_slots], 0.0).reshape(
-        (B, C, K) + pshape)
-    # offset of each particle from its binned base cell, whose coordinate
-    # is the slot's own index in the dense array
-    frac = []
-    for d in range(ndim):
-        coord = torch.arange(pshape[d], dtype=torch.float32,
-                             device=p_b.device).reshape(
-            (pshape[d],) + (1,) * (ndim - 1 - d))
-        frac.append(p_b[:, d, :n_slots].reshape((B, K) + pshape)
-                    + float(PAD) - coord)
-    # factorized per-axis weights, shared by all T^ndim taps
-    W = [[_kernel_weight_1d(float(o) - frac[d], kernel) for o in range(T)]
-         for d in range(ndim)]
-    out = torch.zeros((B, C) + pshape, dtype=a.dtype, device=a.device)
-    for off in itertools.product(range(T), repeat=ndim):
-        w = W[0][off[0]]
-        for d in range(1, ndim):
-            w = w * W[d][off[d]]
-        contrib = (w[:, None] * a).sum(dim=2)       # contract over K
-        out = out + _shift_into(contrib, off, pshape)
-    out = out[(slice(None), slice(None)) + tuple(
-        slice(PAD, PAD + shape[d]) for d in range(ndim))]
-    out = torch.movedim(out, 1, -1) if has_c else out[:, 0]
-    return out if batched else out[0]
+        a = torch.where(valid[:, None], attr_b[..., :n_slots], 0.0).reshape(
+            (B, C, K) + pshape)
+        # offset of each particle from its binned base cell, whose coordinate
+        # is the slot's own index in the dense array
+        frac = []
+        for d in range(ndim):
+            coord = torch.arange(pshape[d], dtype=torch.float32,
+                                 device=p_b.device).reshape(
+                (pshape[d],) + (1,) * (ndim - 1 - d))
+            frac.append(p_b[:, d, :n_slots].reshape((B, K) + pshape)
+                        + float(PAD) - coord)
+        # factorized per-axis weights, shared by all T^ndim taps
+        W = [[_kernel_weight_1d(float(o) - frac[d], kernel) for o in range(T)]
+             for d in range(ndim)]
+        out = torch.zeros((B, C) + pshape, dtype=a.dtype, device=a.device)
+        for off in itertools.product(range(T), repeat=ndim):
+            w = W[0][off[0]]
+            for d in range(1, ndim):
+                w = w * W[d][off[d]]
+            contrib = (w[:, None] * a).sum(dim=2)       # contract over K
+            out = out + _shift_into(contrib, off, pshape)
+        out = out[(slice(None), slice(None)) + tuple(
+            slice(PAD, PAD + shape[d]) for d in range(ndim))]
+        out = torch.movedim(out, 1, -1) if has_c else out[:, 0]
+        return out if batched else out[0]

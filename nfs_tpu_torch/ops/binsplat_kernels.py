@@ -57,6 +57,7 @@ import torch
 
 from nfs_tpu_torch.ops import _cuda_build
 from nfs_tpu_torch.ops.binsplat import PAD, padded_shape
+from nfs_tpu_torch.utils.profiling import span
 
 # Launch counts of the CUDA kernels; each wrapper adds one where it
 # launches, and nowhere else.
@@ -224,16 +225,17 @@ def splat_binned_window(p_b: torch.Tensor, attr_b: torch.Tensor,
     attributes and (B, n_slots) ``valid`` give (B, Z, Y, X) in one launch
     of each kernel. Differentiable in ``p_b`` and ``attr_b``; parked and
     empty slots get exactly zero gradient."""
-    lead = valid.ndim - 1
-    if len(shape) != 3 or attr_b.ndim != 1 + lead:
-        raise ValueError("splat_binned_window takes 3D grids and a "
-                         "single-channel attribute; use splat_binned for "
-                         "2D grids or channels")
-    pshape = padded_shape(shape)
-    n_slots = math.prod(pshape) * K
-    bins = attr_b.shape[:lead] + (K,) + pshape
-    a4 = torch.where(valid, attr_b[..., :n_slots], 0.0).view(bins)
-    p4 = [p_b[..., d, :n_slots].reshape(bins) for d in range(3)]
-    out = BinWindow.apply(a4, *p4)
-    Z, Y, X = shape
-    return out[..., PAD:PAD + Z, PAD:PAD + Y, PAD:PAD + X]
+    with span("nfs.splat"):
+        lead = valid.ndim - 1
+        if len(shape) != 3 or attr_b.ndim != 1 + lead:
+            raise ValueError("splat_binned_window takes 3D grids and a "
+                             "single-channel attribute; use splat_binned for "
+                             "2D grids or channels")
+        pshape = padded_shape(shape)
+        n_slots = math.prod(pshape) * K
+        bins = attr_b.shape[:lead] + (K,) + pshape
+        a4 = torch.where(valid, attr_b[..., :n_slots], 0.0).view(bins)
+        p4 = [p_b[..., d, :n_slots].reshape(bins) for d in range(3)]
+        out = BinWindow.apply(a4, *p4)
+        Z, Y, X = shape
+        return out[..., PAD:PAD + Z, PAD:PAD + Y, PAD:PAD + X]

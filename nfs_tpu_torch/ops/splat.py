@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from nfs_tpu_torch.ops.jaxgrad import jax_tent
+from nfs_tpu_torch.utils.profiling import span
 
 
 def _kernel_weight_1d(u: torch.Tensor, kernel: str) -> torch.Tensor:
@@ -66,32 +67,33 @@ def splat(x: torch.Tensor, attr: torch.Tensor, shape: Tuple[int, ...],
     Returns:
       (*shape,) or (*shape, C) grid; taps outside the grid are dropped.
     """
-    ndim = x.shape[-1]
-    assert len(shape) == ndim
-    has_channels = attr.ndim == 2
-    xf = x.to(torch.float32)
-    base, lo, taps = _base_and_stencil(xf, kernel, support)
-    n_cells = math.prod(shape)
-    inv_s = 1.0 / support
-    n = x.shape[0]
-    flat_idxs, flat_vals = [], []
-    for offsets in itertools.product(range(lo, lo + taps), repeat=ndim):
-        w = torch.ones(n, dtype=attr.dtype, device=x.device)
-        flat = torch.zeros(n, dtype=torch.long, device=x.device)
-        ok = torch.ones(n, dtype=torch.bool, device=x.device)
-        for d in range(ndim):
-            node = base[:, d] + offsets[d]
-            u = (node.to(torch.float32) - xf[:, d]) * inv_s
-            w = w * (_kernel_weight_1d(u, kernel) * inv_s).to(attr.dtype)
-            ok = ok & (node >= 0) & (node < shape[d])
-            flat = flat * shape[d] + node.clamp(0, shape[d] - 1)
-        flat_idxs.append(torch.where(ok, flat, n_cells))  # sentinel row
-        flat_vals.append(w[:, None] * attr if has_channels else w * attr)
-    chans = (attr.shape[-1],) if has_channels else ()
-    grid = torch.zeros((n_cells + 1,) + chans, dtype=attr.dtype,
-                       device=x.device)
-    grid = grid.index_add(0, torch.cat(flat_idxs), torch.cat(flat_vals))
-    return grid[:n_cells].reshape(tuple(shape) + chans)
+    with span("nfs.splat"):
+        ndim = x.shape[-1]
+        assert len(shape) == ndim
+        has_channels = attr.ndim == 2
+        xf = x.to(torch.float32)
+        base, lo, taps = _base_and_stencil(xf, kernel, support)
+        n_cells = math.prod(shape)
+        inv_s = 1.0 / support
+        n = x.shape[0]
+        flat_idxs, flat_vals = [], []
+        for offsets in itertools.product(range(lo, lo + taps), repeat=ndim):
+            w = torch.ones(n, dtype=attr.dtype, device=x.device)
+            flat = torch.zeros(n, dtype=torch.long, device=x.device)
+            ok = torch.ones(n, dtype=torch.bool, device=x.device)
+            for d in range(ndim):
+                node = base[:, d] + offsets[d]
+                u = (node.to(torch.float32) - xf[:, d]) * inv_s
+                w = w * (_kernel_weight_1d(u, kernel) * inv_s).to(attr.dtype)
+                ok = ok & (node >= 0) & (node < shape[d])
+                flat = flat * shape[d] + node.clamp(0, shape[d] - 1)
+            flat_idxs.append(torch.where(ok, flat, n_cells))  # sentinel row
+            flat_vals.append(w[:, None] * attr if has_channels else w * attr)
+        chans = (attr.shape[-1],) if has_channels else ()
+        grid = torch.zeros((n_cells + 1,) + chans, dtype=attr.dtype,
+                           device=x.device)
+        grid = grid.index_add(0, torch.cat(flat_idxs), torch.cat(flat_vals))
+        return grid[:n_cells].reshape(tuple(shape) + chans)
 
 
 def splat_normalized(x: torch.Tensor, attr: torch.Tensor,

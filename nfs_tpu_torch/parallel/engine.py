@@ -48,6 +48,7 @@ from nfs_tpu_torch.parallel.spatial import SpaceSlabs, halo_rows
 from nfs_tpu_torch.render.camera import poisson_view_pool
 from nfs_tpu_torch.render.raymarch import render2d, render_views_batch
 from nfs_tpu_torch.styler.grid import GridStyler
+from nfs_tpu_torch.utils.profiling import span
 
 
 class ParallelSequenceStyler:
@@ -255,6 +256,12 @@ class ParallelSequenceStyler:
           loss over all (padded) frames}; ``last_collectives`` counts the
           collectives this call issued.
         """
+        with span("nfs.job", {"frames": len(densities)}):
+            return self._stylize(densities, velocities, seed, view_schedule,
+                                 callback)
+
+    def _stylize(self, densities, velocities, seed, view_schedule,
+                 callback):
         cfg, styler, mesh = self.cfg, self.styler, self.mesh
         oc = cfg.optim
         seed = cfg.seed if seed is None else seed
@@ -298,39 +305,43 @@ class ParallelSequenceStyler:
                    "content": styler.content_feats}
             prev = spatial      # the octave shape of params
             for o, shape in enumerate(shapes):
-                shape = tuple(shape)
-                params = space.resize(
-                    params, prev, shape,
-                    lambda p, _s=shape: resize_frames(p, _s, is_vel))
-                prev = shape
-                d_o = space.resize(d_full, spatial, shape,
-                                   lambda x, _s=shape: resize_frames(x, _s))
-                vels_o = (space.resize(
-                    vels_full, spatial, shape,
-                    lambda v, _s=shape: resize_frames(v, _s, True))
-                    if window else None)
-                render_size = styler._octave_render_size(shape, spatial)
-                loss = self._loss_frames(
-                    ndim, window, render_size,
-                    space.octave(shape, warn=True, label=1 + space.axis))
-                opt_state = styler._optimizer.init(params)
-                chunk = oc.log_every if callback is not None else oc.iters
-                done, octave_losses = 0, []
-                while done < oc.iters:
-                    n_it = min(chunk, oc.iters - done)
-                    step = make_sharded_window_step(
-                        mesh, loss, styler._optimizer, window=window,
-                        n_views=nv_pad, n_iters=n_it)
-                    params, opt_state, losses = step(
-                        params, opt_state, d_o, vels_o, pool,
-                        None if draws is None else draws[:, o], aux, done)
-                    for k, c in step.collectives.items():
-                        counts[k] += c
-                    octave_losses.append(losses)
-                    done += n_it
-                    if callback is not None:
-                        callback(done, float(losses[-1]), octave=o)
-                losses_by_octave.append(torch.cat(octave_losses))
+                with span("nfs.octave"):
+                    shape = tuple(shape)
+                    params = space.resize(
+                        params, prev, shape,
+                        lambda p, _s=shape: resize_frames(p, _s, is_vel))
+                    prev = shape
+                    d_o = space.resize(
+                        d_full, spatial, shape,
+                        lambda x, _s=shape: resize_frames(x, _s))
+                    vels_o = (space.resize(
+                        vels_full, spatial, shape,
+                        lambda v, _s=shape: resize_frames(v, _s, True))
+                        if window else None)
+                    render_size = styler._octave_render_size(shape, spatial)
+                    loss = self._loss_frames(
+                        ndim, window, render_size,
+                        space.octave(shape, warn=True, label=1 + space.axis))
+                    opt_state = styler._optimizer.init(params)
+                    chunk = oc.log_every if callback is not None else oc.iters
+                    done, octave_losses = 0, []
+                    while done < oc.iters:
+                        n_it = min(chunk, oc.iters - done)
+                        step = make_sharded_window_step(
+                            mesh, loss, styler._optimizer, window=window,
+                            n_views=nv_pad, n_iters=n_it)
+                        params, opt_state, losses = step(
+                            params, opt_state, d_o, vels_o, pool,
+                            None if draws is None else draws[:, o], aux, done)
+                        for k, c in step.collectives.items():
+                            counts[k] += c
+                        octave_losses.append(losses)
+                        done += n_it
+                        if callback is not None:
+                            with span("nfs.readback"):
+                                last = float(losses[-1])
+                            callback(done, last, octave=o)
+                    losses_by_octave.append(torch.cat(octave_losses))
             with torch.no_grad():
                 d_star = torch.clamp(
                     self._apply_params(params, d_full, full), min=0.0)

@@ -52,6 +52,7 @@ from nfs_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape_for
 from nfs_tpu_torch.parallel.sharding import _new_counts
 from nfs_tpu_torch.styler.particle import (
     ParticleStyler, _octave_max_counts, interp_sequence, keyframe_indices)
+from nfs_tpu_torch.utils.profiling import span
 
 
 def keyframe_generator(seed: int, kf: int) -> torch.Generator:
@@ -90,12 +91,15 @@ class ParallelKeyframeStyler:
         a particle-path octave of some keyframe cannot run binned (the
         reference's fallback rule)."""
         styler, pc = self.styler, self.cfg.particle
-        with torch.no_grad():
-            kmax = _octave_max_counts(
-                x_all, tuple(tuple(s) for s in shapes),
-                float(styler.grid_shape[0]), kernel=pc.kernel).cpu().numpy()
-        plan = [styler._octave_ks(x, None, shapes, kmaxes=k, margin=2)
-                for x, k in zip(x_all, kmax)]
+        with span("nfs.bin_plan"):
+            with torch.no_grad():
+                kmax = _octave_max_counts(
+                    x_all, tuple(tuple(s) for s in shapes),
+                    float(styler.grid_shape[0]), kernel=pc.kernel)
+            with span("nfs.readback"):
+                kmax = kmax.cpu().numpy()
+            plan = [styler._octave_ks(x, None, shapes, kmaxes=k, margin=2)
+                    for x, k in zip(x_all, kmax)]
         if any(ks is None or any(ks[o] is None for o in particle_octaves)
                for ks in plan):
             return None
@@ -185,44 +189,48 @@ class ParallelKeyframeStyler:
             self.last_keyframe_infos = styler.last_keyframe_infos
             return
 
-        shards = mesh.shape["frames"]
-        L = -(-B // shards)
-        template = styler.init_param(psets[keyframes[0]])
-        if mesh.has_shard:
-            # this rank's keyframes; the padding repeats the last one
-            local = [min(mesh.frame_idx * L + j, B - 1) for j in range(L)]
-            packed = self._run_local(psets, keyframes, local, x_all[local],
-                                     [plan[i] for i in local], seed,
-                                     view_schedule, callback)
-            if mesh.distributed:
-                parts = [torch.empty_like(packed) for _ in range(shards)]
-                dist.all_gather(parts, packed.contiguous(),
-                                group=mesh.frames_group)
-                counts["all_gather"] += 1
-                packed = torch.cat(parts)
-            packed = packed[:B]
-        else:
-            m = (sum(math.prod(v.shape) for v in template.values())
-                 + len(shapes) * (oc.iters + 1))
-            packed = torch.empty((B, m), device=styler.device)
-        if mesh.distributed and mesh.world > shards * mesh.shape["views"]:
-            # the ranks past the mesh receive rank 0's result
-            dist.broadcast(packed, src=0)
-            counts["broadcast"] += 1
-        params, losses, over = self._unpack(
-            packed, {k: v[None] for k, v in template.items()}, len(shapes))
+        with span("nfs.job",
+                  {"keyframes": f"{keyframes[0]}-{keyframes[-1]}"}):
+            shards = mesh.shape["frames"]
+            L = -(-B // shards)
+            template = styler.init_param(psets[keyframes[0]])
+            if mesh.has_shard:
+                # this rank's keyframes; the padding repeats the last one
+                local = [min(mesh.frame_idx * L + j, B - 1) for j in range(L)]
+                packed = self._run_local(psets, keyframes, local, x_all[local],
+                                         [plan[i] for i in local], seed,
+                                         view_schedule, callback)
+                if mesh.distributed:
+                    parts = [torch.empty_like(packed) for _ in range(shards)]
+                    dist.all_gather(parts, packed.contiguous(),
+                                    group=mesh.frames_group)
+                    counts["all_gather"] += 1
+                    packed = torch.cat(parts)
+                packed = packed[:B]
+            else:
+                m = (sum(math.prod(v.shape) for v in template.values())
+                     + len(shapes) * (oc.iters + 1))
+                packed = torch.empty((B, m), device=styler.device)
+            if mesh.distributed and mesh.world > shards * mesh.shape["views"]:
+                # the ranks past the mesh receive rank 0's result
+                dist.broadcast(packed, src=0)
+                counts["broadcast"] += 1
+            params, losses, over = self._unpack(
+                packed, {k: v[None] for k, v in template.items()}, len(shapes))
 
-        over_np = over.cpu().numpy()                 # (B, octaves)
-        over_thresh = 4 * (int(pc.k_budget * n) if pc.k_budget else 0)
-        if over_np.max() > over_thresh:
-            warnings.warn(
-                f"binned splat parked up to {int(over_np.max())} overflow "
-                f"particles on some keyframes (per octave max over "
-                f"keyframes: {over_np.max(axis=0).tolist()})", stacklevel=2)
-        self.last_keyframe_infos = {
-            kf: {"octave_losses": list(losses[i].unbind(0)),
-                 "octave_overflow": over_np[i].tolist()}
-            for i, kf in enumerate(keyframes)}
+            with span("nfs.readback"):
+                over_np = over.cpu().numpy()             # (B, octaves)
+            over_thresh = 4 * (int(pc.k_budget * n) if pc.k_budget else 0)
+            if over_np.max() > over_thresh:
+                warnings.warn(
+                    f"binned splat parked up to {int(over_np.max())} overflow "
+                    f"particles on some keyframes (per octave max over "
+                    f"keyframes: {over_np.max(axis=0).tolist()})",
+                    stacklevel=2)
+            self.last_keyframe_infos = {
+                kf: {"octave_losses": list(losses[i].unbind(0)),
+                     "octave_overflow": over_np[i].tolist()}
+                for i, kf in enumerate(keyframes)}
         yield from interp_sequence(
             psets, keyframes,
             {kf: {k: v[i] for k, v in params.items()}

@@ -53,6 +53,7 @@ import torch.distributed as dist
 
 from nfs_tpu_torch.parallel.mesh import Mesh
 from nfs_tpu_torch.styler.octave import Adam, value_and_grad
+from nfs_tpu_torch.utils.profiling import span
 
 COLLECTIVES = ("all_reduce", "send", "recv", "all_gather", "broadcast")
 
@@ -192,22 +193,25 @@ def make_sharded_window_step(mesh: Mesh, loss_frames: Callable,
         v0 = mesh.view_idx * nv_local
         losses = []
         for i in range(n_iters):
-            views = None
-            if pool is not None:
-                views = pool[view_idx[:, it0 + i]][:, v0:v0 + nv_local]
-            loss, grad = value_and_grad(
-                lambda p: loss_frames(p, d, vels_pad, views, aux), params)
-            if mesh.distributed:
-                # the views ranks' partial gradients and losses, summed
-                # in one buffer
-                buf = torch.cat([grad.reshape(-1),
-                                 loss.detach().reshape(1).to(grad.dtype)])
-                dist.all_reduce(buf, group=mesh.views_group)
-                counts["all_reduce"] += 1
-                grad, loss = buf[:-1].view_as(grad), buf[-1]
-            updates, opt_state = optimizer.update(grad, opt_state)
-            params = (params + updates).detach()
-            losses.append(loss.detach().to(torch.float32).reshape(()))
+            with span("nfs.iter"):
+                views = None
+                if pool is not None:
+                    views = pool[view_idx[:, it0 + i]][:, v0:v0 + nv_local]
+                loss, grad = value_and_grad(
+                    lambda p: loss_frames(p, d, vels_pad, views, aux),
+                    params)
+                if mesh.distributed:
+                    # the views ranks' partial gradients and losses,
+                    # summed in one buffer
+                    buf = torch.cat([grad.reshape(-1),
+                                     loss.detach().reshape(1).to(grad.dtype)])
+                    dist.all_reduce(buf, group=mesh.views_group)
+                    counts["all_reduce"] += 1
+                    grad, loss = buf[:-1].view_as(grad), buf[-1]
+                with span("nfs.adam"):
+                    updates, opt_state = optimizer.update(grad, opt_state)
+                    params = (params + updates).detach()
+                losses.append(loss.detach().to(torch.float32).reshape(()))
         # the sum of the FULL per-frame losses over the local frames; the
         # frames axis sums them over the whole sequence
         losses = torch.stack(losses)

@@ -77,6 +77,7 @@ from nfs_tpu_torch.parallel.mesh import Mesh, make_mesh
 from nfs_tpu_torch.parallel.sharding import (
     SlabGather, SlabHalo, SlabRing, _halo_widths, _new_counts, crop_slab,
     gather_volume, mesh_ring, own, shard_volume)
+from nfs_tpu_torch.utils.profiling import span
 
 SPACE_AXIS = 1  # volume axis sharded across the mesh (y; see module doc)
 
@@ -188,11 +189,12 @@ class SpaceSlabs:
         if sharded at ``to_shape``: gathered first, sliced after."""
         if tuple(shape) == tuple(to_shape):
             return x
-        if self.n > 1 and self.sharded(shape):
-            x = gather_volume(x, self.mesh, self._ax(lead), "space",
-                              self.counts)
-        x = fn(x)
-        return self.slab(x, lead) if self.sharded(to_shape) else x
+        with span("nfs.resize"):
+            if self.n > 1 and self.sharded(shape):
+                x = gather_volume(x, self.mesh, self._ax(lead), "space",
+                                  self.counts)
+            x = fn(x)
+            return self.slab(x, lead) if self.sharded(to_shape) else x
 
     def advect(self, field: torch.Tensor, vel: torch.Tensor,
                max_disp: Optional[float] = None, impl: str = "auto",
@@ -205,23 +207,25 @@ class SpaceSlabs:
         run = advect_frames if lead else advect
         if self.n == 1:
             return run(field, vel, max_disp=max_disp, impl=impl)
-        ax = lead + self.axis
-        h = field.shape[ax]
-        if max_disp is None:
-            # no bounded halo: the whole field, the velocity zero outside
-            # the slab (only the slab's outputs are kept)
-            full = self.gather(field, lead, replicated=False)
-            pad = [0, 0] * (vel.ndim - ax - 1) + [
-                self.idx * h, (self.n - 1 - self.idx) * h]
-            out = run(full, F.pad(vel, pad), max_disp=None, impl=impl)
-            return own(out.narrow(ax, self.idx * h, h))
-        R = int(math.ceil(max_disp)) + 1
-        below, above = _halo_widths(R, self.ring)
-        field = SlabHalo.apply(field, R, self.ring, ax)
-        vel = F.pad(vel, [0, 0] * (vel.ndim - ax - 1) + [below, above])
-        out = run(field, vel, max_disp=max_disp, impl=impl,
-                  origin=(self.axis, self.idx * h - below))
-        return crop_slab(out, below, above, ax)
+        with span("nfs.transport"):
+            ax = lead + self.axis
+            h = field.shape[ax]
+            if max_disp is None:
+                # no bounded halo: the whole field, the velocity zero
+                # outside the slab (only the slab's outputs are kept)
+                full = self.gather(field, lead, replicated=False)
+                pad = [0, 0] * (vel.ndim - ax - 1) + [
+                    self.idx * h, (self.n - 1 - self.idx) * h]
+                out = run(full, F.pad(vel, pad), max_disp=None, impl=impl)
+                return own(out.narrow(ax, self.idx * h, h))
+            R = int(math.ceil(max_disp)) + 1
+            below, above = _halo_widths(R, self.ring)
+            field = SlabHalo.apply(field, R, self.ring, ax)
+            vel = F.pad(vel,
+                        [0, 0] * (vel.ndim - ax - 1) + [below, above])
+            out = run(field, vel, max_disp=max_disp, impl=impl,
+                      origin=(self.axis, self.idx * h - below))
+            return crop_slab(out, below, above, ax)
 
     def whole(self, x: torch.Tensor, lead: Optional[int] = None):
         """The whole volume of a slab, not differentiable: a result."""

@@ -26,6 +26,7 @@ from nfs_tpu_torch.ops.resize import resize_axes
 from nfs_tpu_torch.ops.rotate import rotate3d_batch
 from nfs_tpu_torch.ops.shear import rotate3d_shear, rotate3d_shear_volumes
 from nfs_tpu_torch.render.transfer import transfer_colors
+from nfs_tpu_torch.utils.profiling import span
 
 
 def _exclusive_cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -87,12 +88,13 @@ def render_volume(d: torch.Tensor, theta, phi, transmit: float = 0.01,
     elevation, radians), then march along z. (H, W) gray, or with
     ``tf_nodes`` (N, 3) an (H, W, 3) image whose colour is the transfer
     function of the rotated density."""
-    rot = _rotate(d, theta, phi, method)
-    color = (None if tf_nodes is None
-             else transfer_colors(rot, tf_nodes, tf_max))
-    img = raymarch(rot, transmit=transmit, axis=0, out_size=out_size,
-                   color=color)
-    return _gamma(img, gamma)
+    with span("nfs.render"):
+        rot = _rotate(d, theta, phi, method)
+        color = (None if tf_nodes is None
+                 else transfer_colors(rot, tf_nodes, tf_max))
+        img = raymarch(rot, transmit=transmit, axis=0, out_size=out_size,
+                       color=color)
+        return _gamma(img, gamma)
 
 
 def render_views(d: torch.Tensor, thetas: torch.Tensor, phis: torch.Tensor,
@@ -106,12 +108,14 @@ def render_views(d: torch.Tensor, thetas: torch.Tensor, phis: torch.Tensor,
     three channels for the CNN; with ``tf_nodes`` the channels are the
     transfer function's colours, and with ``color`` (D, H, W, 3), a
     per-voxel colour volume rotated with the density, its composite."""
-    rot = _rotate(d, thetas, phis, method)             # (V, D, H, W)
-    col = None
-    if color is not None:
-        col = torch.stack([_rotate(color[..., c], thetas, phis, method)
-                           for c in range(3)], dim=-1)
-    return _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max, col)
+    with span("nfs.render"):
+        rot = _rotate(d, thetas, phis, method)             # (V, D, H, W)
+        col = None
+        if color is not None:
+            col = torch.stack([_rotate(color[..., c], thetas, phis, method)
+                               for c in range(3)], dim=-1)
+        return _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max,
+                          col)
 
 
 def _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max, col=None):
@@ -137,21 +141,22 @@ def render_views_batch(ds: torch.Tensor, thetas: torch.Tensor,
     volume s under its own views ``thetas[s]``, ``phis[s]`` (S, V) ->
     (S, V, H', W', 3). The shear rotations render every view of every
     volume as one batch; 'gather' renders volume by volume."""
-    S, V = thetas.shape
-    if method not in ("shear", "shear_bf16"):
-        return torch.stack([
-            render_views(d, t, p, transmit=transmit, out_size=out_size,
-                         gamma=gamma, method=method, tf_nodes=tf_nodes,
-                         tf_max=tf_max)
-            for d, t, p in zip(ds, thetas, phis)])
-    vols = ds[:, None].expand(S, V, *ds.shape[1:]).reshape(
-        S * V, *ds.shape[1:])
-    rot = rotate3d_shear_volumes(
-        vols, thetas.reshape(-1).to(torch.float32),
-        phis.reshape(-1).to(torch.float32),
-        torch.bfloat16 if method == "shear_bf16" else None)
-    img = _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max)
-    return img.reshape(S, V, *img.shape[1:])
+    with span("nfs.render"):
+        S, V = thetas.shape
+        if method not in ("shear", "shear_bf16"):
+            return torch.stack([
+                render_views(d, t, p, transmit=transmit, out_size=out_size,
+                             gamma=gamma, method=method, tf_nodes=tf_nodes,
+                             tf_max=tf_max)
+                for d, t, p in zip(ds, thetas, phis)])
+        vols = ds[:, None].expand(S, V, *ds.shape[1:]).reshape(
+            S * V, *ds.shape[1:])
+        rot = rotate3d_shear_volumes(
+            vols, thetas.reshape(-1).to(torch.float32),
+            phis.reshape(-1).to(torch.float32),
+            torch.bfloat16 if method == "shear_bf16" else None)
+        img = _composite(rot, transmit, out_size, gamma, tf_nodes, tf_max)
+        return img.reshape(S, V, *img.shape[1:])
 
 
 def render2d(d: torch.Tensor, out_size: Optional[Tuple[int, int]] = None,
@@ -169,17 +174,18 @@ def render2d(d: torch.Tensor, out_size: Optional[Tuple[int, int]] = None,
       to [0, 1]. Both keep JAX's subgradients at their ties (0.5 at
       d == 0 and at a clip bound).
     """
-    if tf_nodes is not None:
-        color = transfer_colors(d, tf_nodes, tf_max)
-    if compress == "soft":
-        img = 1.0 - torch.exp(-jax_maximum(d, 0.0))
-    else:
-        img = jax_clip(d, 0.0, 1.0)
-    img = _gamma(img, gamma)
-    if color is None:
-        img = img[..., None].expand(*img.shape, 3)
-    else:
-        img = img[..., None] * jax_clip(color, 0.0, 1.0)
-    if out_size is not None:
-        img = resize_axes(img, (0, 1), tuple(out_size))
-    return img
+    with span("nfs.render"):
+        if tf_nodes is not None:
+            color = transfer_colors(d, tf_nodes, tf_max)
+        if compress == "soft":
+            img = 1.0 - torch.exp(-jax_maximum(d, 0.0))
+        else:
+            img = jax_clip(d, 0.0, 1.0)
+        img = _gamma(img, gamma)
+        if color is None:
+            img = img[..., None].expand(*img.shape, 3)
+        else:
+            img = img[..., None] * jax_clip(color, 0.0, 1.0)
+        if out_size is not None:
+            img = resize_axes(img, (0, 1), tuple(out_size))
+        return img

@@ -23,6 +23,7 @@ from nfs_tpu_torch.io.image import load_image
 from nfs_tpu_torch.render.camera import (
     poisson_view_pool, sample_views_stratified)
 from nfs_tpu_torch.render.transfer import resolve_transfer
+from nfs_tpu_torch.utils.profiling import span
 
 
 class StylerBase:
@@ -144,28 +145,31 @@ class StylerBase:
         pushed through VGG in one batch: (B,) losses, each the weighted
         Gram MSE over the style layers plus the content (or semantic)
         term, every one a mean over its set's V images."""
-        lc = self.cfg.loss
-        B = imgs.shape[0]
-        feats = self._features(imgs.reshape((-1,) + imgs.shape[2:]), data)
-        total = torch.zeros(B, dtype=torch.float32, device=imgs.device)
+        with span("nfs.features"):
+            lc = self.cfg.loss
+            B = imgs.shape[0]
+            feats = self._features(imgs.reshape((-1,) + imgs.shape[2:]),
+                                   data)
+            total = torch.zeros(B, dtype=torch.float32, device=imgs.device)
 
-        def per_set(x):
-            return torch.mean(x.reshape(B, -1), dim=1)
+            def per_set(x):
+                return torch.mean(x.reshape(B, -1), dim=1)
 
-        if data["targets"] is not None and lc.w_style:
-            style = 0.0
-            for layer, lw in zip(lc.style_layers, lc.style_layer_weights):
-                g = gram_matrix(feats[layer])
-                gt = data["targets"][layer].to(torch.float32)
-                style = style + lw * per_set((g - gt) ** 2)
-            total = total + lc.w_style * style
-        if lc.content_layer and lc.w_content:
-            f = feats[lc.content_layer].to(torch.float32)
-            if data["content"] is not None:
-                t = data["content"][lc.content_layer].to(torch.float32)
-                total = total + lc.w_content * per_set((f - t) ** 2)
-            else:
-                ch = (f if lc.content_channel is None
-                      else f[..., lc.content_channel])
-                total = total - lc.w_content * per_set(ch)
-        return total
+            if data["targets"] is not None and lc.w_style:
+                style = 0.0
+                for layer, lw in zip(lc.style_layers,
+                                     lc.style_layer_weights):
+                    g = gram_matrix(feats[layer])
+                    gt = data["targets"][layer].to(torch.float32)
+                    style = style + lw * per_set((g - gt) ** 2)
+                total = total + lc.w_style * style
+            if lc.content_layer and lc.w_content:
+                f = feats[lc.content_layer].to(torch.float32)
+                if data["content"] is not None:
+                    t = data["content"][lc.content_layer].to(torch.float32)
+                    total = total + lc.w_content * per_set((f - t) ** 2)
+                else:
+                    ch = (f if lc.content_channel is None
+                          else f[..., lc.content_channel])
+                    total = total - lc.w_content * per_set(ch)
+            return total

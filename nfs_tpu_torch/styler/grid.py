@@ -52,6 +52,7 @@ from nfs_tpu_torch.render.raymarch import (
     render2d, render_views, render_volume)
 from nfs_tpu_torch.styler.base import StylerBase
 from nfs_tpu_torch.styler.octave import Adam, AdamState, run_octave
+from nfs_tpu_torch.utils.profiling import span
 
 
 def _one_slab(shape=None):
@@ -380,42 +381,44 @@ class GridStyler(StylerBase):
                     iters, 2 * window + 1)
             if o < start_octave:
                 continue
-            loss_fn = self._get_loss_fn(
-                len(full_shape), window,
-                self._octave_render_size(shape, full_shape))
-            data = {"pool": self.view_pool, "vgg": self.vgg_params,
-                    "targets": self.gram_targets,
-                    "content": self.content_feats}
-            param = self._resize_param(param, prev, shape, space)
-            prev = shape
-            data["d"] = space.resize(d_full, full_shape, shape,
-                                     lambda d: resize(d, shape))
-            data["space"] = space.octave(shape, warn=True)
+            with span("nfs.octave"):
+                loss_fn = self._get_loss_fn(
+                    len(full_shape), window,
+                    self._octave_render_size(shape, full_shape))
+                data = {"pool": self.view_pool, "vgg": self.vgg_params,
+                        "targets": self.gram_targets,
+                        "content": self.content_feats}
+                param = self._resize_param(param, prev, shape, space)
+                prev = shape
+                data["d"] = space.resize(d_full, full_shape, shape,
+                                         lambda d: resize(d, shape))
+                data["space"] = space.octave(shape, warn=True)
 
-            def resize_vels(vs, _shape=shape):
-                return torch.stack([resize(v, _shape, is_velocity=True)
-                                    for v in vs])
+                def resize_vels(vs, _shape=shape):
+                    return torch.stack([resize(v, _shape, is_velocity=True)
+                                        for v in vs])
 
-            if window:
-                data["vels"] = space.resize(vels_win, full_shape, shape,
-                                            resize_vels, lead=1)
-            cb = state_cb = None
-            if callback is not None:
-                def cb(done, loss, _o=o):
-                    callback(done, loss, octave=_o)
-            if checkpoint_path is not None:
-                def state_cb(done, p, st, _o=o, _at=data["space"]):
-                    self._checkpoint(checkpoint_path, space, _at, p, st,
-                                     dict(meta, octave=_o, iters_done=done))
-            resumed = o == start_octave
-            param, losses, _ = run_octave(
-                param, loss_fn, data, views, iters=iters, lr=oc.lr,
-                b1=oc.b1, b2=oc.b2, log_every=oc.log_every, callback=cb,
-                optimizer=optimizer,
-                init_opt_state=opt_state if resumed else None,
-                start_iter=start_iter if resumed else 0,
-                state_callback=state_cb)
-            losses_all.append(losses)
+                if window:
+                    data["vels"] = space.resize(vels_win, full_shape, shape,
+                                                resize_vels, lead=1)
+                cb = state_cb = None
+                if callback is not None:
+                    def cb(done, loss, _o=o):
+                        callback(done, loss, octave=_o)
+                if checkpoint_path is not None:
+                    def state_cb(done, p, st, _o=o, _at=data["space"]):
+                        self._checkpoint(
+                            checkpoint_path, space, _at, p, st,
+                            dict(meta, octave=_o, iters_done=done))
+                resumed = o == start_octave
+                param, losses, _ = run_octave(
+                    param, loss_fn, data, views, iters=iters, lr=oc.lr,
+                    b1=oc.b1, b2=oc.b2, log_every=oc.log_every, callback=cb,
+                    optimizer=optimizer,
+                    init_opt_state=opt_state if resumed else None,
+                    start_iter=start_iter if resumed else 0,
+                    state_callback=state_cb)
+                losses_all.append(losses)
         param = self._resize_param(param, prev, full_shape, space)
         with torch.no_grad():
             d_star = torch.clamp(self._apply_param(
@@ -656,27 +659,31 @@ class GridStyler(StylerBase):
         frame 0 by ``prev_velocity``."""
         W = self.cfg.optim.window
         for t in range(densities.shape[0]):
-            vels_win = None
-            if W > 0 and vels is not None:
-                vels_win = self._window_vels(vels, offset + t, W,
-                                             prev_velocity)
-            if param is not None:
-                v_prev = prev_velocity
-                if t > 0:
-                    v_prev = None if vels is None else vels[offset + t - 1]
-                if v_prev is not None:
-                    param = self._advect_param(param, v_prev)
-            warm = param is not None
-            d_star, param, info = self.stylize_frame(
-                densities[t], vels=vels_win, init_param=param,
-                generator=self._frame_generator(frame_offset + t),
-                callback=callback, checkpoint_path=checkpoint_path,
-                view_schedule=(None if view_schedule is None
-                               else view_schedule[t]))
-            ran = torch.cat(info["octave_losses"])
-            table = ran.new_full(
-                (self.cfg.optim.octave_n * self._iters(warm),), float("nan"))
-            table[table.numel() - ran.numel():] = ran
+            with span("nfs.frame", {"frame": frame_offset + t}):
+                vels_win = None
+                if W > 0 and vels is not None:
+                    vels_win = self._window_vels(vels, offset + t, W,
+                                                 prev_velocity)
+                if param is not None:
+                    v_prev = prev_velocity
+                    if t > 0:
+                        v_prev = (None if vels is None
+                                  else vels[offset + t - 1])
+                    if v_prev is not None:
+                        with span("nfs.warm_start"):
+                            param = self._advect_param(param, v_prev)
+                warm = param is not None
+                d_star, param, info = self.stylize_frame(
+                    densities[t], vels=vels_win, init_param=param,
+                    generator=self._frame_generator(frame_offset + t),
+                    callback=callback, checkpoint_path=checkpoint_path,
+                    view_schedule=(None if view_schedule is None
+                                   else view_schedule[t]))
+                ran = torch.cat(info["octave_losses"])
+                table = ran.new_full(
+                    (self.cfg.optim.octave_n * self._iters(warm),),
+                    float("nan"))
+                table[table.numel() - ran.numel():] = ran
             yield t, d_star, param, table.view(self.cfg.optim.octave_n, -1)
 
     def stylize_sequence_blocks(self, blocks, fused: int = 8,

@@ -27,6 +27,7 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from nfs_tpu_torch.utils.profiling import span
 
 Param = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
@@ -116,17 +117,23 @@ def run_octave(param: Param, loss_fn: Callable, data,
     chunk = log_every if observed else iters
     losses = []
     for i in range(start_iter, iters):
-        loss, grad = value_and_grad(loss_fn, param, views[i], data)
-        updates, state = opt.update(grad, state)
-        param = _leafwise(lambda p, u: (p + u).detach(), param, updates)
-        losses.append(loss.detach().to(torch.float32))
+        with span("nfs.iter"):
+            loss, grad = value_and_grad(loss_fn, param, views[i], data)
+            with span("nfs.adam"):
+                updates, state = opt.update(grad, state)
+                param = _leafwise(lambda p, u: (p + u).detach(), param,
+                                  updates)
+            losses.append(loss.detach().to(torch.float32))
         done = i + 1
         if observed and (done % chunk == 0 or done == iters):
             if state_callback is not None:
-                state_callback(done, param, state)
+                with span("nfs.checkpoint"):
+                    state_callback(done, param, state)
             if callback is not None:
                 start = (done - 1) // chunk * chunk - start_iter
-                callback(done, float(torch.stack(losses[start:]).mean()))
+                with span("nfs.readback"):
+                    mean = float(torch.stack(losses[start:]).mean())
+                callback(done, mean)
     device = next(iter(param.values())).device if isinstance(
         param, dict) else param.device
     losses_out = (torch.stack(losses) if losses else
@@ -146,8 +153,9 @@ def value_and_grad(loss_fn: Callable, param: Param, *args):
     if loss.requires_grad:
         # a vector of independent losses (a keyframe batch's): the
         # gradient of their sum is each one's own
-        grads = torch.autograd.grad(loss.sum() if loss.ndim else loss,
-                                    leaves, allow_unused=True)
+        with span("nfs.backward"):
+            grads = torch.autograd.grad(loss.sum() if loss.ndim else loss,
+                                        leaves, allow_unused=True)
     else:  # the objective does not depend on the param
         grads = [None] * len(leaves)
     grads = [torch.zeros_like(l) if g is None else g

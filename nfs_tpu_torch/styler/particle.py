@@ -74,6 +74,7 @@ from nfs_tpu_torch.render.raymarch import (
 from nfs_tpu_torch.styler.base import StylerBase
 from nfs_tpu_torch.styler.octave import (
     Adam, AdamState, run_octave, value_and_grad)
+from nfs_tpu_torch.utils.profiling import span
 
 Param = Dict[str, torch.Tensor]
 
@@ -147,37 +148,43 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
     x, dens = data["x"], data["dens"]
     n = x.shape[1]
     K, capacity = _capacities(ks)
-    with torch.no_grad():
-        p = (x + _offset(param["dx"], max_offset)) * scale if has_dx \
-            else x * scale
-    bn = bin_particles(p, shape, K, kernel=kernel, capacity=capacity)
-    n_slots = bn.valid.shape[-1]
+    with span("nfs.splat"):
+        with torch.no_grad():
+            p = (x + _offset(param["dx"], max_offset)) * scale if has_dx \
+                else x * scale
+        bn = bin_particles(p, shape, K, kernel=kernel, capacity=capacity)
+        n_slots = bn.valid.shape[-1]
 
-    def to_b(tree):         # canonical (B, N, ...) leaves -> binned
-        return {k: to_binned(bn, v) if v.ndim in (2, 3) and v.shape[1] == n
-                else v for k, v in tree.items()}
+        def to_b(tree):     # canonical (B, N, ...) leaves -> binned
+            return {k: to_binned(bn, v)
+                    if v.ndim in (2, 3) and v.shape[1] == n else v
+                    for k, v in tree.items()}
 
-    def from_b(tree):       # binned (slot-minor) leaves -> canonical
-        return {k: from_binned(bn, v)
-                if v.ndim in (2, 3) and v.shape[-1] == n_slots + n else v
-                for k, v in tree.items()}
+        def from_b(tree):   # binned (slot-minor) leaves -> canonical
+            return {k: from_binned(bn, v)
+                    if v.ndim in (2, 3) and v.shape[-1] == n_slots + n
+                    else v for k, v in tree.items()}
 
-    param_b = to_b(param)
-    state_b = (optimizer.init(param_b) if opt_state is None else
-               AdamState(opt_state.count, to_b(opt_state.mu),
-                         to_b(opt_state.nu)))
-    data_b = dict(data, xb=to_binned(bn, x), densb=to_binned(bn, dens),
-                  valid=bn.valid)
+        param_b = to_b(param)
+        state_b = (optimizer.init(param_b) if opt_state is None else
+                   AdamState(opt_state.count, to_b(opt_state.mu),
+                             to_b(opt_state.nu)))
+        data_b = dict(data, xb=to_binned(bn, x), densb=to_binned(bn, dens),
+                      valid=bn.valid)
     losses = []
     for v in views:
-        loss, grads = value_and_grad(loss_fn, param_b, v, data_b)
-        updates, state_b = optimizer.update(grads, state_b)
-        param_b = {k: (param_b[k] + updates[k]).detach() for k in param_b}
-        losses.append(loss.detach().to(torch.float32))
-    state = (AdamState(state_b.count, from_b(state_b.mu),
-                       from_b(state_b.nu)) if return_state else None)
-    return (from_b(param_b), state, torch.stack(losses, dim=-1),
-            bn.n_overflow)
+        with span("nfs.iter"):
+            loss, grads = value_and_grad(loss_fn, param_b, v, data_b)
+            with span("nfs.adam"):
+                updates, state_b = optimizer.update(grads, state_b)
+                param_b = {k: (param_b[k] + updates[k]).detach()
+                           for k in param_b}
+            losses.append(loss.detach().to(torch.float32))
+    with span("nfs.splat"):
+        state = (AdamState(state_b.count, from_b(state_b.mu),
+                           from_b(state_b.nu)) if return_state else None)
+        param = from_b(param_b)
+    return param, state, torch.stack(losses, dim=-1), bn.n_overflow
 
 
 class ParticleStyler(StylerBase):
@@ -300,12 +307,13 @@ class ParticleStyler(StylerBase):
     def _splat_batch(self, param: Param, x, dens, scale: float, shape):
         """:meth:`_splat_grids` of each keyframe of a batch, stacked:
         (B, *shape) densities and (B, *shape, 3) colours or None."""
-        grids = [self._splat_grids({k: v[i] for k, v in param.items()},
-                                   {"x": x[i], "dens": dens[i]}, scale,
-                                   shape) for i in range(x.shape[0])]
-        return (torch.stack([d for d, _ in grids]),
-                None if grids[0][1] is None
-                else torch.stack([c for _, c in grids]))
+        with span("nfs.splat"):
+            grids = [self._splat_grids({k: v[i] for k, v in param.items()},
+                                       {"x": x[i], "dens": dens[i]}, scale,
+                                       shape) for i in range(x.shape[0])]
+            return (torch.stack([d for d, _ in grids]),
+                    None if grids[0][1] is None
+                    else torch.stack([c for _, c in grids]))
 
     def _get_loss_fn(self, shape: Tuple[int, ...], scale: float):
         """Loss of the flat-splat route: (B,) per-keyframe losses, the
@@ -410,24 +418,26 @@ class ParticleStyler(StylerBase):
         batch (x (B, N, dim), ``ks`` a bin capacity or None per keyframe)
         -> (B, *shape): binned in one pass (through K4 where the window
         kernels apply) when every keyframe has a capacity, else flat."""
-        pc = self.cfg.particle
-        if None in ks:
-            return self._splat_batch(param, x, dens, scale, shape)[0]
-        if "dx" in param:
-            x = x + _offset(param["dx"], pc.max_offset)
-        if "ddens" in param:
-            dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
-        xs = x * scale
-        K, capacity = _capacities(ks)
-        bn = bin_particles(xs, shape, K, kernel=pc.kernel, capacity=capacity)
-        pb = to_binned(bn, xs)
-        db = to_binned(bn, dens)
-        if _uses_window(pc, shape):
-            base_d = splat_binned_window(pb, db, bn.valid, shape, K)
-        else:
-            base_d = splat_binned(pb, db, bn.valid, shape, K,
-                                  kernel=pc.kernel)
-        return base_d * (scale ** 2)
+        with span("nfs.splat"):
+            pc = self.cfg.particle
+            if None in ks:
+                return self._splat_batch(param, x, dens, scale, shape)[0]
+            if "dx" in param:
+                x = x + _offset(param["dx"], pc.max_offset)
+            if "ddens" in param:
+                dens = dens * _dens_scale(param["ddens"], pc.max_log_dens)
+            xs = x * scale
+            K, capacity = _capacities(ks)
+            bn = bin_particles(xs, shape, K, kernel=pc.kernel,
+                               capacity=capacity)
+            pb = to_binned(bn, xs)
+            db = to_binned(bn, dens)
+            if _uses_window(pc, shape):
+                base_d = splat_binned_window(pb, db, bn.valid, shape, K)
+            else:
+                base_d = splat_binned(pb, db, bn.valid, shape, K,
+                                      kernel=pc.kernel)
+            return base_d * (scale ** 2)
 
     def _grid_coarse_octave(self, param: Param, data, views, shape,
                             scale: float, ks, callback=None):
@@ -466,12 +476,14 @@ class ParticleStyler(StylerBase):
                 or pc.support != 1.0):
             return None
         if kmaxes is None:
-            p = x + dx if dx is not None else x
-            with torch.no_grad():
-                kmaxes = _octave_max_counts(
-                    p, tuple(tuple(s) for s in shapes),
-                    float(self.grid_shape[0]), kernel=pc.kernel)
-            kmaxes = kmaxes.cpu().numpy()
+            with span("nfs.bin_plan"):
+                p = x + dx if dx is not None else x
+                with torch.no_grad():
+                    kmaxes = _octave_max_counts(
+                        p, tuple(tuple(s) for s in shapes),
+                        float(self.grid_shape[0]), kernel=pc.kernel)
+                with span("nfs.readback"):
+                    kmaxes = kmaxes.cpu().numpy()
         kmaxes = np.asarray(kmaxes)
         if kmaxes.ndim == 1:   # per-octave scalar maxima
             kmaxes = kmaxes[:, None]
@@ -524,7 +536,9 @@ class ParticleStyler(StylerBase):
             all_losses.append(losses)
             overflows.append(n_over)  # stays on the device
             if callback is not None:
-                callback(done, float(losses.mean()))
+                with span("nfs.readback"):
+                    mean = float(losses.mean())
+                callback(done, mean)
         return (param, torch.cat(all_losses, dim=-1),
                 torch.stack(overflows).amax(dim=0))
 
@@ -564,30 +578,31 @@ class ParticleStyler(StylerBase):
                 "content": self.content_feats}
         losses, overs = [], []
         for o, shape in enumerate(shapes):
-            scale = shape[0] / self.grid_shape[0]
-            views = self._keyframe_views(generators, schedules, o)
-            cb = None
-            if callback is not None:
-                def cb(done, loss, _o=o):
-                    callback(done, loss, octave=_o)
-            ks = [kf_plan[o] for kf_plan in plan]
-            n_over = torch.zeros(x.shape[0], dtype=torch.long,
-                                 device=self.device)
-            if grid_coarse and o < len(shapes) - 1:
-                param, ls = self._grid_coarse_octave(
-                    param, data, views, shape, scale, ks, callback=cb)
-            elif None not in ks:
-                param, ls, n_over = self._run_binned_octave(
-                    param, data, views, shape, scale, ks, callback=cb)
-            else:  # flat splat (other kernels or supports, huge K)
-                param, ls, _ = run_octave(
-                    param, self._get_loss_fn(shape, scale), data, views,
-                    iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
-                    log_every=oc.log_every, callback=cb,
-                    optimizer=self._optimizer)
-                ls = ls.T
-            losses.append(ls)
-            overs.append(n_over)
+            with span("nfs.octave"):
+                scale = shape[0] / self.grid_shape[0]
+                views = self._keyframe_views(generators, schedules, o)
+                cb = None
+                if callback is not None:
+                    def cb(done, loss, _o=o):
+                        callback(done, loss, octave=_o)
+                ks = [kf_plan[o] for kf_plan in plan]
+                n_over = torch.zeros(x.shape[0], dtype=torch.long,
+                                     device=self.device)
+                if grid_coarse and o < len(shapes) - 1:
+                    param, ls = self._grid_coarse_octave(
+                        param, data, views, shape, scale, ks, callback=cb)
+                elif None not in ks:
+                    param, ls, n_over = self._run_binned_octave(
+                        param, data, views, shape, scale, ks, callback=cb)
+                else:  # flat splat (other kernels or supports, huge K)
+                    param, ls, _ = run_octave(
+                        param, self._get_loss_fn(shape, scale), data, views,
+                        iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
+                        log_every=oc.log_every, callback=cb,
+                        optimizer=self._optimizer)
+                    ls = ls.T
+                losses.append(ls)
+                overs.append(n_over)
         return param, losses, torch.stack(overs, dim=1)
 
     # ---------------------------------------------------------------- #
@@ -650,8 +665,10 @@ class ParticleStyler(StylerBase):
         # until the next rebin, so a crowded frame must be visible. With a
         # K-budget, parking up to the budget is the deal; the threshold is
         # 4x the budget (drift headroom)
+        with span("nfs.readback"):
+            overflow = [int(v) for v in overs[0].cpu()]
         info = {"octave_losses": [ls[0] for ls in losses],
-                "octave_overflow": [int(v) for v in overs[0].cpu()]}
+                "octave_overflow": overflow}
         over_thresh = 4 * (int(pc.k_budget * x.shape[0])
                            if pc.k_budget else 0)
         if max(info["octave_overflow"]) > over_thresh:
@@ -718,14 +735,15 @@ class ParticleStyler(StylerBase):
         prev = None
         self.last_keyframe_infos = {}
         for i, kf in enumerate(keyframes):
-            _, p, kf_info = self.stylize_frame(
-                psets[kf], init_param=prev, generator=generator,
-                callback=callback,
-                view_schedule=(None if view_schedule is None
-                               else view_schedule[i]))
-            params[kf] = p
-            self.last_keyframe_infos[kf] = kf_info
-            prev = {k: v.clone() for k, v in p.items()}
+            with span("nfs.frame", {"frame": kf}):
+                _, p, kf_info = self.stylize_frame(
+                    psets[kf], init_param=prev, generator=generator,
+                    callback=callback,
+                    view_schedule=(None if view_schedule is None
+                                   else view_schedule[i]))
+                params[kf] = p
+                self.last_keyframe_infos[kf] = kf_info
+                prev = {k: v.clone() for k, v in p.items()}
         yield from interp_sequence(
             psets, keyframes, params, float(self.cfg.particle.max_offset),
             apply_fn=self.apply_param,
@@ -761,17 +779,18 @@ def interp_sequence(psets, keyframes, params, max_offset: float, apply_fn,
     for k0, k1 in zip(keyframes[:-1], keyframes[1:]):
         last = k1 == keyframes[-1]
         ts = list(range(k0, k1 + 1 if last else k1))
-        alphas = torch.tensor([(t - k0) / (k1 - k0) for t in ts],
-                              dtype=torch.float32, device=device)
-        x = torch.stack([on_dev(psets[t].x) for t in ts])
-        n = x.shape[1]
-        dens = torch.stack([
-            on_dev(psets[t].dens) if psets[t].dens is not None
-            else torch.ones(n, dtype=torch.float32, device=device)
-            for t in ts])
-        xo, do, co = _interp_apply_segment(params[k0], params[k1], alphas,
-                                           x, dens, max_offset,
-                                           max_log_dens)
+        with span("nfs.interp", {"frames": f"{ts[0]}-{ts[-1]}"}):
+            alphas = torch.tensor([(t - k0) / (k1 - k0) for t in ts],
+                                  dtype=torch.float32, device=device)
+            x = torch.stack([on_dev(psets[t].x) for t in ts])
+            n = x.shape[1]
+            dens = torch.stack([
+                on_dev(psets[t].dens) if psets[t].dens is not None
+                else torch.ones(n, dtype=torch.float32, device=device)
+                for t in ts])
+            xo, do, co = _interp_apply_segment(
+                params[k0], params[k1], alphas, x, dens, max_offset,
+                max_log_dens)
         for i, t in enumerate(ts):
             color = co[i] if co is not None else psets[t].color
             yield t, ParticleSet(x=xo[i], dens=do[i], color=color,

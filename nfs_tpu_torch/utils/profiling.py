@@ -1,11 +1,15 @@
 """Profiling helpers (counterpart of ``nfs_tpu/utils/profiling.py``):
-a ``torch.profiler`` trace context and wall-clock timers that synchronize
-the device, so that asynchronous CUDA launches do not hide the work.
+a ``torch.profiler`` trace context, the program's spans, and wall-clock
+timers that synchronize the device, so that asynchronous CUDA launches do
+not hide the work.
 
 Usage:
     with trace("log/trace") as prof:      # Chrome trace in log/trace/
         run_octave(...)
     print(prof.key_averages().table(sort_by="cuda_time_total"))
+
+    with span("nfs.render"):               # a range in that trace
+        render_views(...)
 
     timer = IterationTimer(device="cuda")
     with timer:                            # synchronized wall time
@@ -21,6 +25,30 @@ import time
 from typing import List, Optional
 
 import torch
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args: Optional[dict] = None):
+    """A named range of the program, for the profiler.
+
+    While no ``torch.profiler`` records, this returns one shared null
+    context: no clock is read, nothing is allocated or recorded. While one
+    records, it is a ``RecordFunction`` range: a CPU operator event named
+    ``name`` in the same Kineto trace as the device's kernels and on the
+    same clock, so that each kernel and each idle gap of the device can be
+    put down to the range the host was in. ``args`` names the request
+    (``{"frame": t}``); the trace shows it when the profiler records
+    shapes. The range is an operator event, not a user annotation, so it
+    adds no interval to the device's timeline: a trace's busy and idle
+    time stay those of its kernels, copies and memsets.
+
+    The program's spans, each named ``nfs.<layer>``, are listed in
+    PERF.md §3."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name, [], args or {})
 
 
 def _sync(device) -> None:
