@@ -28,6 +28,7 @@ paths), each for the call only; None leaves torch's settings alone.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -131,12 +132,18 @@ def get_vgg_params(path: Optional[str] = None, seed: int = 0,
     return init_vgg_params(seed=seed, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device):
+    """The ImageNet mean and std as tensors, built once per (dtype,
+    device): building them on a GPU copies from the host, which waits for
+    the device and cannot be captured in a CUDA graph."""
+    return (torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(_IMAGENET_STD, dtype=dtype, device=device))
+
+
 def preprocess(images: torch.Tensor) -> torch.Tensor:
     """[0,1] RGB (..., H, W, 3) -> ImageNet-normalized."""
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=images.dtype,
-                        device=images.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=images.dtype,
-                       device=images.device)
+    mean, std = _imagenet_stats(images.dtype, images.device)
     return (images - mean) / std
 
 

@@ -162,6 +162,15 @@ def _clip_grad(x, lo, hi):
     return inside + 0.5 * at_edge
 
 
+@functools.lru_cache(maxsize=None)
+def _last_cells(D: int, H: int, W: int, device: torch.device) -> torch.Tensor:
+    """(D - 1, H - 1, W - 1) in float32, built once per shape and device:
+    building it on a GPU copies from the host, which waits for the device
+    and cannot be captured in a CUDA graph."""
+    return torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32,
+                        device=device)
+
+
 def vel_grad_chain(grad_s: torch.Tensor, vel: torch.Tensor,
                    max_disp: float, kernel_vel=None) -> torch.Tensor:
     """grad wrt the displacement from grad wrt s = clip(i - clip(v)):
@@ -172,8 +181,7 @@ def vel_grad_chain(grad_s: torch.Tensor, vel: torch.Tensor,
     D, H, W = vel.shape[-4:-1]
     idx = torch.stack(torch.broadcast_tensors(*_axes((D, H, W), vel.device)),
                       dim=-1)
-    sizes = torch.tensor([D - 1, H - 1, W - 1], dtype=torch.float32,
-                         device=vel.device)
+    sizes = _last_cells(D, H, W, vel.device)
     v = vel.to(torch.float32)
     k = v if kernel_vel is None else kernel_vel
     outer = _clip_grad(idx - k.clamp(-max_disp, max_disp), 0.0, sizes)

@@ -15,6 +15,8 @@ and, through the sample coordinates, in the angles.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from nfs_tpu_torch.ops.interp import grid_sample, identity_coords
@@ -38,6 +40,15 @@ def rotation_matrix(theta, phi) -> torch.Tensor:
     return r_phi @ r_theta
 
 
+@functools.lru_cache(maxsize=None)
+def _center(shape, device: torch.device) -> torch.Tensor:
+    """The volume's centre (z, y, x) in float32, built once per shape and
+    device: building it on a GPU copies from the host, which waits for
+    the device and cannot be captured in a CUDA graph."""
+    return torch.tensor([(s - 1) / 2.0 for s in shape], dtype=torch.float32,
+                        device=device)
+
+
 def rotate3d_batch(d: torch.Tensor, thetas, phis,
                    mode: str = "zero") -> torch.Tensor:
     """Resample a (D, H, W) volume under V view rotations ->
@@ -45,8 +56,7 @@ def rotate3d_batch(d: torch.Tensor, thetas, phis,
     shape = tuple(d.shape[:3])
     thetas = torch.as_tensor(thetas, dtype=torch.float32, device=d.device)
     phis = torch.as_tensor(phis, dtype=torch.float32, device=d.device)
-    center = torch.tensor([(s - 1) / 2.0 for s in shape],
-                          dtype=torch.float32, device=d.device)
+    center = _center(shape, d.device)
     r = rotation_matrix(thetas.reshape(-1), phis.reshape(-1))   # (V, 3, 3)
     coords = identity_coords(shape, device=d.device) - center
     # (x - c) @ R == R^T (x - c): the inverse rotation, per view

@@ -20,9 +20,12 @@ a frame split into y-slabs over the ranks of a space mesh
 (``parallel/spatial.py``), with in-frame checkpoints of the whole
 volume.
 
-The optimization runs eagerly on ``device``. Advection inside the loss
-goes through the CUDA kernels K1-K3b (``ops/advect_kernels.py``) on a
-GPU.
+The optimization runs eagerly on ``device``, except that on a GPU a
+sequence replays each octave's Adam iteration as a CUDA graph once the
+styler has run the octave eagerly (``styler/octave.py``
+``_OctaveGraphs``; :meth:`GridStyler._graphed` says where), with the eager
+loop's bits. Advection inside the loss goes through the CUDA kernels
+K1-K3b (``ops/advect_kernels.py``) on a GPU.
 Random draws come from explicit ``torch.Generator`` objects; since torch
 cannot reproduce ``jax.random``, a per-iteration ``view_schedule`` of view
 pool indices can be injected to replay the JAX package's draws.
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -45,13 +49,15 @@ from nfs_tpu_torch.core.config import StyleConfig
 from nfs_tpu_torch.features.losses import tv_loss
 from nfs_tpu_torch.io.checkpoint import (
     load_checkpoint, read_meta, save_checkpoint)
+from nfs_tpu_torch.ops import advect_kernels
 from nfs_tpu_torch.ops.advect import advect, advect_maccormack
 from nfs_tpu_torch.ops.jaxgrad import jax_clip
 from nfs_tpu_torch.ops.resize import octave_shapes, resize
 from nfs_tpu_torch.render.raymarch import (
     render2d, render_views, render_volume)
 from nfs_tpu_torch.styler.base import StylerBase
-from nfs_tpu_torch.styler.octave import Adam, AdamState, run_octave
+from nfs_tpu_torch.styler.octave import (
+    Adam, AdamState, _OctaveGraphs, run_octave)
 from nfs_tpu_torch.utils.profiling import span
 
 
@@ -101,6 +107,12 @@ class GridStyler(StylerBase):
         self._warm_optimizer = (Adam(oc.warm_lr, b1=oc.b1, b2=oc.b2)
                                 if oc.warm_lr is not None
                                 else self._optimizer)
+        # the unsharded frame's slabs at the shape last run, a sequence's
+        # octaves at that shape as CUDA graphs (_sweep), and the octave keys
+        # this styler has run eagerly there (_unsharded)
+        self._slab = None
+        self._graphs = _OctaveGraphs()
+        self._eager_keys = set()
 
     # ---------------------------------------------------------------- #
     # loss pipeline: pure functions of (opt_var, views, data)
@@ -202,6 +214,10 @@ class GridStyler(StylerBase):
         # window position's state
         train_tf = self._train_tf
         one = _one_slab()
+        # the styler caches this closure, so it holds the styler weakly:
+        # a dropped styler, its CUDA graphs' buffers with it, is freed at
+        # once, not when the garbage collector finds the cycle
+        styler = weakref.proxy(self)
 
         def loss_fn(opt_var, views, data):
             # the octave's slabs (parallel/spatial.py; one slab without a
@@ -211,10 +227,10 @@ class GridStyler(StylerBase):
             whole, run = space.gather, space.advect
             tf = (jax_clip(opt_var["tf"], 0.0, 1.0) if train_tf
                   else None)
-            d_star = self._apply_param(opt_var, data["d"], space)
+            d_star = styler._apply_param(opt_var, data["d"], space)
             if window == 0:
-                total = self._render_loss(whole(d_star), views[0],
-                                          render_size, data, tf)
+                total = styler._render_loss(whole(d_star), views[0],
+                                            render_size, data, tf)
             else:
                 vels = data["vels"]
                 md = cfg.optim.max_disp
@@ -236,15 +252,15 @@ class GridStyler(StylerBase):
                 states = [whole(s) for s in states]
                 if cfg.loss.remat_views and ndim == 3:
                     # one view at a time, position by position
-                    total = sum(weights[p] * self._render_loss(
+                    total = sum(weights[p] * styler._render_loss(
                         s, views[p], render_size, data, tf)
                         for p, s in enumerate(states))
                 else:
                     # every position's views through VGG in one batch
                     imgs = torch.stack([
-                        self._render(s, views[p], render_size, tf)
+                        styler._render(s, views[p], render_size, tf)
                         for p, s in enumerate(states)])
-                    total = self._image_loss_weighted(imgs, weights, data)
+                    total = styler._image_loss_weighted(imgs, weights, data)
             if cfg.loss.w_tv:
                 field = (opt_var["field"] if isinstance(opt_var, dict)
                          else opt_var)
@@ -331,7 +347,7 @@ class GridStyler(StylerBase):
 
     def _octave_sweep(self, param, d_full, vels_win, generator, warm,
                       schedule=None, callback=None, checkpoint_path=None,
-                      space=None):
+                      space=None, graphs=False):
         """The complete coarse-to-fine optimization of one frame: (param,
         d_star, per-octave (iters,) losses). ``vels_win`` is the (2W,
         *spatial, ndim) window context or None; ``schedule`` optional
@@ -342,18 +358,56 @@ class GridStyler(StylerBase):
         None: one slab, the whole volume); the states are slabs at the
         octaves it shards, whole at the others. A frame with a checkpoint
         runs with deterministic cuDNN convolutions
-        (:func:`_deterministic_convs`) on every rank."""
+        (:func:`_deterministic_convs`) on every rank. ``graphs``: a
+        sequence's frame, whose octaves may run as CUDA graphs
+        (:meth:`_graphed`)."""
         scope = (_deterministic_convs() if checkpoint_path is not None
                  else contextlib.nullcontext())
         with scope:
             return self._sweep(param, d_full, vels_win, generator, warm,
-                               schedule, callback, checkpoint_path, space)
+                               schedule, callback, checkpoint_path, space,
+                               graphs)
+
+    def _octave_key(self, shape, window: int, render_size, iters: int,
+                    optimizer: Adam, param) -> tuple:
+        """What makes one octave's Adam iteration differ from another's,
+        other than its inputs' values: the graph of an octave with this
+        key replays for another (:class:`styler.octave._OctaveGraphs`).
+        The loss closure is the styler's for (ndim, window, render size);
+        cuDNN's deterministic switch and the fused-backward flag are read
+        where the iteration runs."""
+        return (tuple(shape), window, tuple(render_size), iters,
+                (optimizer.lr, optimizer.b1, optimizer.b2, optimizer.eps),
+                isinstance(param, dict), torch.backends.cudnn.deterministic,
+                advect_kernels.FUSED_BWD)
+
+    def _graphed(self, key, graphs: bool, space) -> bool:
+        """Whether an octave runs as a CUDA graph: on a GPU, on one slab,
+        in a sequence's frame (``graphs``), with a key that this styler
+        has run eagerly (the run that warms the capture up, a sequence's
+        first frame), so that it captures the key or has captured it.
+        ``stylize_frame`` never captures."""
+        return (graphs and self.device.type == "cuda" and space.n == 1
+                and key in self._eager_keys)
+
+    def _unsharded(self, shape):
+        """The one slab of an unsharded frame of ``shape``: the same object
+        for every frame of the shape, as a graphed octave's ``space`` must
+        be. A frame of another shape drops the last shape's graphs, their
+        memory pool and its eager keys, so a styler that many jobs share
+        holds one shape's graphs, whatever shapes they bring."""
+        shape = tuple(shape)
+        if self._slab is None or self._slab.shape != shape:
+            self._slab = _one_slab(shape)
+            self._graphs = _OctaveGraphs()
+            self._eager_keys = set()
+        return self._slab
 
     def _sweep(self, param, d_full, vels_win, generator, warm, schedule,
-               callback, checkpoint_path, space):
+               callback, checkpoint_path, space, graphs=False):
         oc = self.cfg.optim
         if space is None:
-            space = _one_slab(d_full.shape)
+            space = self._unsharded(d_full.shape)
         full_shape = space.shape
         window = oc.window if vels_win is not None else 0
         iters = self._iters(warm)
@@ -382,9 +436,9 @@ class GridStyler(StylerBase):
             if o < start_octave:
                 continue
             with span("nfs.octave"):
-                loss_fn = self._get_loss_fn(
-                    len(full_shape), window,
-                    self._octave_render_size(shape, full_shape))
+                render_size = self._octave_render_size(shape, full_shape)
+                loss_fn = self._get_loss_fn(len(full_shape), window,
+                                            render_size)
                 data = {"pool": self.view_pool, "vgg": self.vgg_params,
                         "targets": self.gram_targets,
                         "content": self.content_feats}
@@ -411,13 +465,22 @@ class GridStyler(StylerBase):
                             checkpoint_path, space, _at, p, st,
                             dict(meta, octave=_o, iters_done=done))
                 resumed = o == start_octave
-                param, losses, _ = run_octave(
-                    param, loss_fn, data, views, iters=iters, lr=oc.lr,
-                    b1=oc.b1, b2=oc.b2, log_every=oc.log_every, callback=cb,
-                    optimizer=optimizer,
-                    init_opt_state=opt_state if resumed else None,
-                    start_iter=start_iter if resumed else 0,
-                    state_callback=state_cb)
+                run = dict(log_every=oc.log_every, callback=cb,
+                           optimizer=optimizer,
+                           init_opt_state=opt_state if resumed else None,
+                           start_iter=start_iter if resumed else 0,
+                           state_callback=state_cb)
+                key = self._octave_key(shape, window, render_size, iters,
+                                       optimizer, param)
+                if self._graphed(key, graphs, space):
+                    param, losses, _ = self._graphs.run(
+                        key, param, loss_fn, data, views, iters,
+                        moved=("d", "vels"), **run)
+                else:
+                    param, losses, _ = run_octave(
+                        param, loss_fn, data, views, iters=iters, lr=oc.lr,
+                        b1=oc.b1, b2=oc.b2, **run)
+                    self._eager_keys.add(key)
                 losses_all.append(losses)
         param = self._resize_param(param, prev, full_shape, space)
         with torch.no_grad():
@@ -541,6 +604,15 @@ class GridStyler(StylerBase):
           iterations run in this call]}, plus 'tf_nodes' (the trained
           control points, clipped to [0, 1]) with render.train_transfer.
         """
+        return self._stylize_frame(d, vels, init_param, generator, callback,
+                                   checkpoint_path, warm, view_schedule,
+                                   space)
+
+    def _stylize_frame(self, d, vels, init_param, generator, callback,
+                       checkpoint_path, warm, view_schedule, space,
+                       graphs=False):
+        """:meth:`stylize_frame`; ``graphs`` as :meth:`_octave_sweep`
+        takes it (a sequence's frames)."""
         cfg = self.cfg
         warm = (init_param is not None) if warm is None else warm
         d_full = self._on_device(d)
@@ -553,7 +625,7 @@ class GridStyler(StylerBase):
         param, d_star, losses = self._octave_sweep(
             param, d_full, self._on_device(vels) if window else None,
             generator, warm, view_schedule, callback, checkpoint_path,
-            space)
+            space, graphs)
         self._drop_checkpoint(checkpoint_path, space)
         info = {"octave_losses": losses}
         if self._train_tf:
@@ -673,12 +745,14 @@ class GridStyler(StylerBase):
                         with span("nfs.warm_start"):
                             param = self._advect_param(param, v_prev)
                 warm = param is not None
-                d_star, param, info = self.stylize_frame(
-                    densities[t], vels=vels_win, init_param=param,
-                    generator=self._frame_generator(frame_offset + t),
-                    callback=callback, checkpoint_path=checkpoint_path,
-                    view_schedule=(None if view_schedule is None
-                                   else view_schedule[t]))
+                # an octave this styler has not run yet runs eagerly, the
+                # next frames capture it (_graphed)
+                d_star, param, info = self._stylize_frame(
+                    densities[t], vels_win, param,
+                    self._frame_generator(frame_offset + t), callback,
+                    checkpoint_path, None,
+                    None if view_schedule is None else view_schedule[t],
+                    None, graphs=True)
                 ran = torch.cat(info["octave_losses"])
                 table = ran.new_full(
                     (self.cfg.optim.octave_n * self._iters(warm),),

@@ -17,19 +17,31 @@ correction by ``1 - b^t``, ``eps`` added AFTER the square root
 (``eps_root = 0``), step ``-lr * mu_hat / (sqrt(nu_hat) + eps)``.
 ``torch.optim.Adam`` is the same algorithm, but the functional form keeps
 the state explicit per octave, as the JAX driver does.
+
+:class:`_OctaveGraphs` runs the same octave on a GPU as CUDA graphs: one
+Adam iteration (loss, backward, Adam, parameter add) is captured once per
+key and replayed for every iteration after, so that an iteration costs
+the host one graph launch where the eager loop launches each kernel. The
+same kernels run in the same order on the same data, so the bits are the
+eager loop's. The grid styler's sequence paths use it (``styler/grid.py``
+``_sweep``); every other caller runs :func:`run_octave`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Hashable, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from nfs_tpu_torch.ops import advect_kernels, binsplat_kernels
 from nfs_tpu_torch.utils.profiling import span
 
 Param = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+# the hand kernels' launch counters, which a replayed octave adds to
+_LAUNCH_COUNTERS = (advect_kernels.LAUNCHES, binsplat_kernels.LAUNCHES)
 
 
 @dataclass
@@ -66,13 +78,38 @@ class Adam:
         nu = _leafwise(lambda g, v: (1 - b2) * g ** 2 + b2 * v, grad,
                        state.nu)
         count = state.count + 1
-        # optax computes decay**count in float32
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        bc1, bc2 = self._corrections(count)
         updates = _leafwise(
             lambda m, v: -self.lr * ((m / bc1) / (torch.sqrt(v / bc2)
                                                   + self.eps)), mu, nu)
         return updates, AdamState(count, mu, nu)
+
+    def _corrections(self, count: int) -> Tuple[float, float]:
+        """The bias corrections ``1 - b1^count`` and ``1 - b2^count``
+        (optax computes decay**count in float32)."""
+        one = np.float32(1)
+        return (float(one - np.float32(self.b1) ** np.float32(count)),
+                float(one - np.float32(self.b2) ** np.float32(count)))
+
+    def _step_in_place(self, grad: Param, mu: Param, nu: Param,
+                       param: Param, inv_bc1: torch.Tensor,
+                       inv_bc2: torch.Tensor) -> None:
+        """:meth:`update` and the parameter add of :func:`run_octave`,
+        written into ``mu``, ``nu`` and ``param`` with the eager loop's
+        operations in its order. The bias corrections come as device
+        tensors of their float32 reciprocals: on CUDA a tensor divided by
+        a Python float is computed as the product with the scalar's
+        float32 reciprocal, which these give bit for bit."""
+        b1, b2 = self.b1, self.b2
+
+        def leaf(g, m, v, p):
+            torch.add((1 - b1) * g, b1 * m, out=m)
+            torch.add((1 - b2) * g ** 2, b2 * v, out=v)
+            u = -self.lr * ((m * inv_bc1) / (torch.sqrt(v * inv_bc2)
+                                             + self.eps))
+            torch.add(p, u, out=p)
+
+        _leafwise(leaf, grad, mu, nu, param)
 
 
 def run_octave(param: Param, loss_fn: Callable, data,
@@ -134,11 +171,220 @@ def run_octave(param: Param, loss_fn: Callable, data,
                 with span("nfs.readback"):
                     mean = float(torch.stack(losses[start:]).mean())
                 callback(done, mean)
-    device = next(iter(param.values())).device if isinstance(
-        param, dict) else param.device
     losses_out = (torch.stack(losses) if losses else
-                  torch.zeros((0,), dtype=torch.float32, device=device))
+                  torch.zeros((0,), dtype=torch.float32,
+                              device=_device(param)))
     return param, losses_out, state
+
+
+def _clone(x: Param) -> Param:
+    return _leafwise(torch.clone, x)
+
+
+def _device(param: Param) -> torch.device:
+    return (next(iter(param.values())) if isinstance(param, dict)
+            else param).device
+
+
+class _OctaveGraph:
+    """One key's CUDA graph of an Adam iteration and the static buffers it
+    reads and writes: the param, Adam's moments, the octave's ``moved``
+    entries of ``data`` (copied in once per octave), the view sets of every
+    iteration, the bias corrections' reciprocals indexed by iteration, the
+    per-iteration losses, and the iteration counter, which the graph
+    increments itself. Everything is allocated before capture, outside the
+    graph's memory pool. Every other entry of ``data`` is the object the
+    graph was captured with, which each octave must hand in again.
+    ``launches``: the hand kernels' launches of one replay, by counter."""
+
+    def __init__(self, param: Param, data: Dict, views: Sequence,
+                 iters: int, moved: Sequence[str]):
+        self.iters = iters
+        self.param = _leafwise(torch.empty_like, param)
+        self.mu = _leafwise(torch.empty_like, param)
+        self.nu = _leafwise(torch.empty_like, param)
+        self.data = dict(data)
+        self.moved = [k for k in moved if data.get(k) is not None]
+        for k in self.moved:
+            self.data[k] = torch.empty_like(data[k])
+        dev = _device(param)
+        # the grid is the image (2D): the loss takes no views
+        self.positions = len(views[0])
+        self.views = (None if views[0][0] is None else torch.empty(
+            (iters, self.positions) + tuple(views[0][0].shape),
+            dtype=views[0][0].dtype, device=dev))
+        self.losses = torch.zeros((iters,), dtype=torch.float32, device=dev)
+        self.it = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.inv_bc1 = torch.ones((iters,), dtype=torch.float32, device=dev)
+        self.inv_bc2 = torch.ones_like(self.inv_bc1)
+        # Adam's step count at iteration i is i + offset + 1
+        self.offset = None
+        self.graph = None
+        self.launches = []
+
+    def load(self, param: Param, data: Dict, views: Sequence,
+             state: AdamState, start_iter: int, optimizer: Adam) -> None:
+        """Copy one octave's inputs into the static buffers (``state``
+        None: a fresh Adam); the host waits for nothing unless a resumed
+        octave's step count calls for other bias corrections than the
+        tables hold. Raises where an entry of ``data`` that is not moved
+        is another object than the graph's."""
+        stale = [k for k in data.keys() | self.data.keys()
+                 if k not in self.moved
+                 and data.get(k) is not self.data.get(k)]
+        if stale:
+            raise ValueError(f"the octave's {sorted(stale)} are not the "
+                             f"objects its CUDA graph was captured with")
+        _leafwise(torch.Tensor.copy_, self.param, param)
+        if state is None:
+            _leafwise(torch.Tensor.zero_, self.mu)
+            _leafwise(torch.Tensor.zero_, self.nu)
+        else:
+            _leafwise(torch.Tensor.copy_, self.mu, state.mu)
+            _leafwise(torch.Tensor.copy_, self.nu, state.nu)
+        for k in self.moved:
+            self.data[k].copy_(data[k])
+        if self.views is not None:
+            torch.stack([v for row in views for v in row],
+                        out=self.views.view((-1,) + self.views.shape[2:]))
+        offset = (0 if state is None else state.count) - start_iter
+        if offset != self.offset:
+            inv1, inv2 = [], []
+            for i in range(self.iters):
+                # (a resumed octave's iterations before start_iter: unused)
+                bc1, bc2 = optimizer._corrections(max(i + offset + 1, 1))
+                inv1.append(np.float32(1) / np.float32(bc1))
+                inv2.append(np.float32(1) / np.float32(bc2))
+            self.inv_bc1.copy_(torch.from_numpy(np.array(inv1, np.float32)))
+            self.inv_bc2.copy_(torch.from_numpy(np.array(inv2, np.float32)))
+            self.offset = offset
+        self.it.fill_(start_iter)
+
+    def step(self, loss_fn: Callable, optimizer: Adam) -> None:
+        """One Adam iteration on the static buffers (what is captured)."""
+        views = ([None] * self.positions if self.views is None
+                 else self.views.index_select(0, self.it)[0])
+        loss, grad = value_and_grad(loss_fn, self.param, views, self.data)
+        with span("nfs.adam"):
+            optimizer._step_in_place(
+                grad, self.mu, self.nu, self.param,
+                self.inv_bc1.index_select(0, self.it),
+                self.inv_bc2.index_select(0, self.it))
+        self.losses.index_copy_(0, self.it,
+                                loss.detach().to(torch.float32).reshape(1))
+        self.it.add_(1)
+
+
+class _OctaveGraphs:
+    """:func:`run_octave` on a GPU as CUDA graphs, one per key: the first
+    octave run with a key captures one Adam iteration, and every
+    iteration of it and of each later octave with the key replays that
+    graph. The key must name whatever makes two octaves' iterations
+    differ other than the static buffers' contents (``styler/grid.py``
+    ``_octave_key``). A replay needs no host work besides the graph's
+    launch; callbacks and checkpoints run between replays, at the eager
+    loop's chunk ends. What leaves an octave (the param, the losses, Adam's
+    state, what the callbacks receive) is a copy of the static buffers,
+    which the next octave with the key overwrites.
+
+    The graphs share one memory pool: their intermediates are dead between
+    replays and two octaves never run at once. A capture that fails
+    raises. The hand kernels' ``LAUNCHES`` count what the card launches:
+    a capture's launches are taken back out, and each octave adds its
+    replays' once it ends. Captures and replays are counted in
+    ``captures`` and ``replays``; under the profiler they are the spans
+    ``nfs.capture`` and ``nfs.replay`` (each replay inside ``nfs.iter``).
+    """
+
+    def __init__(self):
+        self._graphs: Dict[Hashable, _OctaveGraph] = {}
+        self._pool = None
+        self.captures = 0
+        self.replays = 0
+
+    def _capture(self, g: _OctaveGraph, loss_fn, optimizer) -> None:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        counters = _LAUNCH_COUNTERS
+        before = [dict(c) for c in counters]
+        with span("nfs.capture"):
+            # cuBLAS keeps a workspace per handle (the host thread's and
+            # autograd's) and stream, and a capture allocates new ones for
+            # its stream inside the graph's pool. Dropping the cached ones
+            # before and after keeps the capture, and the eager work after
+            # it, from holding both sets at once: the eager stream's come
+            # back at its next product, and the graph's stay its own, free
+            # in a pool that only this styler's captures draw from, which
+            # never run at the same time as it.
+            clear = getattr(torch._C, "_cuda_clearCublasWorkspaces",
+                            lambda: None)
+            clear()
+            try:
+                # torch's shared capture stream, the same for every capture
+                with torch.cuda.graph(graph, pool=self._pool):
+                    g.step(loss_fn, optimizer)
+            finally:
+                clear()
+                # a captured launch runs at each replay, not at the capture
+                g.launches = [{k: c[k] - b[k] for k in c}
+                              for c, b in zip(counters, before)]
+                for c, b in zip(counters, before):
+                    c.update(b)
+        g.graph = graph
+        self.captures += 1
+
+    def run(self, key: Hashable, param: Param, loss_fn: Callable, data,
+            views: Sequence, iters: int, optimizer: Adam,
+            moved: Sequence[str] = (), log_every: int = 10,
+            callback: Callable = None, init_opt_state: AdamState = None,
+            start_iter: int = 0, state_callback: Callable = None
+            ) -> Tuple[Param, torch.Tensor, AdamState]:
+        """:func:`run_octave`'s arguments and results, under ``key``
+        (capturing it where it has no graph yet). ``moved``: the entries
+        of ``data`` whose tensors may differ from octave to octave; the
+        others must be the objects of the key's first octave."""
+        if len(views) != iters:
+            raise ValueError(f"{len(views)} view draws for {iters} "
+                             f"iterations")
+        count = 0 if init_opt_state is None else init_opt_state.count
+        g = self._graphs.get(key)
+        fresh = g is None
+        if fresh:
+            g = _OctaveGraph(param, data, views, iters, moved)
+        g.load(param, data, views, init_opt_state, start_iter, optimizer)
+        if fresh:
+            self._capture(g, loss_fn, optimizer)
+            self._graphs[key] = g
+        observed = callback is not None or state_callback is not None
+        chunk = log_every if observed else iters
+        replayed = 0
+        try:
+            for i in range(start_iter, iters):
+                with span("nfs.iter"), span("nfs.replay"):
+                    g.graph.replay()
+                replayed += 1
+                done = i + 1
+                if observed and (done % chunk == 0 or done == iters):
+                    if state_callback is not None:
+                        with span("nfs.checkpoint"):
+                            state_callback(done, _clone(g.param), AdamState(
+                                count + done - start_iter, _clone(g.mu),
+                                _clone(g.nu)))
+                    if callback is not None:
+                        lo = max((done - 1) // chunk * chunk, start_iter)
+                        with span("nfs.readback"):
+                            # a copy: the eager loop's stacked losses
+                            mean = float(g.losses[lo:done].clone().mean())
+                        callback(done, mean)
+        finally:
+            self.replays += replayed
+            for c, n in zip(_LAUNCH_COUNTERS, g.launches):
+                for k, m in n.items():
+                    c[k] += m * replayed
+        return (_clone(g.param), g.losses[start_iter:].clone(),
+                AdamState(count + iters - start_iter, _clone(g.mu),
+                          _clone(g.nu)))
 
 
 def value_and_grad(loss_fn: Callable, param: Param, *args):
