@@ -7,7 +7,8 @@
   2. ``splat_binned``: every iteration, the splat is 27 (3D) / 9 (2D)
      dense shifted adds over the bin arrays, and its gradient is as dense.
      The 3D single-channel B-spline case goes through the CUDA window
-     kernels instead (``ops/binsplat_kernels.py``).
+     kernels instead (``ops/binsplat_kernels.py``); LNST's colour takes
+     ``splat_binned_color``, one 5-channel pass.
 
 Layouts, as in the JAX package: binned payloads are SLOT-MINOR, vectors
 ``(C, n_slots + N)``; slots are rank-major (``slot = rank * n_cells +
@@ -34,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from nfs_tpu_torch.ops.jaxgrad import jax_clip
 from nfs_tpu_torch.ops.splat import _kernel_weight_1d
 from nfs_tpu_torch.utils.profiling import span
 
@@ -253,41 +255,65 @@ def splat_binned(p_b: torch.Tensor, attr_b: torch.Tensor,
     kernel at support 1.
     """
     with span("nfs.splat"):
-        T = n_taps(kernel)
-        ndim = len(shape)
-        pshape = padded_shape(shape)
-        batched = valid.ndim == 2
-        if not batched:
-            p_b, attr_b, valid = p_b[None], attr_b[None], valid[None]
-        B = p_b.shape[0]
-        has_c = attr_b.ndim == 3
-        if not has_c:
-            attr_b = attr_b[:, None]
-        C = attr_b.shape[1]
-        n_slots = math.prod(pshape) * K
+        return _splat_binned(p_b, attr_b, valid, shape, K, kernel)
 
-        a = torch.where(valid[:, None], attr_b[..., :n_slots], 0.0).reshape(
-            (B, C, K) + pshape)
-        # offset of each particle from its binned base cell, whose coordinate
-        # is the slot's own index in the dense array
-        frac = []
-        for d in range(ndim):
-            coord = torch.arange(pshape[d], dtype=torch.float32,
-                                 device=p_b.device).reshape(
-                (pshape[d],) + (1,) * (ndim - 1 - d))
-            frac.append(p_b[:, d, :n_slots].reshape((B, K) + pshape)
-                        + float(PAD) - coord)
-        # factorized per-axis weights, shared by all T^ndim taps
-        W = [[_kernel_weight_1d(float(o) - frac[d], kernel) for o in range(T)]
-             for d in range(ndim)]
-        out = torch.zeros((B, C) + pshape, dtype=a.dtype, device=a.device)
-        for off in itertools.product(range(T), repeat=ndim):
-            w = W[0][off[0]]
-            for d in range(1, ndim):
-                w = w * W[d][off[d]]
-            contrib = (w[:, None] * a).sum(dim=2)       # contract over K
-            out = out + _shift_into(contrib, off, pshape)
-        out = out[(slice(None), slice(None)) + tuple(
-            slice(PAD, PAD + shape[d]) for d in range(ndim))]
-        out = torch.movedim(out, 1, -1) if has_c else out[:, 0]
-        return out if batched else out[0]
+
+def splat_binned_color(p_b: torch.Tensor, dens_b: torch.Tensor,
+                       color_b: torch.Tensor, valid: torch.Tensor,
+                       shape: Tuple[int, ...], K: int,
+                       kernel: str = "bspline"):
+    """LNST's colour pass over binned particles, as the JAX package runs
+    it: one 5-channel :func:`splat_binned` of [density, colour clipped to
+    [0, 1] (gradient 0.5 at a bound, as ``jnp.clip``'s), ones], the
+    colour grid normalized by the last channel (plus 1e-6).
+
+    ``dens_b`` (n_slots [+ N],), ``color_b`` (3, n_slots [+ N]), or both
+    with a leading keyframe B as :func:`splat_binned` takes them. Returns
+    the density grid (*shape) and the colour grid (*shape, 3), each with
+    the leading B of a batch."""
+    with span("nfs.splat_color"):
+        attr = torch.cat([dens_b.unsqueeze(-2), jax_clip(color_b, 0.0, 1.0),
+                          torch.ones_like(dens_b).unsqueeze(-2)], dim=-2)
+        out = _splat_binned(p_b, attr, valid, shape, K, kernel)
+        return out[..., 0], out[..., 1:4] / (out[..., 4:5] + 1e-6)
+
+
+def _splat_binned(p_b, attr_b, valid, shape, K, kernel):
+    T = n_taps(kernel)
+    ndim = len(shape)
+    pshape = padded_shape(shape)
+    batched = valid.ndim == 2
+    if not batched:
+        p_b, attr_b, valid = p_b[None], attr_b[None], valid[None]
+    B = p_b.shape[0]
+    has_c = attr_b.ndim == 3
+    if not has_c:
+        attr_b = attr_b[:, None]
+    C = attr_b.shape[1]
+    n_slots = math.prod(pshape) * K
+
+    a = torch.where(valid[:, None], attr_b[..., :n_slots], 0.0).reshape(
+        (B, C, K) + pshape)
+    # offset of each particle from its binned base cell, whose coordinate
+    # is the slot's own index in the dense array
+    frac = []
+    for d in range(ndim):
+        coord = torch.arange(pshape[d], dtype=torch.float32,
+                             device=p_b.device).reshape(
+            (pshape[d],) + (1,) * (ndim - 1 - d))
+        frac.append(p_b[:, d, :n_slots].reshape((B, K) + pshape)
+                    + float(PAD) - coord)
+    # factorized per-axis weights, shared by all T^ndim taps
+    W = [[_kernel_weight_1d(float(o) - frac[d], kernel) for o in range(T)]
+         for d in range(ndim)]
+    out = torch.zeros((B, C) + pshape, dtype=a.dtype, device=a.device)
+    for off in itertools.product(range(T), repeat=ndim):
+        w = W[0][off[0]]
+        for d in range(1, ndim):
+            w = w * W[d][off[d]]
+        contrib = (w[:, None] * a).sum(dim=2)       # contract over K
+        out = out + _shift_into(contrib, off, pshape)
+    out = out[(slice(None), slice(None)) + tuple(
+        slice(PAD, PAD + shape[d]) for d in range(ndim))]
+    out = torch.movedim(out, 1, -1) if has_c else out[:, 0]
+    return out if batched else out[0]

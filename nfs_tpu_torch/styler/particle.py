@@ -22,8 +22,9 @@ package:
   pair K4/K5 (``splat_binned_window``; the plain versions on a CPU
   tensor); ``splat_impl='binned'``, 2D grids and colour take the generic
   ``splat_binned``, colour as one 5-channel pass [density, colour(3),
-  ones] whose last channel normalizes the colour, as the JAX package runs
-  its multi-channel XLA window there. Bin capacities K come from one occupancy probe per
+  ones] whose last channel normalizes the colour
+  (``splat_binned_color``), as the JAX package runs its multi-channel XLA
+  window there. Bin capacities K come from one occupancy probe per
   frame with one host sync (``_octave_ks``), reused across frames until a
   frame parks too many particles.
 - grid-space coarse octaves (``particle.coarse_mode='grid'`` with the
@@ -63,7 +64,7 @@ from nfs_tpu_torch.core.config import StyleConfig
 from nfs_tpu_torch.core.pytrees import ParticleSet
 from nfs_tpu_torch.ops.binsplat import (
     bin_count_stats, bin_particles, bucket_k, from_binned, padded_shape,
-    splat_binned, to_binned)
+    splat_binned, splat_binned_color, to_binned)
 from nfs_tpu_torch.ops.jaxgrad import jax_clip
 from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
 from nfs_tpu_torch.ops.interp import grid_sample
@@ -367,14 +368,9 @@ class ParticleStyler(StylerBase):
                                                pc.max_log_dens)
             c_grid = None
             if "color" in param_b:
-                colb = jax_clip(param_b["color"], 0.0, 1.0)
-                attr = torch.cat([dens_eff.unsqueeze(-2), colb,
-                                  torch.ones_like(dens_eff).unsqueeze(-2)],
-                                 dim=-2)
-                out = splat_binned(pb, attr, valid, shape, K,
-                                   kernel=pc.kernel)
-                d_grid = out[..., 0]
-                c_grid = out[..., 1:4] / (out[..., 4:5] + 1e-6)
+                d_grid, c_grid = splat_binned_color(
+                    pb, dens_eff, param_b["color"], valid, shape, K,
+                    kernel=pc.kernel)
             elif window:
                 d_grid = splat_binned_window(pb, dens_eff, valid, shape, K)
             else:

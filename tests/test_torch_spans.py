@@ -5,10 +5,13 @@ and allocates nothing. Under ``torch.profiler`` each span is an operator
 range of the trace, and the stylers emit them at their layer boundaries:
 the streamed grid styler frame > octave > iteration > {transport, render,
 features, backward, adam} with the warm start on frame 1, the particle
-styler's bin plan, splats and interpolation, and both engines on a (1, 1)
-mesh their job, octaves and iterations. Recording changes no number: the
-outputs and losses are bitwise those of a run without a profiler. A
-Chrome trace written by ``utils.profiling.trace`` shows the ranges.
+styler's bin plan, splats and interpolation, LNST's colour pass in a span
+of its own that ``benchmark/spans.py`` gives its forward and backward
+(and that a density-only keyframe never opens), and both engines on a
+(1, 1) mesh their job, octaves and iterations. Recording changes no
+number: the outputs and losses are bitwise those of a run without a
+profiler. A Chrome trace written by ``utils.profiling.trace`` shows the
+ranges.
 """
 
 import json
@@ -20,6 +23,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from benchmark import spans as bench_spans
 from nfs_tpu_torch.core.config import StyleConfig, replace
 from nfs_tpu_torch.core.pytrees import ParticleSet
 from nfs_tpu_torch.parallel import (
@@ -211,6 +215,47 @@ def test_particle_keyframes_plan_splat_and_interpolate():
     assert "nfs.bin_plan" in _parents(spans, "nfs.readback")
     assert _parents(spans, "nfs.interp") == {None}
     assert _same(_keyframes(), (out, losses))
+
+
+@pytest.mark.parametrize("color", [True, False], ids=["colour", "density"])
+def test_the_colour_pass_is_a_span_of_its_own(color):
+    """Each operator stands in for a kernel launch (as in
+    ``benchmark/tests/test_benchmark_spans.py``): under ``spans.reduce``
+    the colour pass's forward operators and the backward of the colour
+    pass land in ``nfs.splat_color``, the innermost span around them; a
+    density-only keyframe opens no such span."""
+    cfg = dict(PARTICLE_CFG, **{"particle.optimize_color": color})
+    styler = ParticleStyler(replace(StyleConfig(), **cfg), grid_shape=PGRID,
+                            style_image=STYLE, device="cpu")
+    pset = _psets(T=1)[0]
+    rng = np.random.default_rng(3)
+    pset = ParticleSet(x=pset.x, dens=pset.dens, color=rng.random(
+        (pset.x.shape[0], 3), dtype=np.float32) if color else None)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        styler.stylize_frame(pset)
+    events = bench_spans.raw_events(prof)
+    opened = [e for e in events if e.name == "nfs.splat_color"]
+    if not color:
+        assert not opened
+        return
+    # the finest octave's iterations, each one pass
+    assert len(opened) == PARTICLE_CFG["optim.iters"]
+    inside = [e for e in events if e.name.startswith("nfs.") and any(
+        o.thread == e.thread and o.start < e.start <= o.end for o in opened)]
+    assert not inside, "nfs.splat_color is not the innermost span"
+    extra, corr, forward = [], 10 ** 9, 0
+    for e in events:
+        if e.name.startswith("aten::"):
+            corr += 1
+            extra += [bench_spans.Event("cudaLaunchKernel", False, e.start,
+                                        e.start, e.thread, corr, -1, 0),
+                      bench_spans.Event("stand_in", True, e.end, e.end + 1.0,
+                                        0, corr, -1, 0)]
+            forward += any(o.thread == e.thread and o.start <= e.start
+                           <= o.end for o in opened)
+    s = bench_spans.reduce(events + extra)
+    assert s["launches"]["nfs.splat_color"] > forward > 0
+    assert "nfs.splat_color" in s["device_s"]
 
 
 @pytest.mark.parametrize("run,loss_layer", [
