@@ -217,6 +217,12 @@ BIN_KERNELS = (
 # values against sums of the same terms in another order; K5's position
 # gradients are sums of 27 products of O(1) weights and O(1) cotangents
 BIN_TOL = {"fwd": 1e-5, "bwd": 1e-4}
+# LNST's colour pair (binsplat.cu), which replaces no TPU kernel
+COLOR_KERNELS = (
+    ("color_fwd", "binsplat_color_fwd (K4c)", "none"),
+    ("color_bwd", "binsplat_color_bwd (K5c)", "none"),
+)
+COLOR_TOL = {"color_fwd": BIN_TOL["fwd"], "color_bwd": BIN_TOL["bwd"]}
 
 # The particles_3d bench (bench/full_bench.py:194-230): 200 000 particles
 # uniform on [8, 88) x [8, 56) x [8, 88) of a 96x64x96 grid
@@ -239,7 +245,14 @@ F32_FLOPS = 67e12
 # (4) and 27 taps of 4 sums (16)
 OPS_PER_ELEMENT = {"fwd": 116, "bwd_field": 116, "bwd_vel": 282,
                    "bwd_fused": 116 + 282,
-                   "binsplat_fwd": 150, "binsplat_bwd": 513}
+                   "binsplat_fwd": 150, "binsplat_bwd": 513,
+                   # per VALID slot: K4c the fracs (2), 9 weights (4), 27
+                   # taps' weights (2) and 5 channels' terms (2); K5c the
+                   # fracs, weights, 9 derivatives (4), 27 taps of 4
+                   # attribute sums (2), the folded cotangent (9) and 3
+                   # position sums (3), and the clip (3)
+                   "binsplat_color_fwd": 6 + 36 + 27 * 12,
+                   "binsplat_color_bwd": 6 + 72 + 27 * 26 + 3}
 
 
 def emit(obj) -> None:
@@ -2056,41 +2069,126 @@ def phase_2d(card: str):
 
 def _color_pass_ms(x, dens, color, K: int):
     """Times, at the finest octave of the colour keyframe (its grid and
-    bin capacity K), of the one 5-channel binned pass [density,
-    colour(3), ones] that the colour path runs every iteration, forward
-    and forward + backward, and of the density-only K4/K5 window pass of
-    the same bins for comparison (``_median_ms``: one call between two
-    CUDA events)."""
+    bin capacity K), of the colour pass [density, colour(3), ones] with
+    its normalization, forward and forward + backward, on the route the
+    styler takes (``splat_binned_color_window``: K4c/K5c) and on the
+    generic 5-channel pass it replaced (``splat_binned_color``), and of
+    the density-only K4/K5 window pass of the same bins for comparison
+    (``_median_ms``: one call between two CUDA events)."""
     import torch
 
-    from nfs_tpu_torch.ops.binsplat import bin_particles, splat_binned, \
-        to_binned
-    from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
+    from nfs_tpu_torch.ops.binsplat import bin_particles, \
+        splat_binned_color, to_binned
+    from nfs_tpu_torch.ops.binsplat_kernels import \
+        splat_binned_color_window, splat_binned_window
 
     bn = bin_particles(x, P_GRID, K)
-    pb = to_binned(bn, x)
-    attr = torch.cat([to_binned(bn, dens)[None], to_binned(bn, color),
-                      torch.ones_like(pb[:1])])
-    g5 = torch.randn(P_GRID + (5,), device=x.device)
-    g1 = g5[..., 0].contiguous()
+    pb, db, cb = to_binned(bn, x), to_binned(bn, dens), to_binned(bn, color)
+    h = torch.randn(P_GRID + (4,), device=x.device)
 
-    def fwd():
-        return splat_binned(pb, attr, bn.valid, P_GRID, K)
+    def fwd(route):
+        return route(pb, db, cb, bn.valid, P_GRID, K)
 
-    def fwd_bwd(window=False):
-        p = pb.detach().requires_grad_(True)
-        if window:
-            a = attr[0].detach().requires_grad_(True)
-            out, g = splat_binned_window(p, a, bn.valid, P_GRID, K), g1
-        else:
-            a = attr.detach().requires_grad_(True)
-            out, g = splat_binned(p, a, bn.valid, P_GRID, K), g5
-        return torch.autograd.grad(out, (p, a), g)
+    def fwd_bwd(route=None):
+        p, d, c = (t.detach().requires_grad_(True) for t in (pb, db, cb))
+        if route is None:
+            out = splat_binned_window(p, d, bn.valid, P_GRID, K)
+            return torch.autograd.grad(out, (p, d), h[..., 0])
+        dg, cg = route(p, d, c, bn.valid, P_GRID, K)
+        loss = (dg * h[..., 0]).sum() + (cg * h[..., 1:]).sum()
+        return torch.autograd.grad(loss, (p, d, c))
 
-    return {"fwd_ms": _median_ms(fwd, runs=10),
-            "fwd_bwd_ms": _median_ms(fwd_bwd, runs=10),
-            "density_window_k4_k5_fwd_bwd_ms": _median_ms(
-                lambda: fwd_bwd(True), runs=10)}
+    window, generic = splat_binned_color_window, splat_binned_color
+    return {"fwd_ms": _median_ms(lambda: fwd(window), runs=10),
+            "fwd_bwd_ms": _median_ms(lambda: fwd_bwd(window), runs=10),
+            "generic_fwd_ms": _median_ms(lambda: fwd(generic), runs=10),
+            "generic_fwd_bwd_ms": _median_ms(lambda: fwd_bwd(generic),
+                                             runs=10),
+            "density_window_k4_k5_fwd_bwd_ms": _median_ms(fwd_bwd, runs=10)}
+
+
+def _color_inputs(K: int, seed: int):
+    """The colour pair's operands at the particle path's finest octave:
+    the particles_3d bench particles binned at P_GRID with capacity K and
+    moved by up to 0.5 cells, densities, colours from -0.1 to 1.1 (an
+    eighth of them clipped at each bound, a few tied at 0 and 1), on the
+    card: ((p, dens, color, valid), the cotangent (Z, Y, X, 5), valid
+    slots, parked particles)."""
+    import torch
+
+    from nfs_tpu_torch.ops import binsplat as B
+
+    rng = np.random.default_rng(seed)
+    x = _bench_particles(rng)
+    dev = torch.device("cuda", 0)
+    xt = torch.from_numpy(x).to(dev)
+    bn = B.bin_particles(xt, P_GRID, K)
+    xt = xt + torch.from_numpy(rng.uniform(-0.5, 0.5, x.shape).astype(
+        np.float32)).to(dev)
+    color = rng.uniform(-0.1, 1.1, (P_COUNT, 3))
+    color[: P_COUNT // 50] = np.round(color[: P_COUNT // 50])
+    bins = (B.to_binned(bn, xt),
+            B.to_binned(bn, torch.from_numpy(
+                (0.5 + rng.random(P_COUNT)).astype(np.float32)).to(dev)),
+            B.to_binned(bn, torch.from_numpy(color.astype(np.float32))
+                        .to(dev)),
+            bn.valid)
+    g = torch.from_numpy(rng.standard_normal(P_GRID + (5,), dtype=np.float32)
+                         ).to(dev)
+    return bins, g, int(bn.valid.sum()), int(bn.n_overflow)
+
+
+def _color_kernels(card: str, K: int):
+    """K4c and K5c against their plain twins at the finest octave (K the
+    colour keyframe's finest capacity), each launched twice and bitwise
+    equal; then each timed as ``phase_bin_kernels`` times K4/K5, with its
+    least time: each valid byte, each valid slot's 7 floats and each cell
+    of the splat (K4c) or its cotangent (K5c) once, and K5c's 7 gradient
+    floats of every slot written once. Returns the kernel table's
+    records."""
+    import torch
+
+    from nfs_tpu_torch.ops import binsplat_kernels as bk
+
+    bins, g, occupied, parked = _color_inputs(K, seed=97)
+    S, n_slots = bins[0].shape[-1], bins[3].numel()
+    cells = math.prod(P_GRID)
+    calls = {
+        "color_fwd": (lambda: bk.binsplat_color_fwd(*bins, K, P_GRID),
+                      lambda: bk.window_color_fwd_plain(*bins, K, P_GRID),
+                      n_slots + 4 * (7 * occupied + 5 * cells),
+                      OPS_PER_ELEMENT["binsplat_color_fwd"] * occupied),
+        "color_bwd": (lambda: bk.binsplat_color_bwd(*bins, g, K),
+                      lambda: bk.window_color_bwd_plain(*bins, g, K),
+                      n_slots + 4 * (7 * occupied + 5 * cells + 7 * S),
+                      OPS_PER_ELEMENT["binsplat_color_bwd"] * occupied)}
+    records = []
+    for key, name, replaces in COLOR_KERNELS:
+        kern, plain, nbytes, ops = calls[key]
+        got = kern()
+        err = _max_err(got, plain())
+        if not _equal(got, kern()):
+            raise AssertionError(f"{name}: two launches differ")
+        torch.cuda.synchronize()
+        if not err <= COLOR_TOL[key]:    # also catches NaN
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at the finest octave: {err}")
+        t = {"ms": _median_ms(kern), "plain_ms": _median_ms(plain),
+             "device_ms": _device_ms(kern), "host_us": _host_us(kern)}
+        t["bound_ms"], t["bound_by"] = _bound(nbytes, ops)
+        t["share"] = t["bound_ms"] / t["device_ms"]
+        t.update(library_ms=None, library_device_ms=None,
+                 library_host_us=None)
+        emit({"phase": "kernel_time", "kernel": name, "K": K,
+              "grid": list(P_GRID), "slots": S, "valid_slots": occupied,
+              "parked": parked, **t, "least_bytes": nbytes,
+              "max_abs_err": err, "tol": COLOR_TOL[key],
+              "bitwise_repeat": True, "card": card})
+        records.append({"name": name, "route": "cuda",
+                        "source": "nfs_tpu_torch/csrc/binsplat.cu",
+                        "replaces": replaces, "launches": None,
+                        "max_abs_err": err, **t})
+    return records
 
 
 def _color_reference_run(dev: str, grid, eps: float = 0.0):
@@ -2159,12 +2257,16 @@ def _reference_color(card: str):
 def phase_color(card: str, root: str):
     """LNST colour at the particles_3d width (200 000 particles, 96x64x96,
     9 views, 256^2 renders, position + density + colour) on one keyframe,
-    3 octaves x 4 iterations, run twice (the second timed); the binned
-    colour pass alone at the finest octave; then a 2D particle run on the
-    scene CLI's liquid2d frames (128x128, config #5's 2D grid, 3 frames,
-    keyframes 0 and 2, 2 octaves x 5 iterations). The colour pass runs
-    the generic binned splat, as the JAX package runs its XLA window
-    there; the density-only coarse octaves' one splat runs K4."""
+    3 octaves x 4 iterations, run twice (the second timed): one K4c and
+    one K5c launch per finest-octave iteration, the only binned colour
+    ones (the density-only coarse octaves' one splat runs K4); the colour
+    pass alone at the finest octave, on K4c/K5c and on the generic pass;
+    K4c and K5c against their plain twins there and timed
+    (``_color_kernels``); then a 2D particle run on the scene CLI's
+    liquid2d frames (128x128, config #5's 2D grid, 3 frames, keyframes 0
+    and 2, 2 octaves x 5 iterations), whose colour takes the generic
+    pass, as the JAX package runs its XLA window. Returns the kernel
+    table's records of K4c and K5c and the keyframe runs' launches."""
     import torch
 
     from nfs_tpu_torch.cli import scene
@@ -2201,7 +2303,9 @@ def phase_color(card: str, root: str):
         raise AssertionError("colour keyframe: bad output")
     if not finest[-1] < finest[0]:
         raise AssertionError(f"colour: finest loss did not drop: {finest}")
-    if launches["fwd"] <= 0:
+    # two runs, each one K4c and one K5c launch per finest iteration
+    if launches["fwd"] <= 0 or not (
+            launches["color_fwd"] == launches["color_bwd"] == 2 * iters):
         raise AssertionError(f"colour keyframe launched {launches}")
     K = next(iter(styler._k_cache.values()))[-1]
     if K is None:
@@ -2210,6 +2314,7 @@ def phase_color(card: str, root: str):
     cpass = _color_pass_ms(torch.from_numpy(x).to(dev),
                            torch.ones(P_COUNT, device=dev),
                            torch.from_numpy(color).to(dev), K)
+    records = _color_kernels(card, K)
     s_iter = _octave_s_per_iter(marks, cfg.optim.octave_n - 1, iters)
     record = {"phase": "color", "particles": P_COUNT, "grid": list(P_GRID),
               "views": 9, "render": [256, 256],
@@ -2258,6 +2363,7 @@ def phase_color(card: str, root: str):
     record["reference"] = _reference_color(card)
     record["card"] = card
     emit(record)
+    return records, launches
 
 
 def _transfer_gather_reference_run(dev: str, eps: float = 0.0):
@@ -3983,7 +4089,7 @@ def main(argv=None) -> int:
     phase_exact(card)
     remat_losses = phase_remat(card)
     with tempfile.TemporaryDirectory(prefix="nfs_chip_smoke_") as tmp:
-        phase_color(card, tmp)
+        color_records, color_launches = phase_color(card, tmp)
         smoke_dir = phase_scene(card, tmp)
         phase_northstar(card, tmp)
         phase_cli(card, tmp, smoke_dir)
@@ -4000,7 +4106,9 @@ def main(argv=None) -> int:
                              remat_losses, density_s_per_iter)
     for recs, keys, counts in ((records, KERNELS, launches),
                                ([far_record], (BINNED,), launches),
-                               (bin_records, BIN_KERNELS, bin_launches)):
+                               (bin_records, BIN_KERNELS, bin_launches),
+                               (color_records, COLOR_KERNELS,
+                                color_launches)):
         for rec, (key, _, _) in zip(recs, keys):
             rec["launches"] = counts[key]
             if rec["launches"] <= 0:
@@ -4031,7 +4139,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{rec['name']} never launched on the "
                                  f"keyframe engine's path")
     emit({"phase": "total", "seconds": time.perf_counter() - started})
-    emit({"kernels": records + [far_record] + bin_records})
+    emit({"kernels": records + [far_record] + bin_records + color_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

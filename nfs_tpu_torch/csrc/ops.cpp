@@ -5,11 +5,13 @@
 // The advection operators take one field (D, H, W) or a batch of B fields
 // (B, D, H, W), with displacements of the same shape and a trailing 3, and
 // launch once either way; so do the binned-splat operators with one set of
-// (K, Zp, Yp, Xp) bins or a keyframe batch of them (B, K, Zp, Yp, Xp).
+// (K, Zp, Yp, Xp) bins or a keyframe batch of them (B, K, Zp, Yp, Xp), and
+// the colour operators with one keyframe's slot-minor bins or a batch.
 //
 // Each operator checks its tensors as the Python wrappers check CPU ones:
 // for each tensor in turn, TypeError unless it is float32 (int64 or int32
-// for the binned route's sorted indices and offsets), ValueError unless it
+// for the binned route's sorted indices and offsets, bool for the colour
+// bins' valid slots), ValueError unless it
 // has its shape, lies on the first tensor's device and is contiguous. It allocates the outputs, reads the device's current stream
 // through c10 and calls the kernel's C entry point (which makes the device
 // current when it is not); RuntimeError on the CUDA error that entry point
@@ -24,6 +26,8 @@
 #include <c10/core/impl/DeviceGuardImplInterface.h>
 #include <torch/library.h>
 
+#include <climits>
+#include <initializer_list>
 #include <string>
 #include <tuple>
 #include <vector>
@@ -61,6 +65,13 @@ int nfs_binsplat_bwd(const void* a, const void* pz, const void* py,
                      const void* px, const void* g, void* da, void* dpz,
                      void* dpy, void* dpx, int B, int K, int Z, int Y, int X,
                      int device, void* stream);
+int nfs_binsplat_color_fwd(const void* p, const void* dens, const void* color,
+                           const void* valid, void* out, int B, int K, int S,
+                           int Z, int Y, int X, int device, void* stream);
+int nfs_binsplat_color_bwd(const void* p, const void* dens, const void* color,
+                           const void* valid, const void* g, void* dp,
+                           void* ddens, void* dcolor, int B, int K, int S,
+                           int Z, int Y, int X, int device, void* stream);
 }
 
 namespace {
@@ -339,6 +350,103 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> binsplat_bwd(
   return {da, dpz, dpy, dpx};
 }
 
+// ``lead`` followed by ``rest``: a shape with the keyframe batch's B, or
+// without it.
+std::vector<int64_t> with_lead(const std::vector<int64_t>& lead,
+                               std::initializer_list<int64_t> rest) {
+  std::vector<int64_t> shape = lead;
+  shape.insert(shape.end(), rest);
+  return shape;
+}
+
+// LNST's colour bins of one keyframe, slot-minor as the styler holds
+// them: positions p (3, S), densities dens (S,) and colours color (3, S),
+// float32, and the dense slots' valid (n_slots,) bool, n_slots = K * (Z +
+// 4) * (Y + 4) * (X + 4) <= S for the unpadded grid (Z, Y, X); or a
+// keyframe batch with a leading B on all four. Checks them (valid: a
+// TypeError unless bool) and returns B (1 for one keyframe), S and the
+// leading shape.
+struct ColorBins {
+  int B, S;
+  std::vector<int64_t> lead;
+};
+
+ColorBins color_bins_of(const Tensor& p, const Tensor& dens,
+                        const Tensor& color, const Tensor& valid, int64_t K,
+                        int64_t Z, int64_t Y, int64_t X) {
+  TORCH_CHECK_VALUE(p.dim() == 2 || p.dim() == 3,
+                    "p: expected ([B,] 3, S), got ", shape_str(p.sizes()));
+  const std::vector<int64_t> lead(p.sizes().begin(), p.sizes().end() - 2);
+  const int64_t S = p.size(-1);
+  const at::Device device = p.device();
+  check("p", p, with_lead(lead, {3, S}), device);
+  check("dens", dens, with_lead(lead, {S}), device);
+  check("color", color, with_lead(lead, {3, S}), device);
+  const int64_t n_slots = K * (Z + 4) * (Y + 4) * (X + 4);
+  const std::vector<int64_t> mask = with_lead(lead, {n_slots});
+  TORCH_CHECK_TYPE(valid.scalar_type() == at::kBool,
+                   "valid: expected bool, got ", valid.scalar_type());
+  TORCH_CHECK_VALUE(valid.sizes().equals(mask), "valid: expected shape ",
+                    shape_str(mask), ", got ", shape_str(valid.sizes()));
+  TORCH_CHECK_VALUE(valid.device() == device, "valid: on ", valid.device(),
+                    ", expected ", device);
+  TORCH_CHECK_VALUE(valid.is_contiguous(), "valid: must be contiguous");
+  // numbers formatted by hand, as shape_str does
+  TORCH_CHECK_VALUE(n_slots <= S, "valid: " + std::to_string(n_slots) +
+                                      " dense slots, more than p's " +
+                                      std::to_string(S));
+  // the entry points take ints and refuse what their 32-bit indices
+  // cannot reach
+  const int64_t B = lead.empty() ? 1 : lead[0];
+  TORCH_CHECK(B <= INT_MAX && S <= INT_MAX && K <= INT_MAX && Z <= INT_MAX &&
+                  Y <= INT_MAX && X <= INT_MAX,
+              "colour bins past 32-bit indices");
+  return {static_cast<int>(B), static_cast<int>(S), lead};
+}
+
+// K4c: the colour splat ([B,] Z, Y, X, 5) of the unpadded grid (Z, Y, X):
+// density, colour clipped to [0, 1] and ones.
+Tensor binsplat_color_fwd(const Tensor& p, const Tensor& dens,
+                          const Tensor& color, const Tensor& valid, int64_t K,
+                          int64_t Z, int64_t Y, int64_t X) {
+  const ColorBins n = color_bins_of(p, dens, color, valid, K, Z, Y, X);
+  Tensor out = at::empty(with_lead(n.lead, {Z, Y, X, 5}), p.options());
+  raise_on(nfs_binsplat_color_fwd(
+               p.data_ptr(), dens.data_ptr(), color.data_ptr(),
+               valid.data_ptr(), out.data_ptr(), n.B, static_cast<int>(K),
+               n.S, static_cast<int>(Z), static_cast<int>(Y),
+               static_cast<int>(X), p.device().index(),
+               current_stream(p.device())),
+           "binsplat_color_fwd");
+  return out;
+}
+
+// K5c: (dp, ddens, dcolor), shaped as p, dens and color, given the colour
+// splat's cotangent g ([B,] Z, Y, X, 5), whose shape gives the grid.
+std::tuple<Tensor, Tensor, Tensor> binsplat_color_bwd(
+    const Tensor& p, const Tensor& dens, const Tensor& color,
+    const Tensor& valid, const Tensor& g, int64_t K) {
+  TORCH_CHECK_VALUE(p.dim() == 2 || p.dim() == 3,
+                    "p: expected ([B,] 3, S), got ", shape_str(p.sizes()));
+  TORCH_CHECK_VALUE(g.dim() == p.dim() + 2 && g.size(-1) == 5,
+                    "g: expected ([B,] Z, Y, X, 5), got ",
+                    shape_str(g.sizes()));
+  const int64_t Z = g.size(-4), Y = g.size(-3), X = g.size(-2);
+  const ColorBins n = color_bins_of(p, dens, color, valid, K, Z, Y, X);
+  check("g", g, with_lead(n.lead, {Z, Y, X, 5}), p.device());
+  Tensor dp = at::empty_like(p), ddens = at::empty_like(dens),
+         dcolor = at::empty_like(color);
+  raise_on(nfs_binsplat_color_bwd(
+               p.data_ptr(), dens.data_ptr(), color.data_ptr(),
+               valid.data_ptr(), g.data_ptr(), dp.data_ptr(),
+               ddens.data_ptr(), dcolor.data_ptr(), n.B, static_cast<int>(K),
+               n.S, static_cast<int>(Z), static_cast<int>(Y),
+               static_cast<int>(X), p.device().index(),
+               current_stream(p.device())),
+           "binsplat_color_bwd");
+  return {dp, ddens, dcolor};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(nfs_tpu_torch, m) {
@@ -365,6 +473,12 @@ TORCH_LIBRARY(nfs_tpu_torch, m) {
   m.def(
       "binsplat_bwd(Tensor a, Tensor pz, Tensor py, Tensor px, Tensor g) -> "
       "(Tensor, Tensor, Tensor, Tensor)");
+  m.def(
+      "binsplat_color_fwd(Tensor p, Tensor dens, Tensor color, Tensor valid, "
+      "int K, int Z, int Y, int X) -> Tensor");
+  m.def(
+      "binsplat_color_bwd(Tensor p, Tensor dens, Tensor color, Tensor valid, "
+      "Tensor g, int K) -> (Tensor, Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(nfs_tpu_torch, CUDA, m) {
@@ -377,4 +491,6 @@ TORCH_LIBRARY_IMPL(nfs_tpu_torch, CUDA, m) {
   m.impl("advect_bwd_fused", &advect_bwd_fused);
   m.impl("binsplat_fwd", &binsplat_fwd);
   m.impl("binsplat_bwd", &binsplat_bwd);
+  m.impl("binsplat_color_fwd", &binsplat_color_fwd);
+  m.impl("binsplat_color_bwd", &binsplat_color_bwd);
 }

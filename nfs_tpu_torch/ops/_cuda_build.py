@@ -175,28 +175,31 @@ def load_operators():
 F32 = torch.float32
 
 
-def check(what: str, names, tensors, shapes) -> None:
+def check(what: str, names, tensors, shapes, dtypes=None) -> None:
     """Every check of a kernel wrapper on CPU tensors, in one pass over
     its ``tensors``, as its operator makes them on CUDA tensors:
-    TypeError unless each is float32, ValueError unless each has its
-    shape (``shapes``), lies on the first tensor's device and is
-    contiguous, raised for the first failure in the order of ``names``
-    and of those four checks; RuntimeError unless that device is the
-    CPU. There is no fallback from CUDA to the plain version."""
+    TypeError unless each has its dtype (``dtypes``, float32 where not
+    given), ValueError unless each has its shape (``shapes``), lies on
+    the first tensor's device and is contiguous, raised for the first
+    failure in the order of ``names`` and of those four checks;
+    RuntimeError unless that device is the CPU. There is no fallback
+    from CUDA to the plain version."""
     first = tensors[0]
     dev = first.device
-    for t, shape in zip(tensors, shapes):
-        if (t.dtype is not F32 or t.shape != shape or t.device != dev
+    dtypes = dtypes or (F32,) * len(tensors)
+    for t, shape, dtype in zip(tensors, shapes, dtypes):
+        if (t.dtype is not dtype or t.shape != shape or t.device != dev
                 or not t.is_contiguous()):
-            _refuse(names, tensors, shapes, dev)
+            _refuse(names, tensors, shapes, dtypes, dev)
     if not first.is_cpu:
         raise RuntimeError(f"{what} run on cpu or cuda, not {dev}")
 
 
-def _refuse(names, tensors, shapes, dev) -> None:
-    for name, t, shape in zip(names, tensors, shapes):
-        if t.dtype is not F32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _refuse(names, tensors, shapes, dtypes, dev) -> None:
+    for name, t, shape, dtype in zip(names, tensors, shapes, dtypes):
+        if t.dtype is not dtype:
+            expected = str(dtype).removeprefix("torch.")
+            raise TypeError(f"{name}: expected {expected}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                              f"got {tuple(t.shape)}")

@@ -8,7 +8,9 @@
      dense shifted adds over the bin arrays, and its gradient is as dense.
      The 3D single-channel B-spline case goes through the CUDA window
      kernels instead (``ops/binsplat_kernels.py``); LNST's colour takes
-     ``splat_binned_color``, one 5-channel pass.
+     ``splat_binned_color``, one 5-channel pass, whose 3D B-spline case
+     the styler sends to the window kernels' colour pair K4c/K5c
+     (``binsplat_kernels.splat_binned_color_window``).
 
 Layouts, as in the JAX package: binned payloads are SLOT-MINOR, vectors
 ``(C, n_slots + N)``; slots are rank-major (``slot = rank * n_cells +

@@ -17,14 +17,15 @@ package:
 
 - binned (``ops/binsplat.py``): particles are sorted into dense
   (K, cells) bins once per chunk of ``particle.rebin_every`` iterations,
-  and every iteration splats the bins. For 3D B-spline density with
+  and every iteration splats the bins. For 3D B-spline grids with
   ``splat_impl`` 'auto' or 'binned_pallas' the splat is the window kernel
   pair K4/K5 (``splat_binned_window``; the plain versions on a CPU
-  tensor); ``splat_impl='binned'``, 2D grids and colour take the generic
-  ``splat_binned``, colour as one 5-channel pass [density, colour(3),
-  ones] whose last channel normalizes the colour
-  (``splat_binned_color``), as the JAX package runs its multi-channel XLA
-  window there. Bin capacities K come from one occupancy probe per
+  tensor), and colour the five-channel pair K4c/K5c
+  (``splat_binned_color_window``): one pass of [density, colour(3),
+  ones] whose last channel normalizes the colour. ``splat_impl='binned'``
+  and 2D grids take the generic ``splat_binned``, colour as the same
+  5-channel pass (``splat_binned_color``), as the JAX package runs its
+  multi-channel XLA window. Bin capacities K come from one occupancy probe per
   frame with one host sync (``_octave_ks``), reused across frames until a
   frame parks too many particles.
 - grid-space coarse octaves (``particle.coarse_mode='grid'`` with the
@@ -66,7 +67,8 @@ from nfs_tpu_torch.ops.binsplat import (
     bin_count_stats, bin_particles, bucket_k, from_binned, padded_shape,
     splat_binned, splat_binned_color, to_binned)
 from nfs_tpu_torch.ops.jaxgrad import jax_clip
-from nfs_tpu_torch.ops.binsplat_kernels import splat_binned_window
+from nfs_tpu_torch.ops.binsplat_kernels import (
+    splat_binned_color_window, splat_binned_window)
 from nfs_tpu_torch.ops.interp import grid_sample
 from nfs_tpu_torch.ops.resize import octave_shapes
 from nfs_tpu_torch.ops.splat import splat, splat_normalized
@@ -95,9 +97,10 @@ def _dens_scale(ddens: torch.Tensor, max_log: Optional[float]
 
 
 def _uses_window(pc, shape) -> bool:
-    """Whether the binned splat goes through the window kernels K4/K5:
-    3D B-spline with splat_impl 'auto' or 'binned_pallas' (where the JAX
-    package picks its Pallas kernels on a TPU)."""
+    """Whether the binned splat goes through the window kernels, K4/K5
+    for density and K4c/K5c for colour: 3D B-spline with splat_impl
+    'auto' or 'binned_pallas' (where the JAX package picks its Pallas
+    kernels on a TPU)."""
     return (pc.splat_impl in ("auto", "binned_pallas") and len(shape) == 3
             and pc.kernel == "bspline")
 
@@ -367,7 +370,10 @@ class ParticleStyler(StylerBase):
                 dens_eff = densb * _dens_scale(param_b["ddens"],
                                                pc.max_log_dens)
             c_grid = None
-            if "color" in param_b:
+            if "color" in param_b and window:
+                d_grid, c_grid = splat_binned_color_window(
+                    pb, dens_eff, param_b["color"], valid, shape, K)
+            elif "color" in param_b:
                 d_grid, c_grid = splat_binned_color(
                     pb, dens_eff, param_b["color"], valid, shape, K,
                     kernel=pc.kernel)

@@ -267,7 +267,8 @@ def test_operators_match_the_wrappers():
     assert called == {
         "advect_fwd", "advect_bwd_field", "advect_bin_sources",
         "advect_bwd_field_binned", "advect_bwd_vel", "advect_bwd_fused",
-        "binsplat_fwd", "binsplat_bwd"}
+        "binsplat_fwd", "binsplat_bwd", "binsplat_color_fwd",
+        "binsplat_color_bwd"}
     sources = "".join((_cuda_build.CSRC / src).read_text()
                       for src, _ in _cuda_build.KERNEL_SOURCES)
     entry = set(re.findall(r"^int (nfs_\w+)\(", sources, re.M))

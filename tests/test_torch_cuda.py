@@ -519,7 +519,8 @@ def test_binsplat_kernels_match_plain(cuda_device, case):
     for got, want in zip(bk.binsplat_bwd(a4, *p4, g),
                          bk.window_bwd_plain(a4, *p4, g)):
         torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
-    assert bk.LAUNCHES == {k: before[k] + 1 for k in before}
+    assert bk.LAUNCHES == dict(before, fwd=before["fwd"] + 1,
+                               bwd=before["bwd"] + 1)
 
 
 @pytest.mark.cuda
@@ -848,7 +849,7 @@ def test_binsplat_batched_launch_equals_single_launches(cuda_device, shape,
     fwd = bk.binsplat_fwd(a5, *p5)
     bwd = bk.binsplat_bwd(a5, *p5, g)
     assert {k: bk.LAUNCHES[k] - before[k] for k in before} == {
-        "fwd": 1, "bwd": 1}
+        "fwd": 1, "bwd": 1, "color_fwd": 0, "color_bwd": 0}
     for b in range(3):
         p4 = [p[b] for p in p5]
         assert torch.equal(fwd[b], bk.binsplat_fwd(a5[b], *p4))
@@ -885,7 +886,7 @@ def test_batched_bin_window_on_gpu_matches_cpu(cuda_device):
         launched = {k: bk.LAUNCHES[k] - before[k] for k in before}
         outs[str(dev)] = [t.detach().cpu() for t in (out, p_b.grad,
                                                     a_b.grad)]
-    assert launched == {"fwd": 1, "bwd": 1}
+    assert launched == {"fwd": 1, "bwd": 1, "color_fwd": 0, "color_bwd": 0}
     cpu, gpu = outs["cpu"], outs[str(cuda_device)]
     torch.testing.assert_close(gpu[0], cpu[0], atol=VALUE_ATOL, rtol=0)
     for a, b in zip(gpu[1:], cpu[1:]):
