@@ -18,7 +18,8 @@ frames at once.
   views group before Adam. ``backward`` on a views rank gives only that
   rank's partial gradient: without the reduction each rank would optimize
   with its own views alone and still appear to learn;
-- Adam is local to a frame shard (the parameters are frame-local);
+- Adam is local to a frame shard (the parameters are frame-local): the
+  port's one formula, ``Adam.update``, in a loop with an all_reduce in it;
 - the frames-axis sum of the loss is only reported, so it runs once per
   call over the stacked per-iteration losses.
 

@@ -478,8 +478,7 @@ class GridStyler(StylerBase):
                         moved=("d", "vels"), **run)
                 else:
                     param, losses, _ = run_octave(
-                        param, loss_fn, data, views, iters=iters, lr=oc.lr,
-                        b1=oc.b1, b2=oc.b2, **run)
+                        param, loss_fn, data, views, iters, oc.lr, **run)
                     self._eager_keys.add(key)
                 losses_all.append(losses)
         param = self._resize_param(param, prev, full_shape, space)

@@ -3,28 +3,21 @@
 ``run_octave`` optimizes one tensor, or a dict of tensors, under
 ``loss_fn(param, views, data) -> scalar``, where ``views`` is that
 iteration's camera argument and ``data`` the octave's constants
-(densities, VGG weights, Gram targets, view pool). Iterations run eagerly
-on the param's device; losses stay there until the caller reads them.
-Iterations are grouped in chunks of ``log_every`` when a ``callback``
-wants the mean loss of each chunk or a ``state_callback`` checkpoints
-{param, Adam state} after each chunk; ``init_opt_state`` and
-``start_iter`` resume an octave from such a checkpoint.
+(densities, VGG weights, Gram targets, view pool), eagerly on the param's
+device; losses stay there until the caller reads them.
+:class:`_OctaveGraphs` runs the same octave as CUDA graphs: the iteration
+is captured once per key, in place on static buffers, and replayed, so
+that it costs the host one launch (the grid styler's sequences,
+``styler/grid.py`` ``_sweep``). Both run one Adam formula (``Adam._step``),
+one iteration (``_iteration``) and one chunk loop (``_chunks``), and
+differ only in :func:`_bias_corrected`, which gives the same bits on a GPU.
 
 :class:`Adam` is ``optax.adam`` written out, over one tensor or a dict of
-tensors: moments
-``mu = (1-b1) g + b1 mu`` and ``nu = (1-b2) g^2 + b2 nu``, bias
-correction by ``1 - b^t``, ``eps`` added AFTER the square root
+tensors: moments ``mu = (1-b1) g + b1 mu`` and ``nu = (1-b2) g^2 + b2
+nu``, bias correction by ``1 - b^t``, ``eps`` added AFTER the square root
 (``eps_root = 0``), step ``-lr * mu_hat / (sqrt(nu_hat) + eps)``.
 ``torch.optim.Adam`` is the same algorithm, but the functional form keeps
 the state explicit per octave, as the JAX driver does.
-
-:class:`_OctaveGraphs` runs the same octave on a GPU as CUDA graphs: one
-Adam iteration (loss, backward, Adam, parameter add) is captured once per
-key and replayed for every iteration after, so that an iteration costs
-the host one graph launch where the eager loop launches each kernel. The
-same kernels run in the same order on the same data, so the bits are the
-eager loop's. The grid styler's sequence paths use it (``styler/grid.py``
-``_sweep``); every other caller runs :func:`run_octave`.
 """
 
 from __future__ import annotations
@@ -58,6 +51,14 @@ def _leafwise(fn, *trees):
     return fn(*trees)
 
 
+def _bias_corrected(x: torch.Tensor, bc) -> torch.Tensor:
+    """``x`` under the bias correction ``bc``: divided by a Python float
+    (the eager loop), multiplied by a device tensor of its float32
+    reciprocal (a replay, which reads each iteration's from device memory).
+    A GPU computes the division as that product: the same bits."""
+    return x / bc if isinstance(bc, float) else x * bc
+
+
 class Adam:
     """Functional Adam, numerically ``optax.adam(lr, b1, b2, eps)``. The
     parameter is a tensor or a dict of tensors; on a dict the update is
@@ -73,16 +74,27 @@ class Adam:
 
     def update(self, grad: Param, state: AdamState
                ) -> Tuple[Param, AdamState]:
-        b1, b2 = self.b1, self.b2
-        mu = _leafwise(lambda g, m: (1 - b1) * g + b1 * m, grad, state.mu)
-        nu = _leafwise(lambda g, v: (1 - b2) * g ** 2 + b2 * v, grad,
-                       state.nu)
+        """(step, new state): :meth:`_step` into new moments."""
         count = state.count + 1
-        bc1, bc2 = self._corrections(count)
-        updates = _leafwise(
-            lambda m, v: -self.lr * ((m / bc1) / (torch.sqrt(v / bc2)
-                                                  + self.eps)), mu, nu)
-        return updates, AdamState(count, mu, nu)
+        new = AdamState(count, _leafwise(torch.empty_like, state.mu),
+                        _leafwise(torch.empty_like, state.nu))
+        return (self._step(grad, state.mu, state.nu, new.mu, new.nu,
+                           *self._corrections(count)), new)
+
+    def _step(self, grad: Param, mu: Param, nu: Param, mu_out: Param,
+              nu_out: Param, bc1, bc2) -> Param:
+        """The formula: ``mu``, ``nu`` moved by ``grad`` into ``mu_out``,
+        ``nu_out`` (new tensors, or ``mu``, ``nu`` in a graph); returns the
+        step. ``bc1``, ``bc2``: the bias corrections."""
+        b1, b2 = self.b1, self.b2
+
+        def leaf(g, m, v, m_out, v_out):
+            torch.add((1 - b1) * g, b1 * m, out=m_out)
+            torch.add((1 - b2) * g ** 2, b2 * v, out=v_out)
+            return -self.lr * (_bias_corrected(m_out, bc1) / (
+                torch.sqrt(_bias_corrected(v_out, bc2)) + self.eps))
+
+        return _leafwise(leaf, grad, mu, nu, mu_out, nu_out)
 
     def _corrections(self, count: int) -> Tuple[float, float]:
         """The bias corrections ``1 - b1^count`` and ``1 - b2^count``
@@ -91,25 +103,39 @@ class Adam:
         return (float(one - np.float32(self.b1) ** np.float32(count)),
                 float(one - np.float32(self.b2) ** np.float32(count)))
 
-    def _step_in_place(self, grad: Param, mu: Param, nu: Param,
-                       param: Param, inv_bc1: torch.Tensor,
-                       inv_bc2: torch.Tensor) -> None:
-        """:meth:`update` and the parameter add of :func:`run_octave`,
-        written into ``mu``, ``nu`` and ``param`` with the eager loop's
-        operations in its order. The bias corrections come as device
-        tensors of their float32 reciprocals: on CUDA a tensor divided by
-        a Python float is computed as the product with the scalar's
-        float32 reciprocal, which these give bit for bit."""
-        b1, b2 = self.b1, self.b2
 
-        def leaf(g, m, v, p):
-            torch.add((1 - b1) * g, b1 * m, out=m)
-            torch.add((1 - b2) * g ** 2, b2 * v, out=v)
-            u = -self.lr * ((m * inv_bc1) / (torch.sqrt(v * inv_bc2)
-                                             + self.eps))
-            torch.add(p, u, out=p)
+def _iteration(loss_fn: Callable, param: Param, views, data,
+               adam: Callable, in_place: bool = False):
+    """Loss and gradient, then under ``nfs.adam`` the step ``adam(grad)``
+    and the parameter add, into new tensors or (``in_place``) into
+    ``param``. Returns (loss, param)."""
+    loss, grad = value_and_grad(loss_fn, param, views, data)
+    with span("nfs.adam"):
+        param = _leafwise(lambda p, u: torch.add(
+            p, u, out=p if in_place else None), param, adam(grad))
+    return loss, param
 
-        _leafwise(leaf, grad, mu, nu, param)
+
+def _chunks(iterate: Callable, iters: int, start_iter: int, log_every: int,
+            callback, state_callback, snapshot, window) -> None:
+    """``iterate(i)`` in ``nfs.iter`` for i in [start_iter, iters); after
+    each chunk of ``log_every``, ``state_callback(done, *snapshot(done))``
+    and ``callback(done, mean of window(lo, done))``, where given."""
+    observed = callback is not None or state_callback is not None
+    chunk = log_every if observed else iters
+    for i in range(start_iter, iters):
+        with span("nfs.iter"):
+            iterate(i)
+        done = i + 1
+        if observed and (done % chunk == 0 or done == iters):
+            if state_callback is not None:
+                with span("nfs.checkpoint"):
+                    state_callback(done, *snapshot(done))
+            if callback is not None:
+                lo = max((done - 1) // chunk * chunk, start_iter)
+                with span("nfs.readback"):
+                    mean = float(window(lo, done).mean())
+                callback(done, mean)
 
 
 def run_octave(param: Param, loss_fn: Callable, data,
@@ -147,34 +173,27 @@ def run_octave(param: Param, loss_fn: Callable, data,
     if len(views) != iters:
         raise ValueError(f"{len(views)} view draws for {iters} iterations")
     opt = optimizer if optimizer is not None else Adam(lr, b1, b2)
-    state = (init_opt_state if init_opt_state is not None
-             else opt.init(param))
-    param = _leafwise(torch.Tensor.detach, param)
-    observed = callback is not None or state_callback is not None
-    chunk = log_every if observed else iters
+    state = init_opt_state if init_opt_state is not None else opt.init(param)
+    # the inputs are not held once the first iteration has replaced them
+    param, init_opt_state = _leafwise(torch.Tensor.detach, param), None
     losses = []
-    for i in range(start_iter, iters):
-        with span("nfs.iter"):
-            loss, grad = value_and_grad(loss_fn, param, views[i], data)
-            with span("nfs.adam"):
-                updates, state = opt.update(grad, state)
-                param = _leafwise(lambda p, u: (p + u).detach(), param,
-                                  updates)
-            losses.append(loss.detach().to(torch.float32))
-        done = i + 1
-        if observed and (done % chunk == 0 or done == iters):
-            if state_callback is not None:
-                with span("nfs.checkpoint"):
-                    state_callback(done, param, state)
-            if callback is not None:
-                start = (done - 1) // chunk * chunk - start_iter
-                with span("nfs.readback"):
-                    mean = float(torch.stack(losses[start:]).mean())
-                callback(done, mean)
-    losses_out = (torch.stack(losses) if losses else
-                  torch.zeros((0,), dtype=torch.float32,
-                              device=_device(param)))
-    return param, losses_out, state
+
+    def adam(grad):     # the old moments go as soon as the new are made
+        nonlocal state
+        updates, state = opt.update(grad, state)
+        return updates
+
+    def iterate(i):
+        nonlocal param
+        loss, param = _iteration(loss_fn, param, views[i], data, adam)
+        losses.append(loss.detach().to(torch.float32))
+
+    _chunks(iterate, iters, start_iter, log_every, callback, state_callback,
+            lambda done: (param, state),
+            lambda lo, hi: torch.stack(
+                losses[lo - start_iter:hi - start_iter]))
+    return param, (torch.stack(losses) if losses else torch.zeros(
+        (0,), dtype=torch.float32, device=_device(param))), state
 
 
 def _clone(x: Param) -> Param:
@@ -215,8 +234,7 @@ class _OctaveGraph:
             dtype=views[0][0].dtype, device=dev))
         self.losses = torch.zeros((iters,), dtype=torch.float32, device=dev)
         self.it = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.inv_bc1 = torch.ones((iters,), dtype=torch.float32, device=dev)
-        self.inv_bc2 = torch.ones_like(self.inv_bc1)
+        self.inv_bc = torch.ones((2, iters), dtype=torch.float32, device=dev)
         # Adam's step count at iteration i is i + offset + 1
         self.offset = None
         self.graph = None
@@ -249,27 +267,26 @@ class _OctaveGraph:
                         out=self.views.view((-1,) + self.views.shape[2:]))
         offset = (0 if state is None else state.count) - start_iter
         if offset != self.offset:
-            inv1, inv2 = [], []
-            for i in range(self.iters):
-                # (a resumed octave's iterations before start_iter: unused)
-                bc1, bc2 = optimizer._corrections(max(i + offset + 1, 1))
-                inv1.append(np.float32(1) / np.float32(bc1))
-                inv2.append(np.float32(1) / np.float32(bc2))
-            self.inv_bc1.copy_(torch.from_numpy(np.array(inv1, np.float32)))
-            self.inv_bc2.copy_(torch.from_numpy(np.array(inv2, np.float32)))
+            # (a resumed octave's iterations before start_iter: unused)
+            bc = np.array([optimizer._corrections(max(i + offset + 1, 1))
+                           for i in range(self.iters)], np.float32).T
+            self.inv_bc.copy_(torch.from_numpy(np.float32(1) / bc))
             self.offset = offset
         self.it.fill_(start_iter)
 
     def step(self, loss_fn: Callable, optimizer: Adam) -> None:
-        """One Adam iteration on the static buffers (what is captured)."""
+        """One Adam iteration on the static buffers (what is captured):
+        :func:`_iteration` in place, its bias corrections read and its
+        loss written at the counter."""
+        def adam(grad):
+            bc1, bc2 = self.inv_bc.index_select(1, self.it)
+            return optimizer._step(grad, self.mu, self.nu, self.mu, self.nu,
+                                   bc1, bc2)
+
         views = ([None] * self.positions if self.views is None
                  else self.views.index_select(0, self.it)[0])
-        loss, grad = value_and_grad(loss_fn, self.param, views, self.data)
-        with span("nfs.adam"):
-            optimizer._step_in_place(
-                grad, self.mu, self.nu, self.param,
-                self.inv_bc1.index_select(0, self.it),
-                self.inv_bc2.index_select(0, self.it))
+        loss, _ = _iteration(loss_fn, self.param, views, self.data, adam,
+                             in_place=True)
         self.losses.index_copy_(0, self.it,
                                 loss.detach().to(torch.float32).reshape(1))
         self.it.add_(1)
@@ -282,10 +299,9 @@ class _OctaveGraphs:
     graph. The key must name whatever makes two octaves' iterations
     differ other than the static buffers' contents (``styler/grid.py``
     ``_octave_key``). A replay needs no host work besides the graph's
-    launch; callbacks and checkpoints run between replays, at the eager
-    loop's chunk ends. What leaves an octave (the param, the losses, Adam's
-    state, what the callbacks receive) is a copy of the static buffers,
-    which the next octave with the key overwrites.
+    launch. What leaves an octave (the param, the losses, Adam's state,
+    what the callbacks receive) is a copy of the static buffers, which the
+    next octave with the key overwrites.
 
     The graphs share one memory pool: their intermediates are dead between
     replays and two octaves never run at once. A capture that fails
@@ -356,55 +372,43 @@ class _OctaveGraphs:
         if fresh:
             self._capture(g, loss_fn, optimizer)
             self._graphs[key] = g
-        observed = callback is not None or state_callback is not None
-        chunk = log_every if observed else iters
-        replayed = 0
+        before = self.replays
+
+        def replay(_):
+            with span("nfs.replay"):
+                g.graph.replay()
+            self.replays += 1
+
+        def copies(done):
+            return _clone(g.param), AdamState(
+                count + done - start_iter, _clone(g.mu), _clone(g.nu))
+
         try:
-            for i in range(start_iter, iters):
-                with span("nfs.iter"), span("nfs.replay"):
-                    g.graph.replay()
-                replayed += 1
-                done = i + 1
-                if observed and (done % chunk == 0 or done == iters):
-                    if state_callback is not None:
-                        with span("nfs.checkpoint"):
-                            state_callback(done, _clone(g.param), AdamState(
-                                count + done - start_iter, _clone(g.mu),
-                                _clone(g.nu)))
-                    if callback is not None:
-                        lo = max((done - 1) // chunk * chunk, start_iter)
-                        with span("nfs.readback"):
-                            # a copy: the eager loop's stacked losses
-                            mean = float(g.losses[lo:done].clone().mean())
-                        callback(done, mean)
+            # the window is a copy, as the eager loop's stacked losses are
+            _chunks(replay, iters, start_iter, log_every, callback,
+                    state_callback, copies,
+                    lambda lo, hi: g.losses[lo:hi].clone())
         finally:
-            self.replays += replayed
             for c, n in zip(_LAUNCH_COUNTERS, g.launches):
                 for k, m in n.items():
-                    c[k] += m * replayed
-        return (_clone(g.param), g.losses[start_iter:].clone(),
-                AdamState(count + iters - start_iter, _clone(g.mu),
-                          _clone(g.nu)))
+                    c[k] += m * (self.replays - before)
+        param, state = copies(iters)
+        return param, g.losses[start_iter:].clone(), state
 
 
 def value_and_grad(loss_fn: Callable, param: Param, *args):
     """(loss, gradient of loss wrt every leaf of ``param``) with the
     leaves detached; a leaf the loss does not depend on gets zeros."""
-    leaves = (list(param.values()) if isinstance(param, dict)
-              else [param])
-    leaves = [p.detach().requires_grad_(True) for p in leaves]
-    p = (dict(zip(param, leaves)) if isinstance(param, dict)
-         else leaves[0])
+    p = _leafwise(lambda t: t.detach().requires_grad_(True), param)
+    leaves = list(p.values()) if isinstance(p, dict) else [p]
     loss = loss_fn(p, *args)
+    grads = [None] * len(leaves)    # (the loss may not depend on param)
     if loss.requires_grad:
         # a vector of independent losses (a keyframe batch's): the
         # gradient of their sum is each one's own
         with span("nfs.backward"):
             grads = torch.autograd.grad(loss.sum() if loss.ndim else loss,
                                         leaves, allow_unused=True)
-    else:  # the objective does not depend on the param
-        grads = [None] * len(leaves)
     grads = [torch.zeros_like(l) if g is None else g
              for l, g in zip(leaves, grads)]
-    return loss, (dict(zip(param, grads)) if isinstance(param, dict)
-                  else grads[0])
+    return loss, dict(zip(p, grads)) if isinstance(p, dict) else grads[0]

@@ -75,8 +75,7 @@ from nfs_tpu_torch.ops.splat import splat, splat_normalized
 from nfs_tpu_torch.render.raymarch import (
     render2d, render_views, render_views_batch)
 from nfs_tpu_torch.styler.base import StylerBase
-from nfs_tpu_torch.styler.octave import (
-    Adam, AdamState, run_octave, value_and_grad)
+from nfs_tpu_torch.styler.octave import Adam, AdamState, run_octave
 from nfs_tpu_torch.utils.profiling import span
 
 Param = Dict[str, torch.Tensor]
@@ -142,12 +141,12 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
     Bins every keyframe at the chunk-start positions, keyframe b at the
     capacity ``ks[b]`` (``ops.binsplat.bin_particles``), moves param AND
     Adam state into the slot layout (Adam is elementwise, so permuting
-    its moments with the params is exact), runs the steps, and moves both
-    back to canonical particle order. ``opt_state=None`` starts Adam in
-    the slot layout; ``return_state=False`` skips moving the state back.
+    its moments with the params is exact), runs the steps (run_octave),
+    and moves both back to canonical order. ``opt_state=None`` starts Adam
+    in the slot layout; ``return_state=False`` skips moving the state back.
     The loss is (B,) per-keyframe losses, whose sum has no cross-keyframe
     term, so each keyframe gets its own gradient. Returns the losses
-    (B, steps) and the parked counts (B,).
+    (steps, B), as run_octave stacks them, and the parked counts (B,).
     """
     x, dens = data["x"], data["dens"]
     n = x.shape[1]
@@ -158,37 +157,31 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
                 else x * scale
         bn = bin_particles(p, shape, K, kernel=kernel, capacity=capacity)
         n_slots = bn.valid.shape[-1]
+        data_b = dict(data, xb=to_binned(bn, x), densb=to_binned(bn, dens),
+                      valid=bn.valid)
 
-        def to_b(tree):     # canonical (B, N, ...) leaves -> binned
+    def to_b(tree):     # canonical (B, N, ...) leaves -> binned
+        with span("nfs.splat"):
             return {k: to_binned(bn, v)
                     if v.ndim in (2, 3) and v.shape[1] == n else v
                     for k, v in tree.items()}
 
-        def from_b(tree):   # binned (slot-minor) leaves -> canonical
-            return {k: from_binned(bn, v)
-                    if v.ndim in (2, 3) and v.shape[-1] == n_slots + n
-                    else v for k, v in tree.items()}
+    def from_b(tree):   # binned (slot-minor) leaves -> canonical
+        return {k: from_binned(bn, v)
+                if v.ndim in (2, 3) and v.shape[-1] == n_slots + n
+                else v for k, v in tree.items()}
 
-        param_b = to_b(param)
-        state_b = (optimizer.init(param_b) if opt_state is None else
-                   AdamState(opt_state.count, to_b(opt_state.mu),
-                             to_b(opt_state.nu)))
-        data_b = dict(data, xb=to_binned(bn, x), densb=to_binned(bn, dens),
-                      valid=bn.valid)
-    losses = []
-    for v in views:
-        with span("nfs.iter"):
-            loss, grads = value_and_grad(loss_fn, param_b, v, data_b)
-            with span("nfs.adam"):
-                updates, state_b = optimizer.update(grads, state_b)
-                param_b = {k: (param_b[k] + updates[k]).detach()
-                           for k in param_b}
-            losses.append(loss.detach().to(torch.float32))
+    # slot tensors passed, not kept: run_octave frees each once replaced
+    param, losses, state = run_octave(
+        to_b(param), loss_fn, data_b, views, len(views), optimizer.lr,
+        optimizer=optimizer, init_opt_state=None if opt_state is None
+        else AdamState(opt_state.count, to_b(opt_state.mu),
+                       to_b(opt_state.nu)))
     with span("nfs.splat"):
-        state = (AdamState(state_b.count, from_b(state_b.mu),
-                           from_b(state_b.nu)) if return_state else None)
-        param = from_b(param_b)
-    return param, state, torch.stack(losses, dim=-1), bn.n_overflow
+        state = (AdamState(state.count, from_b(state.mu), from_b(state.nu))
+                 if return_state else None)
+        param = from_b(param)
+    return param, state, losses, bn.n_overflow
 
 
 class ParticleStyler(StylerBase):
@@ -456,9 +449,8 @@ class ParticleStyler(StylerBase):
                  "base_d": base_d}
         g, losses, _ = run_octave(
             torch.zeros_like(base_d), self._get_grid_loss_fn(shape, scale),
-            gdata, views, iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
-            log_every=oc.log_every, callback=callback,
-            optimizer=self._optimizer)
+            gdata, views, oc.iters, oc.lr, log_every=oc.log_every,
+            callback=callback, optimizer=self._optimizer)
         if "ddens" in param:
             x = data["x"]
             if "dx" in param:
@@ -541,7 +533,8 @@ class ParticleStyler(StylerBase):
                 with span("nfs.readback"):
                     mean = float(losses.mean())
                 callback(done, mean)
-        return (param, torch.cat(all_losses, dim=-1),
+        # (B, iters) as a view: one chunk's cat stays a plain device copy
+        return (param, torch.cat(all_losses).T,
                 torch.stack(overflows).amax(dim=0))
 
     def _keyframe_views(self, generators, schedules, o: int):
@@ -599,8 +592,7 @@ class ParticleStyler(StylerBase):
                 else:  # flat splat (other kernels or supports, huge K)
                     param, ls, _ = run_octave(
                         param, self._get_loss_fn(shape, scale), data, views,
-                        iters=oc.iters, lr=oc.lr, b1=oc.b1, b2=oc.b2,
-                        log_every=oc.log_every, callback=cb,
+                        oc.iters, oc.lr, log_every=oc.log_every, callback=cb,
                         optimizer=self._optimizer)
                     ls = ls.T
                 losses.append(ls)

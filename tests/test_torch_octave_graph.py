@@ -14,8 +14,11 @@ imports no JAX, so on a machine without it run it as
 The CPU tests run the graphed path's control flow (loads, counters,
 callbacks, checkpoints, resume, copies) with a recording stand-in for
 ``torch.cuda.graph`` whose replay calls the captured step: bitwise equal
-to the eager loop once Adam's division by a Python float is computed as
-CUDA computes it (the product with its float32 reciprocal).
+to the eager loop once the one place where the two differ, the bias
+correction's division by a Python float, is computed as CUDA computes it
+(the product with its float32 reciprocal). Further CPU tests hold every
+octave loop of the port to one Adam step per iteration, and
+``Adam.update`` to that step written into new tensors.
 """
 
 import os
@@ -26,10 +29,13 @@ import pytest
 import torch
 
 from nfs_tpu_torch.core.config import StyleConfig, replace
+from nfs_tpu_torch.core.pytrees import ParticleSet
 from nfs_tpu_torch.features import vgg
 from nfs_tpu_torch.ops import advect_kernels as ak
+from nfs_tpu_torch.parallel import make_mesh, make_sharded_window_step
 from nfs_tpu_torch.styler import grid as G
 from nfs_tpu_torch.styler import octave as O
+from nfs_tpu_torch.styler import particle as P
 
 torch.set_num_threads(2)
 
@@ -403,19 +409,12 @@ class _StandInCapture:
         _StandInGraph.capturing = None
 
 
-def _cuda_division(self, grad, state):
-    """Adam.update as CUDA computes it: a tensor over a Python float is
-    the product with the float32 reciprocal."""
-    b1, b2 = self.b1, self.b2
-    mu = O._leafwise(lambda g, m: (1 - b1) * g + b1 * m, grad, state.mu)
-    nu = O._leafwise(lambda g, n: (1 - b2) * g ** 2 + b2 * n, grad,
-                     state.nu)
-    count = state.count + 1
-    inv = [torch.tensor([np.float32(1) / np.float32(bc)])
-           for bc in self._corrections(count)]
-    updates = O._leafwise(lambda m, n: -self.lr * (
-        (m * inv[0]) / (torch.sqrt(n * inv[1]) + self.eps)), mu, nu)
-    return updates, O.AdamState(count, mu, nu)
+def _cuda_bias_corrected(x, bc):
+    """The bias correction as CUDA computes it: a tensor over a Python
+    float is the product with the float's float32 reciprocal."""
+    if isinstance(bc, float):
+        bc = torch.tensor([np.float32(1) / np.float32(bc)])
+    return x * bc
 
 
 @pytest.fixture
@@ -434,7 +433,7 @@ def stand_in_graphs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
     monkeypatch.setattr(torch.cuda, "graph", _StandInCapture)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(O.Adam, "update", _cuda_division)
+    monkeypatch.setattr(O, "_bias_corrected", _cuda_bias_corrected)
     real = G.GridStyler._graphed
 
     def on_cpu(self, key, graphs, space):
@@ -454,7 +453,8 @@ def test_graphed_control_flow_on_cpu(stand_in_graphs, case, monkeypatch,
                                      tmp_path):
     """The graphed path's loads, counters, chunk callbacks, checkpoints,
     resume and copies out, with a stand-in graph on the CPU at 12x8x12:
-    bitwise the eager loop under CUDA's division."""
+    bitwise the eager loop, the one Adam formula under CUDA's division
+    in the bias correction."""
     monkeypatch.setattr(sys.modules[__name__], "SHAPE", (12, 8, 12))
     eager, eager_oct, _ = _sequence("cpu", False, case, monkeypatch,
                                     tmp_path)
@@ -571,3 +571,120 @@ def test_failed_capture_raises_on_cpu(stand_in_graphs, monkeypatch):
             pass
     assert not s._graphs._graphs and s._graphs.captures == 0
     assert ak.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------- #
+# one Adam formula (CPU)
+# ---------------------------------------------------------------------- #
+
+PGRID = (12, 10, 12)
+POVER = {
+    "render.render_size": (16, 16),
+    "render.min_render_size": 16,
+    "render.n_views": 2,
+    "render.view_pool": 2,
+    "render.transmit": 0.5,
+    "loss.style_layers": ("relu1_1",),
+    "loss.style_layer_weights": (1.0,),
+    "optim.octave_n": 2,
+    "optim.octave_scale": 2.0,
+    "optim.iters": 3,
+    "optim.lr": 0.05,
+    "particle.rebin_every": 2,
+}
+# a particle frame's loop: (config, the function the loop runs in, its
+# calls); 2 octaves x 3 iterations, rebinned every 2 in the binned route
+PARTICLE_LOOPS = {
+    "binned_chunk": ({}, (P, "_binned_chunk_core"), 4),
+    "grid_coarse": ({"particle.optimize_density": True},
+                    (P.ParticleStyler, "_grid_coarse_octave"), 1),
+    "flat_particle": ({"particle.splat_impl": "flat"},
+                      (P, "_binned_chunk_core"), 0),
+}
+
+
+def _calls(monkeypatch, owner, name) -> list:
+    """The calls of ``owner.name`` from here on (patched to count)."""
+    calls, real = [], getattr(owner, name)
+
+    def counted(*a, **k):
+        calls.append(name)
+        return real(*a, **k)
+
+    monkeypatch.setattr(owner, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("loop", ["grid_eager", "graphed_stand_in"]
+                         + sorted(PARTICLE_LOOPS) + ["sharded_window"])
+def test_one_adam_step_per_iteration(loop, request, monkeypatch):
+    """Every octave loop of the port takes its step from the one Adam
+    formula, once per iteration: the grid styler's eager octaves and its
+    replays (a stand-in graph), the binned particle chunk, the grid-space
+    coarse octave, the flat particle octave and the sharded window step.
+    Each loop is seen to run: the function it runs in is called."""
+    monkeypatch.setattr(sys.modules[__name__], "SHAPE", (12, 8, 12))
+    graphed = loop == "graphed_stand_in"
+    if graphed:
+        request.getfixturevalue("stand_in_graphs")
+    steps = _calls(monkeypatch, O.Adam, "_step")
+    if loop in ("grid_eager", "graphed_stand_in"):
+        runs = _calls(monkeypatch, G, "run_octave")
+        s = _styler("cpu", graphed, {})
+        d, v = _inputs(False, 2.0)
+        for _ in s.stylize_sequence(d, v, fused=0):
+            pass
+        # the first frame's 2 octaves run eagerly, warming the graphs up
+        assert (len(runs), s._graphs.replays) == ((2, 12) if graphed
+                                                  else (6, 0))
+        assert len(steps) == T * 2 * 3
+    elif loop == "sharded_window":
+        opt = O.Adam(0.05)
+        step = make_sharded_window_step(
+            make_mesh(1, 1), lambda p, d, *_: ((d + p) ** 2).sum(), opt,
+            window=0, n_views=1, n_iters=3)
+        params = torch.zeros((2, 4, 5))
+        out, _, losses = step(params, opt.init(params), torch.rand((2, 4, 5)),
+                              None, None, None, None)
+        assert losses.shape == (3,) and not torch.equal(out, params)
+        assert len(steps) == 3
+    else:
+        over, (owner, name), n = PARTICLE_LOOPS[loop]
+        runs = _calls(monkeypatch, owner, name)
+        cfg = replace(StyleConfig(), **{**POVER, **over})
+        style = np.random.default_rng(2).random((16, 16, 3),
+                                                dtype=np.float32)
+        s = P.ParticleStyler(cfg, PGRID, style_image=style, device="cpu")
+        rng = np.random.default_rng(0)
+        x = rng.random((300, 3)) * (np.array(PGRID) - 4) + 2
+        s.stylize_frame(ParticleSet(x=x.astype(np.float32),
+                                    dens=np.ones(300, np.float32)))
+        assert len(runs) == n
+        assert len(steps) == 2 * 3
+
+
+@pytest.mark.parametrize("kind", ["tensor", "dict"])
+def test_adam_update_is_the_step_into_new_tensors(kind):
+    """``Adam.update`` leaves the gradient and the state it is given as
+    they were, and its step and new moments are, bit for bit, what the
+    one formula writes in place (as a graph does) from that state."""
+    gen = torch.Generator().manual_seed(0)
+
+    def tree(draw):
+        t = {"a": draw((5, 3), generator=gen), "b": draw((4,), generator=gen)}
+        return t if kind == "dict" else t["a"]
+
+    grad, mu, nu = tree(torch.randn), tree(torch.randn), tree(torch.rand)
+    kept = [O._clone(t) for t in (grad, mu, nu)]
+    opt = O.Adam(0.05)
+    step, new = opt.update(grad, O.AdamState(6, mu, nu))
+    assert _equal([grad, mu, nu], kept)
+    assert new.count == 7
+    ptrs = [t.data_ptr() for tree in (mu, nu, new.mu, new.nu)
+            for t in (tree.values() if kind == "dict" else [tree])]
+    assert len(set(ptrs)) == len(ptrs)
+    mu_in, nu_in = O._clone(mu), O._clone(nu)
+    in_place = opt._step(grad, mu_in, nu_in, mu_in, nu_in,
+                         *opt._corrections(7))
+    assert _equal(step, in_place)
+    assert _equal([new.mu, new.nu], [mu_in, nu_in])
