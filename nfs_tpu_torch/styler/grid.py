@@ -107,12 +107,11 @@ class GridStyler(StylerBase):
         self._warm_optimizer = (Adam(oc.warm_lr, b1=oc.b1, b2=oc.b2)
                                 if oc.warm_lr is not None
                                 else self._optimizer)
-        # the unsharded frame's slabs at the shape last run, a sequence's
-        # octaves at that shape as CUDA graphs (_sweep), and the octave keys
-        # this styler has run eagerly there (_unsharded)
+        # the unsharded frame's slabs at the shape last run, and a
+        # sequence's octaves at that shape as CUDA graphs (_sweep), with the
+        # octave keys this styler has run eagerly there (_unsharded)
         self._slab = None
         self._graphs = _OctaveGraphs()
-        self._eager_keys = set()
 
     # ---------------------------------------------------------------- #
     # loss pipeline: pure functions of (opt_var, views, data)
@@ -383,12 +382,11 @@ class GridStyler(StylerBase):
 
     def _graphed(self, key, graphs: bool, space) -> bool:
         """Whether an octave runs as a CUDA graph: on a GPU, on one slab,
-        in a sequence's frame (``graphs``), with a key that this styler
-        has run eagerly (the run that warms the capture up, a sequence's
-        first frame), so that it captures the key or has captured it.
-        ``stylize_frame`` never captures."""
+        in a sequence's frame (``graphs``), with a key that is ready
+        (:meth:`_OctaveGraphs.ready`: run eagerly once, in a sequence's
+        first frame). ``stylize_frame`` never captures."""
         return (graphs and self.device.type == "cuda" and space.n == 1
-                and key in self._eager_keys)
+                and self._graphs.ready(key))
 
     def _unsharded(self, shape):
         """The one slab of an unsharded frame of ``shape``: the same object
@@ -400,7 +398,6 @@ class GridStyler(StylerBase):
         if self._slab is None or self._slab.shape != shape:
             self._slab = _one_slab(shape)
             self._graphs = _OctaveGraphs()
-            self._eager_keys = set()
         return self._slab
 
     def _sweep(self, param, d_full, vels_win, generator, warm, schedule,
@@ -465,21 +462,24 @@ class GridStyler(StylerBase):
                             checkpoint_path, space, _at, p, st,
                             dict(meta, octave=_o, iters_done=done))
                 resumed = o == start_octave
-                run = dict(log_every=oc.log_every, callback=cb,
-                           optimizer=optimizer,
-                           init_opt_state=opt_state if resumed else None,
-                           start_iter=start_iter if resumed else 0,
-                           state_callback=state_cb)
+                start = dict(init_opt_state=opt_state if resumed else None,
+                             start_iter=start_iter if resumed else 0)
                 key = self._octave_key(shape, window, render_size, iters,
                                        optimizer, param)
                 if self._graphed(key, graphs, space):
-                    param, losses, _ = self._graphs.run(
-                        key, param, loss_fn, data, views, iters,
-                        moved=("d", "vels"), **run)
+                    g = self._graphs.load(key, param, data, views, iters,
+                                          optimizer, moved=("d", "vels"),
+                                          **start)
+                    param, losses, _ = self._graphs.replay(
+                        key, g, loss_fn, optimizer, oc.log_every, cb,
+                        state_cb)
                 else:
                     param, losses, _ = run_octave(
-                        param, loss_fn, data, views, iters, oc.lr, **run)
-                    self._eager_keys.add(key)
+                        param, loss_fn, data, views, iters, oc.lr,
+                        log_every=oc.log_every, callback=cb,
+                        optimizer=optimizer, state_callback=state_cb,
+                        **start)
+                    self._graphs.ran(key)
                 losses_all.append(losses)
         param = self._resize_param(param, prev, full_shape, space)
         with torch.no_grad():

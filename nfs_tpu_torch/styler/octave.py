@@ -8,9 +8,11 @@ device; losses stay there until the caller reads them.
 :class:`_OctaveGraphs` runs the same octave as CUDA graphs: the iteration
 is captured once per key, in place on static buffers, and replayed, so
 that it costs the host one launch (the grid styler's sequences,
-``styler/grid.py`` ``_sweep``). Both run one Adam formula (``Adam._step``),
-one iteration (``_iteration``) and one chunk loop (``_chunks``), and
-differ only in :func:`_bias_corrected`, which gives the same bits on a GPU.
+``styler/grid.py`` ``_sweep``; the particle styler's keyframe sequences,
+``styler/particle.py`` ``_graphed``). Both run one Adam formula
+(``Adam._step``), one iteration (``_iteration``) and one chunk loop
+(``_chunks``), and differ only in :func:`_bias_corrected`, which gives the
+same bits on a GPU.
 
 :class:`Adam` is ``optax.adam`` written out, over one tensor or a dict of
 tensors: moments ``mu = (1-b1) g + b1 mu`` and ``nu = (1-b2) g^2 + b2
@@ -22,6 +24,7 @@ the state explicit per octave, as the JAX driver does.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 from typing import Callable, Dict, Hashable, Sequence, Tuple, Union
 
@@ -214,10 +217,11 @@ class _OctaveGraph:
     increments itself. Everything is allocated before capture, outside the
     graph's memory pool. Every other entry of ``data`` is the object the
     graph was captured with, which each octave must hand in again.
+    ``loss_shape``: the loss's shape (a keyframe batch's (B,) losses).
     ``launches``: the hand kernels' launches of one replay, by counter."""
 
     def __init__(self, param: Param, data: Dict, views: Sequence,
-                 iters: int, moved: Sequence[str]):
+                 iters: int, moved: Sequence[str], loss_shape=()):
         self.iters = iters
         self.param = _leafwise(torch.empty_like, param)
         self.mu = _leafwise(torch.empty_like, param)
@@ -232,11 +236,13 @@ class _OctaveGraph:
         self.views = (None if views[0][0] is None else torch.empty(
             (iters, self.positions) + tuple(views[0][0].shape),
             dtype=views[0][0].dtype, device=dev))
-        self.losses = torch.zeros((iters,), dtype=torch.float32, device=dev)
+        self.losses = torch.zeros((iters,) + tuple(loss_shape),
+                                  dtype=torch.float32, device=dev)
         self.it = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.inv_bc = torch.ones((2, iters), dtype=torch.float32, device=dev)
         # Adam's step count at iteration i is i + offset + 1
         self.offset = None
+        self.start_iter = 0
         self.graph = None
         self.launches = []
 
@@ -272,6 +278,7 @@ class _OctaveGraph:
                            for i in range(self.iters)], np.float32).T
             self.inv_bc.copy_(torch.from_numpy(np.float32(1) / bc))
             self.offset = offset
+        self.start_iter = start_iter
         self.it.fill_(start_iter)
 
     def step(self, loss_fn: Callable, optimizer: Adam) -> None:
@@ -288,7 +295,7 @@ class _OctaveGraph:
         loss, _ = _iteration(loss_fn, self.param, views, self.data, adam,
                              in_place=True)
         self.losses.index_copy_(0, self.it,
-                                loss.detach().to(torch.float32).reshape(1))
+                                loss.detach().to(torch.float32)[None])
         self.it.add_(1)
 
 
@@ -297,11 +304,11 @@ class _OctaveGraphs:
     octave run with a key captures one Adam iteration, and every
     iteration of it and of each later octave with the key replays that
     graph. The key must name whatever makes two octaves' iterations
-    differ other than the static buffers' contents (``styler/grid.py``
-    ``_octave_key``). A replay needs no host work besides the graph's
-    launch. What leaves an octave (the param, the losses, Adam's state,
-    what the callbacks receive) is a copy of the static buffers, which the
-    next octave with the key overwrites.
+    differ other than the static buffers' contents (``styler/grid.py``,
+    ``styler/particle.py`` ``_octave_key``). A replay needs no host work
+    besides the graph's launch. What leaves an octave (the param, the
+    losses, Adam's state, what the callbacks receive) is a copy of the
+    static buffers, which the next octave with the key overwrites.
 
     The graphs share one memory pool: their intermediates are dead between
     replays and two octaves never run at once. A capture that fails
@@ -310,13 +317,29 @@ class _OctaveGraphs:
     replays' once it ends. Captures and replays are counted in
     ``captures`` and ``replays``; under the profiler they are the spans
     ``nfs.capture`` and ``nfs.replay`` (each replay inside ``nfs.iter``).
+
+    A key is graphed only once its octave has run eagerly (:meth:`ran`):
+    that run warms the iteration up (cuDNN's and cuBLAS's choices, the
+    kernels' builds), so that the capture records what the eager loop
+    runs. :meth:`ready` says whether it has; the caller adds its own
+    conditions (a GPU, a sequence).
     """
 
     def __init__(self):
         self._graphs: Dict[Hashable, _OctaveGraph] = {}
+        self._eager = set()
         self._pool = None
         self.captures = 0
         self.replays = 0
+
+    def ran(self, key: Hashable) -> None:
+        """Note that an octave with ``key`` ran eagerly."""
+        self._eager.add(key)
+
+    def ready(self, key: Hashable) -> bool:
+        """Whether ``key`` has run eagerly, so that it captures or has a
+        graph."""
+        return key in self._eager
 
     def _capture(self, g: _OctaveGraph, loss_fn, optimizer) -> None:
         if self._pool is None:
@@ -336,11 +359,18 @@ class _OctaveGraphs:
             clear = getattr(torch._C, "_cuda_clearCublasWorkspaces",
                             lambda: None)
             clear()
+            # the collector stays off while capturing: a CUDA graph that it
+            # frees then (another styler's, dropped in a cycle) would be
+            # destroyed inside the capture, which invalidates it
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 # torch's shared capture stream, the same for every capture
                 with torch.cuda.graph(graph, pool=self._pool):
                     g.step(loss_fn, optimizer)
             finally:
+                if collecting:
+                    gc.enable()
                 clear()
                 # a captured launch runs at each replay, not at the capture
                 g.launches = [{k: c[k] - b[k] for k in c}
@@ -350,29 +380,37 @@ class _OctaveGraphs:
         g.graph = graph
         self.captures += 1
 
-    def run(self, key: Hashable, param: Param, loss_fn: Callable, data,
-            views: Sequence, iters: int, optimizer: Adam,
-            moved: Sequence[str] = (), log_every: int = 10,
-            callback: Callable = None, init_opt_state: AdamState = None,
-            start_iter: int = 0, state_callback: Callable = None
-            ) -> Tuple[Param, torch.Tensor, AdamState]:
-        """:func:`run_octave`'s arguments and results, under ``key``
-        (capturing it where it has no graph yet). ``moved``: the entries
-        of ``data`` whose tensors may differ from octave to octave; the
-        others must be the objects of the key's first octave."""
+    def load(self, key: Hashable, param: Param, data, views: Sequence,
+             iters: int, optimizer: Adam, moved: Sequence[str] = (),
+             loss_shape=(), init_opt_state: AdamState = None,
+             start_iter: int = 0) -> _OctaveGraph:
+        """The key's graph with one octave's inputs copied into its static
+        buffers (made here where the key has none yet; :meth:`replay`
+        captures it). The copies are all that the replays read: a caller
+        that drops its own inputs now holds no tensor twice while they
+        run. ``moved``: the entries of ``data`` whose tensors may differ
+        from octave to octave; the others must be the objects of the
+        key's first octave. ``loss_shape``: the loss's shape."""
         if len(views) != iters:
             raise ValueError(f"{len(views)} view draws for {iters} "
                              f"iterations")
-        count = 0 if init_opt_state is None else init_opt_state.count
         g = self._graphs.get(key)
-        fresh = g is None
-        if fresh:
-            g = _OctaveGraph(param, data, views, iters, moved)
+        if g is None:
+            g = _OctaveGraph(param, data, views, iters, moved, loss_shape)
         g.load(param, data, views, init_opt_state, start_iter, optimizer)
-        if fresh:
+        return g
+
+    def replay(self, key: Hashable, g: _OctaveGraph, loss_fn: Callable,
+               optimizer: Adam, log_every: int = 10,
+               callback: Callable = None, state_callback: Callable = None
+               ) -> Tuple[Param, torch.Tensor, AdamState]:
+        """The octave :meth:`load` put into ``g``, every iteration a replay
+        of the key's graph (captured first where the key has none yet);
+        :func:`run_octave`'s results and callbacks."""
+        if key not in self._graphs:
             self._capture(g, loss_fn, optimizer)
             self._graphs[key] = g
-        before = self.replays
+        before, start_iter = self.replays, g.start_iter
 
         def replay(_):
             with span("nfs.replay"):
@@ -381,19 +419,25 @@ class _OctaveGraphs:
 
         def copies(done):
             return _clone(g.param), AdamState(
-                count + done - start_iter, _clone(g.mu), _clone(g.nu))
+                g.offset + done, _clone(g.mu), _clone(g.nu))
 
         try:
             # the window is a copy, as the eager loop's stacked losses are
-            _chunks(replay, iters, start_iter, log_every, callback,
+            _chunks(replay, g.iters, start_iter, log_every, callback,
                     state_callback, copies,
                     lambda lo, hi: g.losses[lo:hi].clone())
         finally:
             for c, n in zip(_LAUNCH_COUNTERS, g.launches):
                 for k, m in n.items():
                     c[k] += m * (self.replays - before)
-        param, state = copies(iters)
+        param, state = copies(g.iters)
         return param, g.losses[start_iter:].clone(), state
+
+    def drop(self, which: Callable[[Hashable], bool]) -> None:
+        """Forget the graphs, and free the buffers, of the keys for which
+        ``which`` holds."""
+        for key in [k for k in self._graphs if which(k)]:
+            del self._graphs[key]
 
 
 def value_and_grad(loss_fn: Callable, param: Param, *args):

@@ -47,6 +47,13 @@ exists for the TPU's (8, 128) tiling and has no counterpart here:
 ``binned_layout`` 'auto' and 'slots' both mean the slot layout, whose
 dense region the kernels read as a view.
 
+On a GPU, ``stylize_keyframes`` on a 3D grid replays the Adam iteration
+of each grid-space coarse octave and of each density-only binned chunk
+through K4/K5 as a CUDA graph once the styler has run its key eagerly
+(``styler/octave.py`` ``_OctaveGraphs``; :meth:`ParticleStyler._graphed`
+says where), with the eager loop's bits; the rebin, the coarse octave's
+splat and every other route stay eager.
+
 Random draws come from an explicit ``torch.Generator``; an optional
 ``view_schedule`` of view-pool indices replays another run's draws. A 2D
 grid is its own image and draws no views.
@@ -54,8 +61,8 @@ grid is its own image and draws no views.
 
 from __future__ import annotations
 
-import math
 import warnings
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -75,7 +82,8 @@ from nfs_tpu_torch.ops.splat import splat, splat_normalized
 from nfs_tpu_torch.render.raymarch import (
     render2d, render_views, render_views_batch)
 from nfs_tpu_torch.styler.base import StylerBase
-from nfs_tpu_torch.styler.octave import Adam, AdamState, run_octave
+from nfs_tpu_torch.styler.octave import (
+    Adam, AdamState, _OctaveGraphs, run_octave)
 from nfs_tpu_torch.utils.profiling import span
 
 Param = Dict[str, torch.Tensor]
@@ -134,19 +142,22 @@ def _capacities(ks):
 def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
                        data, loss_fn, optimizer: Adam, shape, ks,
                        scale: float, max_offset: float, has_dx: bool,
-                       kernel: str = "bspline", return_state: bool = True):
+                       kernel: str = "bspline", return_state: bool = True,
+                       graph=None):
     """One rebin + len(views) optimizer iterations of a keyframe batch
     (``data['x']`` (B, N, dim), every leaf with a leading B).
 
     Bins every keyframe at the chunk-start positions, keyframe b at the
     capacity ``ks[b]`` (``ops.binsplat.bin_particles``), moves param AND
     Adam state into the slot layout (Adam is elementwise, so permuting
-    its moments with the params is exact), runs the steps (run_octave),
-    and moves both back to canonical order. ``opt_state=None`` starts Adam
-    in the slot layout; ``return_state=False`` skips moving the state back.
-    The loss is (B,) per-keyframe losses, whose sum has no cross-keyframe
-    term, so each keyframe gets its own gradient. Returns the losses
-    (steps, B), as run_octave stacks them, and the parked counts (B,).
+    its moments with the params is exact), runs the steps (run_octave, or
+    with ``graph``, an ``_OctaveGraphs`` and a key, that key's CUDA graph
+    replayed), and moves both back to canonical order. ``opt_state=None``
+    starts Adam in the slot layout; ``return_state=False`` skips moving
+    the state back. The loss is (B,) per-keyframe losses, whose sum has no
+    cross-keyframe term, so each keyframe gets its own gradient. Returns
+    the losses (steps, B), as run_octave stacks them, and the parked
+    counts (B,).
     """
     x, dens = data["x"], data["dens"]
     n = x.shape[1]
@@ -157,7 +168,10 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
                 else x * scale
         bn = bin_particles(p, shape, K, kernel=kernel, capacity=capacity)
         n_slots = bn.valid.shape[-1]
-        data_b = dict(data, xb=to_binned(bn, x), densb=to_binned(bn, dens),
+        # the loss reads the binned particles alone: a graph's data holds
+        # no keyframe's own objects
+        data_b = {k: v for k, v in data.items() if k not in ("x", "dens")}
+        data_b.update(xb=to_binned(bn, x), densb=to_binned(bn, dens),
                       valid=bn.valid)
 
     def to_b(tree):     # canonical (B, N, ...) leaves -> binned
@@ -171,12 +185,26 @@ def _binned_chunk_core(param: Param, opt_state: Optional[AdamState], views,
                 if v.ndim in (2, 3) and v.shape[-1] == n_slots + n
                 else v for k, v in tree.items()}
 
-    # slot tensors passed, not kept: run_octave frees each once replaced
-    param, losses, state = run_octave(
-        to_b(param), loss_fn, data_b, views, len(views), optimizer.lr,
-        optimizer=optimizer, init_opt_state=None if opt_state is None
-        else AdamState(opt_state.count, to_b(opt_state.mu),
-                       to_b(opt_state.nu)))
+    def state_b(state):
+        return None if state is None else AdamState(
+            state.count, to_b(state.mu), to_b(state.nu))
+
+    # slot tensors passed, not kept: run_octave frees each once replaced,
+    # a graph's load once copied in
+    if graph is None:
+        param, losses, state = run_octave(
+            to_b(param), loss_fn, data_b, views, len(views), optimizer.lr,
+            optimizer=optimizer, init_opt_state=state_b(opt_state))
+    else:
+        graphs, key = graph
+        g = graphs.load(key, to_b(param), data_b, views, len(views),
+                        optimizer, moved=("xb", "densb", "valid"),
+                        loss_shape=x.shape[:1],
+                        init_opt_state=state_b(opt_state))
+        # the replays read the graph's copies: the binning keeps its slots
+        # alone, so no slot tensor is held twice while they run
+        data_b, bn = None, bn._replace(valid=None)
+        param, losses, state = graphs.replay(key, g, loss_fn, optimizer)
     with span("nfs.splat"):
         state = (AdamState(state.count, from_b(state.mu), from_b(state.nu))
                  if return_state else None)
@@ -206,6 +234,10 @@ class ParticleStyler(StylerBase):
         # frame parks more particles than the warning threshold
         self._k_cache: Dict[Tuple, object] = {}
         self._optimizer = Adam(oc.lr, b1=oc.b1, b2=oc.b2)
+        # the keyframe sequence's octaves as CUDA graphs (_graphed), and
+        # whether a sequence's keyframe loop is running (stylize_keyframes)
+        self._graphs = _OctaveGraphs()
+        self._in_sequence = False
 
     # ---------------------------------------------------------------- #
     # loss pipeline: pure functions of (param, views, data)
@@ -319,12 +351,16 @@ class ParticleStyler(StylerBase):
         sig = (shape, round(scale, 6), rsize)
         if sig in self._loss_cache:
             return self._loss_cache[sig]
+        # the styler caches this closure, so it holds the styler weakly:
+        # a dropped styler, its CUDA graphs' buffers with it, is freed at
+        # once, not when the garbage collector finds the cycle
+        styler = weakref.proxy(self)
 
         def loss_fn(param, views, data):
-            d_grid, c_grid = self._splat_batch(param, data["x"],
-                                               data["dens"], scale, shape)
-            total = self._image_losses(
-                self._render_batch(d_grid, c_grid, views, rsize), data)
+            d_grid, c_grid = styler._splat_batch(param, data["x"],
+                                                 data["dens"], scale, shape)
+            total = styler._image_losses(
+                styler._render_batch(d_grid, c_grid, views, rsize), data)
             if "dx" in param:
                 # keep offsets small (LNST regularizes position changes)
                 total = total + 1e-3 * torch.mean(param["dx"] ** 2,
@@ -349,6 +385,7 @@ class ParticleStyler(StylerBase):
         if sig in self._loss_cache:
             return self._loss_cache[sig]
         window = _uses_window(pc, shape)
+        styler = weakref.proxy(self)    # held weakly, as _get_loss_fn's
 
         def loss_fn(param_b, views, data_b):
             # binned leaves are slot-minor: xb/dx (B, dim, S), densb
@@ -376,14 +413,16 @@ class ParticleStyler(StylerBase):
                 d_grid = splat_binned(pb, dens_eff, valid, shape, K,
                                       kernel=pc.kernel)
             d_grid = d_grid * (scale ** 2)
-            total = self._image_losses(
-                self._render_batch(d_grid, c_grid, views, rsize), data_b)
+            total = styler._image_losses(
+                styler._render_batch(d_grid, c_grid, views, rsize), data_b)
             if "dx" in param_b:
                 # parked + dense slots hold every particle once and empty
-                # slots are zero, so sum / N == the canonical mean
-                total = total + (1e-3 * torch.sum(param_b["dx"] ** 2,
-                                                  dim=(1, 2))
-                                 / data_b["n_dx"])
+                # slots are zero, so sum / (dim N) == the canonical mean;
+                # the (B, dim, n_slots + N) offsets give dim and N
+                dx = param_b["dx"]
+                n_dx = float(dx.shape[-2] * (dx.shape[-1] - valid.shape[-1]))
+                total = total + (1e-3 * torch.sum(dx ** 2, dim=(1, 2))
+                                 / n_dx)
             return total
 
         self._loss_cache[sig] = loss_fn
@@ -397,11 +436,12 @@ class ParticleStyler(StylerBase):
         sig = ("grid_coarse", shape, round(scale, 6), rsize)
         if sig in self._loss_cache:
             return self._loss_cache[sig]
+        styler = weakref.proxy(self)    # held weakly, as _get_loss_fn's
 
         def loss_fn(g, views, data):
             d_grid = data["base_d"] * torch.exp(g)
-            return self._image_losses(
-                self._render_batch(d_grid, None, views, rsize), data)
+            return styler._image_losses(
+                styler._render_batch(d_grid, None, views, rsize), data)
 
         self._loss_cache[sig] = loss_fn
         return loss_fn
@@ -447,10 +487,22 @@ class ParticleStyler(StylerBase):
         gdata = {"pool": data["pool"], "vgg": data["vgg"],
                  "targets": data["targets"], "content": data.get("content"),
                  "base_d": base_d}
-        g, losses, _ = run_octave(
-            torch.zeros_like(base_d), self._get_grid_loss_fn(shape, scale),
-            gdata, views, oc.iters, oc.lr, log_every=oc.log_every,
-            callback=callback, optimizer=self._optimizer)
+        loss_fn = self._get_grid_loss_fn(shape, scale)
+        key = self._octave_key("coarse", shape, scale, base_d, oc.iters)
+        if self._graphed(key):
+            graph = self._graphs.load(
+                key, torch.zeros_like(base_d), gdata, views, oc.iters,
+                self._optimizer, moved=("base_d",),
+                loss_shape=base_d.shape[:1])
+            g, losses, _ = self._graphs.replay(
+                key, graph, loss_fn, self._optimizer, oc.log_every,
+                callback)
+        else:
+            g, losses, _ = run_octave(
+                torch.zeros_like(base_d), loss_fn, gdata, views, oc.iters,
+                oc.lr, log_every=oc.log_every, callback=callback,
+                optimizer=self._optimizer)
+            self._graphs.ran(key)
         if "ddens" in param:
             x = data["x"]
             if "dx" in param:
@@ -509,10 +561,17 @@ class ParticleStyler(StylerBase):
         `particle.rebin_every` iterations; the callback gets each chunk's
         mean loss. Returns (B, iters) losses and (B,) parked counts."""
         oc, pc = self.cfg.optim, self.cfg.particle
-        loss_fn = self._get_binned_loss_fn(tuple(shape), scale, max(ks))
+        shape, K = tuple(shape), max(ks)
+        loss_fn = self._get_binned_loss_fn(shape, scale, K)
         has_dx = "dx" in param
-        dims = math.prod(param["dx"].shape[-2:]) if has_dx else 1
-        chunk_data = dict(data, n_dx=float(dims))
+        # the window kernels' density route alone is graphed: the colour
+        # pass's metrics read its device time under the span
+        # nfs.splat_color, which a replay would hide
+        graphable = "color" not in param and _uses_window(pc, shape)
+        # one bin layout's graphs per octave shape: a plan that changed K
+        # drops the old layout's before this octave runs, eagerly or not
+        self._graphs.drop(lambda k: k[:2] == ("binned", shape)
+                          and k[2:4] != (K, self._leaves(param)))
         # Adam state is fresh per octave: the first chunk starts it in the
         # slot layout, the last one does not move it back
         opt_state = None
@@ -521,11 +580,16 @@ class ParticleStyler(StylerBase):
         done = 0
         while done < oc.iters:
             nst = min(chunk, oc.iters - done)
+            key = self._octave_key("binned", shape, scale, param, nst, K)
+            graph = ((self._graphs, key)
+                     if graphable and self._graphed(key) else None)
             param, opt_state, losses, n_over = _binned_chunk_core(
-                param, opt_state, views[done:done + nst], chunk_data,
-                loss_fn, self._optimizer, tuple(shape), ks, scale,
-                pc.max_offset, has_dx, kernel=pc.kernel,
-                return_state=done + nst < oc.iters)
+                param, opt_state, views[done:done + nst], data, loss_fn,
+                self._optimizer, shape, ks, scale, pc.max_offset, has_dx,
+                kernel=pc.kernel, return_state=done + nst < oc.iters,
+                graph=graph)
+            if graph is None:
+                self._graphs.ran(key)
             done += nst
             all_losses.append(losses)
             overflows.append(n_over)  # stays on the device
@@ -536,6 +600,39 @@ class ParticleStyler(StylerBase):
         # (B, iters) as a view: one chunk's cat stays a plain device copy
         return (param, torch.cat(all_losses).T,
                 torch.stack(overflows).amax(dim=0))
+
+    @staticmethod
+    def _leaves(param) -> tuple:
+        """A param's leaf names and shapes (a tensor's shape)."""
+        if isinstance(param, dict):
+            return tuple((k, tuple(v.shape)) for k, v in param.items())
+        return tuple(param.shape)
+
+    def _octave_key(self, route: str, shape, scale: float, param,
+                    iters: int, K: Optional[int] = None) -> tuple:
+        """What makes one octave's (or binned chunk's) Adam iteration
+        differ from another's other than its inputs' values, so that the
+        graph of an iteration with this key replays for another
+        (:class:`styler.octave._OctaveGraphs`): the route ('coarse' or
+        'binned'), the octave shape, the bins' K, the param's leaves (the
+        batch B with them), the scale and render size (the loss closure),
+        the iterations run, Adam's hyper-parameters and cuDNN's
+        deterministic switch, which is read where the iteration runs."""
+        opt = self._optimizer
+        return (route, tuple(shape), K, self._leaves(param), round(scale, 6),
+                self._octave_render_size(scale), iters,
+                (opt.lr, opt.b1, opt.b2, opt.eps),
+                torch.backends.cudnn.deterministic)
+
+    def _graphed(self, key) -> bool:
+        """Whether an octave (or binned chunk) runs as a CUDA graph: on a
+        GPU, for a 3D grid, in a keyframe sequence's loop
+        (``stylize_keyframes``), with a key that is ready
+        (:meth:`_OctaveGraphs.ready`: run eagerly once, in a sequence's
+        first keyframe). ``stylize_frame`` alone and the keyframe-parallel
+        engine never capture."""
+        return (self._in_sequence and self.device.type == "cuda"
+                and len(self.grid_shape) == 3 and self._graphs.ready(key))
 
     def _keyframe_views(self, generators, schedules, o: int):
         """Per-iteration (B, V, 2) view sets of octave ``o`` for a
@@ -728,16 +825,22 @@ class ParticleStyler(StylerBase):
         params = {}
         prev = None
         self.last_keyframe_infos = {}
-        for i, kf in enumerate(keyframes):
-            with span("nfs.frame", {"frame": kf}):
-                _, p, kf_info = self.stylize_frame(
-                    psets[kf], init_param=prev, generator=generator,
-                    callback=callback,
-                    view_schedule=(None if view_schedule is None
-                                   else view_schedule[i]))
-                params[kf] = p
-                self.last_keyframe_infos[kf] = kf_info
-                prev = {k: v.clone() for k, v in p.items()}
+        # a keyframe's octaves may run as CUDA graphs (_graphed): the first
+        # keyframe runs each key eagerly, the next ones capture it
+        self._in_sequence = True
+        try:
+            for i, kf in enumerate(keyframes):
+                with span("nfs.frame", {"frame": kf}):
+                    _, p, kf_info = self.stylize_frame(
+                        psets[kf], init_param=prev, generator=generator,
+                        callback=callback,
+                        view_schedule=(None if view_schedule is None
+                                       else view_schedule[i]))
+                    params[kf] = p
+                    self.last_keyframe_infos[kf] = kf_info
+                    prev = {k: v.clone() for k, v in p.items()}
+        finally:
+            self._in_sequence = False
         yield from interp_sequence(
             psets, keyframes, params, float(self.cfg.particle.max_offset),
             apply_fn=self.apply_param,

@@ -13,7 +13,8 @@ imports no JAX, so on a machine without it run it as
 
 The CPU tests run the graphed path's control flow (loads, counters,
 callbacks, checkpoints, resume, copies) with a recording stand-in for
-``torch.cuda.graph`` whose replay calls the captured step: bitwise equal
+``torch.cuda.graph`` whose replay calls the captured step
+(``tests/torch_graph_stand_in.py``'s ``stand_in_graphs``): bitwise equal
 to the eager loop once the one place where the two differ, the bias
 correction's division by a Python float, is computed as CUDA computes it
 (the product with its float32 reciprocal). Further CPU tests hold every
@@ -36,6 +37,7 @@ from nfs_tpu_torch.parallel import make_mesh, make_sharded_window_step
 from nfs_tpu_torch.styler import grid as G
 from nfs_tpu_torch.styler import octave as O
 from nfs_tpu_torch.styler import particle as P
+from torch_graph_stand_in import stand_in_graphs  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
 
@@ -112,16 +114,16 @@ class _Record:
 
     def __init__(self, monkeypatch):
         self.octaves = []
-        run_octave, graphs_run = G.run_octave, O._OctaveGraphs.run
+        run_octave, replay = G.run_octave, O._OctaveGraphs.replay
 
         def eager(*a, **k):
             return self._keep(run_octave(*a, **k))
 
         def graphed(graphs, *a, **k):
-            return self._keep(graphs_run(graphs, *a, **k))
+            return self._keep(replay(graphs, *a, **k))
 
         monkeypatch.setattr(G, "run_octave", eager)
-        monkeypatch.setattr(O._OctaveGraphs, "run", graphed)
+        monkeypatch.setattr(O._OctaveGraphs, "replay", graphed)
 
     def _keep(self, out):
         param, losses, state = out
@@ -271,23 +273,29 @@ def test_replayed_octave_does_not_sync(cuda_device, monkeypatch):
     makes no synchronizing call: torch's sync debug mode raises on one."""
     d, v = _inputs(False, 2.0)
     s = _styler(cuda_device, True, {})
-    run, checked = O._OctaveGraphs.run, []
+    checked = []
 
-    def strict(graphs, key, *a, **k):
-        if key not in graphs._graphs:
-            return run(graphs, key, *a, **k)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = run(graphs, key, *a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        checked.append(key)
-        return out
+    def strict(name):
+        real = getattr(O._OctaveGraphs, name)
 
-    monkeypatch.setattr(O._OctaveGraphs, "run", strict)
+        def call(graphs, key, *a, **k):
+            if key not in graphs._graphs:
+                return real(graphs, key, *a, **k)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(graphs, key, *a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            checked.append(name)
+            return out
+        return call
+
+    for name in ("load", "replay"):
+        monkeypatch.setattr(O._OctaveGraphs, name, strict(name))
     for _ in s.stylize_sequence(d, v, fused=0):
         pass
-    assert len(checked) == 2    # frame 2's octaves
+    # frame 2's octaves
+    assert checked.count("load") == checked.count("replay") == 2
 
 
 @pytest.mark.cuda
@@ -384,67 +392,7 @@ def test_cpu_sequence_never_captures():
         pass
     assert (s._graphs.captures, s._graphs.replays) == (0, 0)
     assert not s._graphs._graphs
-    assert not s._graphed(next(iter(s._eager_keys)), True, G._one_slab())
-
-
-class _StandInGraph:
-    """torch.cuda.CUDAGraph's stand-in: replay calls what was captured."""
-    capturing = None
-
-    def __init__(self):
-        self.step = None
-
-    def replay(self):
-        self.step()
-
-
-class _StandInCapture:
-    def __init__(self, graph, pool=None):
-        self.graph = graph
-
-    def __enter__(self):
-        _StandInGraph.capturing = self.graph
-
-    def __exit__(self, *exc):
-        _StandInGraph.capturing = None
-
-
-def _cuda_bias_corrected(x, bc):
-    """The bias correction as CUDA computes it: a tensor over a Python
-    float is the product with the float's float32 reciprocal."""
-    if isinstance(bc, float):
-        bc = torch.tensor([np.float32(1) / np.float32(bc)])
-    return x * bc
-
-
-@pytest.fixture
-def stand_in_graphs(monkeypatch):
-    """The graphed path on the CPU: capture records the step, replay
-    calls it, and the styler's GPU check passes."""
-    step = O._OctaveGraph.step
-
-    def recorded(self, loss_fn, optimizer):
-        if _StandInGraph.capturing is None:
-            return step(self, loss_fn, optimizer)
-        _StandInGraph.capturing.step = (
-            lambda: step(self, loss_fn, optimizer))
-
-    monkeypatch.setattr(O._OctaveGraph, "step", recorded)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
-    monkeypatch.setattr(torch.cuda, "graph", _StandInCapture)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(O, "_bias_corrected", _cuda_bias_corrected)
-    real = G.GridStyler._graphed
-
-    def on_cpu(self, key, graphs, space):
-        device = self.device
-        self.device = torch.device("cuda")
-        try:
-            return real(self, key, graphs, space)
-        finally:
-            self.device = device
-
-    monkeypatch.setattr(G.GridStyler, "_graphed", on_cpu)
+    assert not s._graphed(next(iter(s._graphs._eager)), True, G._one_slab())
 
 
 @pytest.mark.parametrize("case", ["density_w1", "checkpoint_resume",
@@ -502,7 +450,7 @@ def test_launches_count_replays_on_cpu(stand_in_graphs, monkeypatch,
     recorded = O._OctaveGraph.step
 
     def counting(self, loss_fn, optimizer):
-        if _StandInGraph.capturing is not None:
+        if stand_in_graphs.capturing is not None:
             ak.LAUNCHES["fwd"] += 3
         return recorded(self, loss_fn, optimizer)
 
@@ -557,7 +505,7 @@ def test_failed_capture_raises_on_cpu(stand_in_graphs, monkeypatch):
     recorded = O._OctaveGraph.step
 
     def failing(self, loss_fn, optimizer):
-        if _StandInGraph.capturing is not None:
+        if stand_in_graphs.capturing is not None:
             ak.LAUNCHES["fwd"] += 3
             raise RuntimeError("operation not permitted when capturing")
         return recorded(self, loss_fn, optimizer)
